@@ -1,0 +1,35 @@
+"""repro_torch.api: the public surface of the port (declare -> run ->
+query), mirroring ``repro.api``.
+
+    from repro_torch import api
+
+    study = api.Study(
+        workloads={"dense": api.synthetic_timeline(2.0, 0.19),
+                   "moe":   api.synthetic_timeline(3.0, 0.25, moe_notch=True)},
+        fleets=[8192, 32768],
+        configs={"none": None,
+                 "mpf90": (api.GpuPowerSmoothing(mpf_frac=0.9), None)},
+        specs=api.example_specs(job_mw=5.0))
+    result = study.run()                      # on the card
+    result.passing().pivot("workload", "config", "energy_overhead")
+"""
+from repro_torch.core.engine import StreamChunk, stream_batches
+from repro_torch.core.hardware import DEFAULT_HW, Hardware
+from repro_torch.core.phases import IterationTimeline, Phase, synthetic_timeline
+from repro_torch.core.smoothing import (GpuPowerSmoothing, RackBattery, Stack,
+                                        TelemetryBackstop)
+from repro_torch.core.spec import (FrequencyDomainSpec, SpecReport,
+                                   TimeDomainSpec, UtilitySpec, example_specs)
+from repro_torch.core.stratosim import SimResult
+from repro_torch.core.study import MitigationConfig, Study, StudyResult
+from repro_torch.core.waveform import WaveformConfig
+
+__all__ = [
+    "Study", "StudyResult", "MitigationConfig",
+    "stream_batches", "StreamChunk",
+    "IterationTimeline", "Phase", "synthetic_timeline", "WaveformConfig",
+    "Hardware", "DEFAULT_HW",
+    "GpuPowerSmoothing", "RackBattery", "TelemetryBackstop", "Stack",
+    "UtilitySpec", "TimeDomainSpec", "FrequencyDomainSpec", "SpecReport",
+    "example_specs", "SimResult",
+]

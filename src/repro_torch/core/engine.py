@@ -1,0 +1,345 @@
+"""Batched scenario engine: waveform -> mitigation -> spec for a batch of
+scenario rows, as a handful of whole-batch tensor passes on one device.
+
+  ``simulate_batch``  synthesis, aggregation and the device and rack
+                      mitigation stages for rows of one mitigation
+                      structure, with per-row swing and energy metrics.
+  ``analyze_batch``   frequency reports and spec verdicts for same-length
+                      waveforms.
+  ``stream_batches``  the executor behind ``Study.run``: one chunk (the
+                      whole batch) of ``simulate_batch`` reduced to
+                      per-row metrics, analysis grouped by true length.
+
+Rows may mix enabled and disabled (None) stages: ``_normalize_mits``
+returns the enabled rows and an on-mask, the stage runs on the enabled
+rows only, and disabled rows keep the unmitigated waveform.  Mixed
+lengths are edge-padded to one length and masked (``pad_to``): the valid
+region is exact against an unpadded run, metrics are masked reductions,
+and the rack stage sees the pad filled with the valid-region mean, as in
+the reference; a padded row's monitor therefore counts the pad samples as
+live.  The synthesis prefix (chip waveform and raw aggregate) runs once
+per unique (workload, fleet, seed).
+
+Chunked streaming (``chunk_size`` below the row count), sharding and the
+design solvers are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.hardware import DEFAULT_HW, Hardware
+from repro_torch.core.smoothing.base import apply_mitigation, structure
+from repro_torch.core.spec import SpecReport, UtilitySpec, report_from_arrays
+from repro_torch.core.spectrum import critical_band_report
+from repro_torch.core.waveform import (WaveformConfig, aggregate,
+                                       chip_waveform, jitter_shifts,
+                                       phase_levels, swing_stats)
+
+CHUNKED_NOT_PORTED = ("chunked streaming (a chunk smaller than the batch) is "
+                      "not ported yet: ROADMAP queue A, chunked streaming "
+                      "and resume")
+
+
+def _tile(values, B: int, what: str) -> list:
+    values = list(values)
+    if len(values) == 1:
+        return values * B
+    if len(values) != B:
+        raise ValueError(f"{what}: got {len(values)} entries, expected 1 or {B}")
+    return values
+
+
+def _as_list(x) -> list:
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _normalize_mits(mits: Sequence, B: int, what: str
+                    ) -> Tuple[List, Optional[torch.Tensor]]:
+    """Per-row mitigations (None = disabled) -> ``(enabled mitigations,
+    on-mask [B] bool)``; the mask is None when every row is enabled and
+    the list empty when none is."""
+    mits = _tile(mits, B, what)
+    enabled = [m for m in mits if m is not None]
+    if len({structure(m) for m in enabled}) > 1:
+        raise ValueError(f"{what}: one batch needs one mitigation structure")
+    if len(enabled) == len(mits):
+        return enabled, None
+    return enabled, torch.tensor([m is not None for m in mits])
+
+
+def _mask_helpers(n: int, n_valid: torch.Tensor):
+    """(fill_edge, fill_mean, mask) over rows with true lengths
+    ``n_valid`` ``[B]`` inside a padded length ``n``."""
+    mask = torch.arange(n, device=n_valid.device)[None, :] < n_valid[:, None]
+    last = (n_valid - 1)[:, None]
+
+    def fill_edge(w):
+        return torch.where(mask, w, w.gather(-1, last))
+
+    def fill_mean(w):
+        mean = (torch.where(mask, w, 0.0).to(torch.float64).sum(-1, True)
+                / n_valid[:, None]).to(w.dtype)
+        return torch.where(mask, w, mean)
+
+    return fill_edge, fill_mean, mask
+
+
+def _prepare_rows(timelines, n_chips, seeds, device_mitigation,
+                  rack_mitigation, levels, cfg: WaveformConfig, hw: Hardware):
+    """Broadcast every batched argument to a common row count B and expand
+    timelines to per-row ``phase_levels`` arrays (once per timeline)."""
+    tls, chips, seed_list = (_as_list(timelines), _as_list(n_chips),
+                             _as_list(seeds))
+    dev_list, rack_list = (_as_list(device_mitigation),
+                           _as_list(rack_mitigation))
+    B = max(len(tls), len(chips), len(seed_list), len(dev_list),
+            len(rack_list))
+    tls = _tile(tls, B, "timelines")
+    chips = _tile(chips, B, "n_chips")
+    seed_list = _tile(seed_list, B, "seeds")
+    dev_list = _tile(dev_list, B, "device_mitigation")
+    rack_list = _tile(rack_list, B, "rack_mitigation")
+    if levels is not None:
+        level_rows = _tile(list(levels), B, "levels")
+    else:
+        cache: Dict[int, np.ndarray] = {}
+        level_rows = [cache.setdefault(id(tl), phase_levels(tl, cfg, hw))
+                      for tl in tls]
+    return tls, chips, seed_list, dev_list, rack_list, level_rows, B
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """One row per scenario on the engine's device: waveforms ``[B, n]``
+    (row ``i`` valid in its first ``n_valid[i]`` samples), metrics
+    ``[B]``."""
+    dc_raw: torch.Tensor
+    dc_mitigated: torch.Tensor
+    n_valid: torch.Tensor
+    energy_overhead: torch.Tensor
+    swing: Dict[str, torch.Tensor]
+    swing_mitigated: Dict[str, torch.Tensor]
+    aux: Dict
+
+
+def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
+                   = None, *, device_mitigation=None, rack_mitigation=None,
+                   hw: Hardware = DEFAULT_HW, seeds=0,
+                   sample_chips: int = 64,
+                   levels: Optional[Sequence[np.ndarray]] = None,
+                   pad_to: Optional[int] = None,
+                   device="cuda") -> BatchResult:
+    """Simulate a batch of scenario rows of one mitigation structure.
+
+    Each batched argument is a singleton (broadcast) or a length-B
+    sequence; mitigation rows may be None (disabled).  Without ``pad_to``
+    every row must expand to the same sample count; with it, rows are
+    edge-padded to ``pad_to`` and masked.
+    """
+    cfg = wave_cfg or WaveformConfig()
+    dt = cfg.dt
+    device = torch.device(device)
+    (_, chips, seed_list, dev_list, rack_list, level_rows,
+     B) = _prepare_rows(timelines, n_chips, seeds, device_mitigation,
+                        rack_mitigation, levels, cfg, hw)
+    src_ids = [id(r) for r in level_rows]
+    lens = [len(r) for r in level_rows]
+    if pad_to is None:
+        if len(set(lens)) > 1:
+            raise ValueError(
+                "all rows of one simulate_batch call must expand to the same "
+                f"sample count (got {sorted(set(lens))}): pass pad_to")
+        n = lens[0]
+    else:
+        if max(lens) > pad_to:
+            raise ValueError(f"pad_to={pad_to} < longest workload {max(lens)}")
+        n = pad_to
+    n_valid = torch.tensor(lens, dtype=torch.int64, device=device)
+
+    # -- synthesis prefix, once per unique (workload, fleet, seed)
+    uniq: Dict[Tuple, int] = {}
+    u_rows: List[int] = []
+    u_idx: List[int] = []
+    for i, key in enumerate(zip(src_ids, chips, seed_list)):
+        if key not in uniq:
+            uniq[key] = len(u_rows)
+            u_rows.append(i)
+        u_idx.append(uniq[key])
+    u_idx_t = torch.tensor(u_idx, device=device)
+    shifts = torch.tensor(np.stack(
+        [jitter_shifts(cfg, s, sample_chips) for s in seed_list]),
+        device=device)
+    chips_t = torch.tensor(np.asarray(chips, np.float32), device=device)
+    lv = np.stack([np.pad(level_rows[i], (0, n - lens[i]), mode="edge")
+                   for i in u_rows])
+    u_sel = torch.tensor(u_rows, device=device)
+    fill_edge_u, _, _ = _mask_helpers(n, n_valid[u_sel])
+    chip_u = fill_edge_u(chip_waveform(
+        torch.as_tensor(lv, dtype=torch.float32, device=device), dt, hw,
+        edp_spikes=cfg.edp_spikes, include_host=cfg.include_host))
+    dcraw_u = aggregate(chip_u, chips_t[u_sel], shifts[u_sel], hw)
+
+    _, fill_mean, mask = _mask_helpers(n, n_valid)
+    dc_raw = dcraw_u[u_idx_t]
+    dc = dc_raw
+    aux: Dict = {}
+
+    # -- device stage on the per-chip waveform, then re-aggregation
+    devs, dev_on = _normalize_mits(dev_list, B, "device_mitigation")
+    if devs:
+        on = (torch.arange(B, device=device) if dev_on is None
+              else dev_on.nonzero().squeeze(1).to(device))
+        chip_m, aux["device"] = apply_mitigation(devs, chip_u[u_idx_t[on]],
+                                                 dt)
+        chip_m = _mask_helpers(n, n_valid[on])[0](chip_m)
+        dc = dc.clone()
+        dc[on] = aggregate(chip_m, chips_t[on], shifts[on], hw)
+
+    # -- rack stage on the aggregate, pad filled with the valid mean
+    racks, rack_on = _normalize_mits(rack_list, B, "rack_mitigation")
+    if racks:
+        dc = fill_mean(dc)
+        on = (torch.arange(B, device=device) if rack_on is None
+              else rack_on.nonzero().squeeze(1).to(device))
+        out, aux["rack"] = apply_mitigation(racks, dc[on], dt)
+        dc[on] = out
+
+    m = mask.to(torch.float64)
+    e_in = (dc_raw.to(torch.float64) * m).sum(-1)
+    e_out = (dc.to(torch.float64) * m).sum(-1)
+    return BatchResult(
+        dc_raw=dc_raw, dc_mitigated=dc, n_valid=n_valid,
+        energy_overhead=((e_out - e_in) / torch.clamp(e_in, min=1e-12)
+                         ).to(torch.float32),
+        swing=swing_stats(dc_raw, n_valid),
+        swing_mitigated=swing_stats(dc, n_valid), aux=aux)
+
+
+def analyze_batch(dc_mitigated: torch.Tensor, dt: float,
+                  spec: Optional[UtilitySpec] = None, *, bands: bool = True
+                  ) -> Dict:
+    """Frequency report and spec verdicts for same-length waveforms
+    ``[B, L]``: ``{"bands_mitigated": ..., "spec_ok", "spec_flags",
+    "spec_metrics"}``, each a tensor or dict of tensors ``[B]``."""
+    out: Dict = {}
+    if bands:
+        out["bands_mitigated"] = critical_band_report(dc_mitigated, dt)
+    if spec is not None:
+        ok, flags, metrics = spec.validate(dc_mitigated, dt)
+        out["spec_ok"], out["spec_flags"] = ok, flags
+        out["spec_metrics"] = metrics
+    return out
+
+
+@dataclasses.dataclass
+class StreamChunk:
+    """Per-row metrics (host numpy) of rows ``start:stop`` of a
+    ``stream_batches`` run.  ``spec_*`` align with the stream's ``specs``
+    (None entries for a None spec); ``spec_metrics`` holds one dict per
+    row because the metric key set depends on the row's true length."""
+    start: int
+    stop: int
+    n: int
+    n_valid: np.ndarray
+    energy_overhead: np.ndarray
+    swing: Dict[str, np.ndarray]
+    swing_mitigated: Dict[str, np.ndarray]
+    bands_mitigated: Optional[Dict[str, np.ndarray]]
+    spec_ok: List[Optional[np.ndarray]]
+    spec_flags: List[Optional[Dict[str, np.ndarray]]]
+    spec_metrics: List[Optional[List[Dict[str, float]]]]
+
+    def __len__(self) -> int:
+        return self.stop - self.start
+
+    def length(self, i: int) -> int:
+        return int(self.n_valid[i])
+
+    def report(self, si: int, i: int) -> Optional[SpecReport]:
+        if self.spec_ok[si] is None:
+            return None
+        flags = {k: v[i] for k, v in self.spec_flags[si].items()}
+        return report_from_arrays(self.spec_ok[si][i], flags,
+                                  self.spec_metrics[si][i])
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.cpu().numpy()
+
+
+def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
+                   = None, *, device_mitigation=None, rack_mitigation=None,
+                   specs=None, hw: Hardware = DEFAULT_HW, seeds=0,
+                   sample_chips: int = 64,
+                   levels: Optional[Sequence[np.ndarray]] = None,
+                   pad_to: Optional[int] = None,
+                   chunk_size: Optional[int] = None, bands: bool = True,
+                   device="cuda"):
+    """Yield the metrics of a scenario batch as ``StreamChunk``s.
+
+    This port runs the batch as one chunk: ``chunk_size`` must be None or
+    at least the row count.  The chunk runs ``simulate_batch`` (padding to
+    the longest row when lengths mix) and then reduces to metrics on the
+    device: swing and energy per row, and, per group of rows of one true
+    length, the frequency bands (for the first spec slot) and every
+    spec's verdicts on the valid prefix.  Only per-row metrics reach the
+    host.
+    """
+    cfg = wave_cfg or WaveformConfig()
+    (tls, chips, seed_list, dev_list, rack_list, level_rows,
+     B) = _prepare_rows(timelines, n_chips, seeds, device_mitigation,
+                        rack_mitigation, levels, cfg, hw)
+    if chunk_size is not None and chunk_size < B:
+        raise NotImplementedError(CHUNKED_NOT_PORTED)
+    spec_list = list(specs) if isinstance(specs, (list, tuple)) else [specs]
+    lens = [len(r) for r in level_rows]
+    if pad_to is None and len(set(lens)) > 1:
+        pad_to = max(lens)
+    res = simulate_batch(tls, chips, cfg, device_mitigation=dev_list,
+                         rack_mitigation=rack_list, hw=hw, seeds=seed_list,
+                         sample_chips=sample_chips, levels=level_rows,
+                         pad_to=pad_to, device=device)
+    S = len(spec_list)
+    chunk = StreamChunk(
+        start=0, stop=B, n=res.dc_mitigated.shape[1],
+        n_valid=np.asarray(lens, np.int64),
+        energy_overhead=_host(res.energy_overhead),
+        swing=_host(res.swing), swing_mitigated=_host(res.swing_mitigated),
+        bands_mitigated=None, spec_ok=[None] * S, spec_flags=[None] * S,
+        spec_metrics=[None] * S)
+    groups: Dict[int, List[int]] = {}
+    for i, L in enumerate(lens):
+        groups.setdefault(L, []).append(i)
+    bands_cols: Dict[str, np.ndarray] = {}
+    for L, g in sorted(groups.items()):
+        sel = torch.tensor(g, device=res.dc_mitigated.device)
+        mit = res.dc_mitigated[sel, :L]
+        for si, sp in enumerate(spec_list):
+            do_bands = bands and si == 0
+            if sp is None and not do_bands:
+                continue
+            a = _host(analyze_batch(mit, cfg.dt, sp, bands=do_bands))
+            for k, v in a.get("bands_mitigated", {}).items():
+                bands_cols.setdefault(k, np.empty(B, v.dtype))[g] = v
+            if sp is None:
+                continue
+            if chunk.spec_ok[si] is None:
+                chunk.spec_ok[si] = np.zeros(B, bool)
+                chunk.spec_flags[si] = {k: np.zeros(B, bool)
+                                        for k in a["spec_flags"]}
+                chunk.spec_metrics[si] = [None] * B
+            chunk.spec_ok[si][g] = a["spec_ok"]
+            for k, v in a["spec_flags"].items():
+                chunk.spec_flags[si][k][g] = v
+            for j, i in enumerate(g):
+                chunk.spec_metrics[si][i] = {
+                    k: float(v[j]) for k, v in a["spec_metrics"].items()}
+    if bands_cols:
+        chunk.bands_mitigated = bands_cols
+    yield chunk

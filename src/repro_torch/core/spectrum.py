@@ -1,0 +1,92 @@
+"""Frequency-domain analysis of power waveforms (paper Fig. 3, Sec. III).
+
+Every function takes a batch of same-length waveforms ``[B, n]`` and
+returns one value per row, on one ``torch.fft.rfft`` of the Hann-windowed
+AC component (float32, as in the reference).  Band edges and ``dt`` select
+FFT bins on the host.  The streaming per-bin monitor the backstop runs
+lives in ``kernels/goertzel``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def spectrum(x: torch.Tensor, dt: float) -> Tuple[np.ndarray, torch.Tensor]:
+    """One-sided amplitude spectrum ``[B, n//2 + 1]`` of the AC component,
+    with its bin frequencies (host numpy)."""
+    x = x.to(torch.float32)
+    n = x.shape[-1]
+    xac = x - x.to(torch.float64).mean(-1, keepdim=True).to(torch.float32)
+    hann = torch.as_tensor(np.hanning(n), dtype=torch.float32,
+                           device=x.device)
+    mag = torch.fft.rfft(xac * hann, dim=-1).abs()
+    mag = mag * 2.0 / n
+    return np.fft.rfftfreq(n, dt), mag
+
+
+def _band_mask(freqs: np.ndarray, f_lo: float, f_hi: float) -> np.ndarray:
+    sel = (freqs >= f_lo) & (freqs <= f_hi)
+    sel[0] = False  # DC is not part of the AC energy budget
+    return sel
+
+
+def _bins(mask: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """Host bin mask -> index tensor (a boolean index on the device would
+    wait for the device to count the hits)."""
+    return torch.as_tensor(np.flatnonzero(mask), device=like.device)
+
+
+def _band_fraction(e: torch.Tensor, tot: torch.Tensor, freqs: np.ndarray,
+                   f_lo: float, f_hi: float) -> torch.Tensor:
+    val = (e.index_select(-1, _bins(_band_mask(freqs, f_lo, f_hi), e)).sum(-1)
+           / torch.clamp(tot, min=1e-30))
+    return torch.where(tot > 0, val, torch.zeros_like(val))
+
+
+def band_energy_fraction(x: torch.Tensor, dt: float,
+                         f_lo: float, f_hi: float) -> torch.Tensor:
+    """Fraction of total AC spectral energy inside [f_lo, f_hi]."""
+    freqs, mag = spectrum(x, dt)
+    e = mag ** 2
+    return _band_fraction(e, e[:, 1:].sum(-1), freqs, f_lo, f_hi)
+
+
+def band_amplitude_w(x: torch.Tensor, dt: float,
+                     f_lo: float, f_hi: float) -> torch.Tensor:
+    """Peak single-bin amplitude (watts) inside the band."""
+    freqs, mag = spectrum(x, dt)
+    sel = (freqs >= f_lo) & (freqs <= f_hi)
+    if not sel.any():
+        return torch.zeros(mag.shape[0], device=mag.device)
+    return mag.index_select(-1, _bins(sel, mag)).amax(-1)
+
+
+def dominant_frequency(x: torch.Tensor, dt: float) -> torch.Tensor:
+    freqs, mag = spectrum(x, dt)
+    return _dominant(freqs, mag)
+
+
+def _dominant(freqs: np.ndarray, mag: torch.Tensor) -> torch.Tensor:
+    if len(freqs) < 2:
+        return torch.zeros(mag.shape[0], device=mag.device)
+    f = torch.as_tensor(freqs, dtype=torch.float32, device=mag.device)
+    return f[1:][torch.argmax(mag[:, 1:], dim=-1)]
+
+
+def critical_band_report(x: torch.Tensor, dt: float
+                         ) -> Dict[str, torch.Tensor]:
+    """The paper's bands: <1 Hz (inter-area), 1-2.5 Hz (plant coupling),
+    7-100 Hz (shaft torsional), on one rfft per row."""
+    freqs, mag = spectrum(x, dt)
+    e = mag ** 2
+    tot = e[:, 1:].sum(-1)
+    return {
+        "sub_1hz": _band_fraction(e, tot, freqs, 0.05, 1.0),
+        "plant_1_2p5hz": _band_fraction(e, tot, freqs, 1.0, 2.5),
+        "torsional_7_100hz": _band_fraction(e, tot, freqs, 7.0, 100.0),
+        "paper_band_0p2_3hz": _band_fraction(e, tot, freqs, 0.2, 3.0),
+        "dominant_hz": _dominant(freqs, mag),
+    }

@@ -1,0 +1,465 @@
+"""Declarative Study API: declare scenario axes once, run the grid as a
+few whole-batch passes on the card, query the results.
+
+  study = Study(
+      workloads={"dense_2s": synthetic_timeline(2.0, 0.19),
+                 "moe_3s": synthetic_timeline(3.0, 0.25, moe_notch=True)},
+      fleets=[256, 512],
+      configs={"none": None, "mpf90+bat": (gpu, battery)},
+      specs=example_specs(job_mw=100.0),
+      seeds=[0, 1])
+  result = study.run()
+  result.passing().pivot("workload", "config", "energy_overhead")
+
+Rows are grouped by mitigation *structure* (a disabled stage joins the
+first concrete structure); ``padding="pad"`` runs each group's mixed
+lengths as one padded batch, ``"bucket"`` one batch per length, and
+``"auto"`` pads iff lengths mix.  Physics runs once per (workload, fleet,
+config, seed) row; each spec then judges every row.  Results come back
+as a columnar ``StudyResult``.
+
+``device=None`` means ``"cuda"``, and a run without a card raises unless
+the caller asked for ``device="cpu"`` (the kernels' plain versions).
+Chunked streaming (``stream=``), ``resume=``, scenario sharding
+(``plan=``) and ``optimize()`` are not ported yet and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import StreamChunk, stream_batches
+from repro_torch.core.hardware import DEFAULT_HW, Hardware
+from repro_torch.core.phases import IterationTimeline
+from repro_torch.core.smoothing.base import structure
+from repro_torch.core.spec import UtilitySpec
+from repro_torch.core.waveform import WaveformConfig, phase_levels
+
+PADDING_MODES = ("auto", "pad", "bucket")
+
+NOT_PORTED = {
+    "stream": "Study.run(stream=...) is not ported yet: ROADMAP queue A, "
+              "chunked streaming and resume",
+    "resume": "Study.run(resume=...) is not ported yet: ROADMAP queue A, "
+              "chunked streaming and resume",
+    "plan": "scenario sharding (plan=, shard_devices=) is not ported yet: "
+            "ROADMAP queue A, parallel/",
+    "optimize": "Study.optimize() is not ported yet: ROADMAP queue A, the "
+                "differentiable design path",
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card.  Without one, only an explicit ``"cpu"``
+    runs: a study never quietly falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the plain PyTorch versions on the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# axis declarations
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MitigationConfig:
+    """One named point on the mitigation axis.  Either stage may be None;
+    the fully-disabled config is the unmitigated baseline."""
+    name: str
+    device: Optional[object] = None
+    rack: Optional[object] = None
+
+
+def _one_config(name: str, entry) -> MitigationConfig:
+    if entry is None:
+        return MitigationConfig(name)
+    if isinstance(entry, MitigationConfig):
+        return entry if entry.name == name else dataclasses.replace(entry,
+                                                                    name=name)
+    if isinstance(entry, (tuple, list)) and len(entry) == 2:
+        return MitigationConfig(name, device=entry[0], rack=entry[1])
+    raise TypeError(
+        f"config {name!r}: expected None, MitigationConfig, or a "
+        f"(device_mitigation, rack_mitigation) pair, got {type(entry).__name__}"
+        " (a bare mitigation is ambiguous between the per-chip device stage"
+        " and the aggregate rack stage)")
+
+
+def _as_configs(configs) -> List[MitigationConfig]:
+    if configs is None:
+        return [MitigationConfig("none")]
+    if isinstance(configs, MitigationConfig):
+        return [configs]
+    if isinstance(configs, Mapping):
+        return [_one_config(name, entry) for name, entry in configs.items()]
+    out = []
+    for i, entry in enumerate(configs):
+        default = "none" if entry is None else f"config{i}"
+        name = entry.name if isinstance(entry, MitigationConfig) else default
+        out.append(_one_config(name, entry))
+    return out
+
+
+def _as_workloads(workloads) -> Dict[str, IterationTimeline]:
+    if isinstance(workloads, IterationTimeline):
+        return {"workload0": workloads}
+    if isinstance(workloads, Mapping):
+        return dict(workloads)
+    return {f"workload{i}": tl for i, tl in enumerate(workloads)}
+
+
+def _as_specs(specs) -> List[Tuple[Optional[str], Optional[UtilitySpec]]]:
+    if specs is None:
+        return [(None, None)]
+    if isinstance(specs, UtilitySpec):
+        return [(specs.name, specs)]
+    if isinstance(specs, Mapping):
+        return [(name, s) for name, s in specs.items()]
+    return [(s.name, s) for s in specs]
+
+
+def _as_seq(x) -> list:
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+# ---------------------------------------------------------------------------
+# row-level execution
+# ---------------------------------------------------------------------------
+
+def _structure_groups(rows) -> List[List[int]]:
+    """Row indices grouped by (device, rack) structure.  A None stage is a
+    wildcard: it takes the first concrete structure of its stage."""
+    def struct(m):
+        return None if m is None else structure(m)
+
+    dev_first = next((struct(c.device) for _, _, c, _ in rows
+                      if c.device is not None), None)
+    rack_first = next((struct(c.rack) for _, _, c, _ in rows
+                       if c.rack is not None), None)
+    groups: Dict[Tuple, List[int]] = {}
+    for r, (_, _, c, _) in enumerate(rows):
+        k = (struct(c.device) if c.device is not None else dev_first,
+             struct(c.rack) if c.rack is not None else rack_first)
+        groups.setdefault(k, []).append(r)
+    return list(groups.values())
+
+
+def run_rows(workloads: Mapping[str, IterationTimeline],
+             rows: Sequence[Tuple[str, int, MitigationConfig, int]],
+             specs: Sequence[Tuple[Optional[str], Optional[UtilitySpec]]],
+             *, wave_cfg: Optional[WaveformConfig] = None,
+             hw: Hardware = DEFAULT_HW, padding: str = "auto",
+             sample_chips: int = 64, device=None) -> "StudyResult":
+    """Run an explicit list of pipeline rows ``(workload_name, n_chips,
+    MitigationConfig, seed)`` and return the columnar ``StudyResult``
+    (record ``r * len(specs) + si`` is row ``r`` under spec ``si``)."""
+    dev = resolve_device(device)
+    cfg = wave_cfg or WaveformConfig()
+    if padding not in PADDING_MODES:
+        raise ValueError(f"padding must be one of {PADDING_MODES}")
+    rows, specs = list(rows), list(specs)
+    levels = {w: phase_levels(workloads[w], cfg, hw)
+              for w in {w for w, _, _, _ in rows}}
+    row_len = [len(levels[w]) for w, _, _, _ in rows]
+    mode = padding
+    if mode == "auto":
+        mode = "pad" if len(set(row_len)) > 1 else "bucket"
+    cols = _empty_columns(len(rows) * len(specs))
+    for sg_rows in _structure_groups(rows):
+        if mode == "pad":
+            calls = [sg_rows]
+        else:
+            by_len: Dict[int, List[int]] = {}
+            for r in sg_rows:
+                by_len.setdefault(row_len[r], []).append(r)
+            calls = [idx for _, idx in sorted(by_len.items())]
+        for idx in calls:
+            lens = {row_len[r] for r in idx}
+            for ch in stream_batches(
+                    [workloads[rows[r][0]] for r in idx],
+                    [rows[r][1] for r in idx], cfg,
+                    device_mitigation=[rows[r][2].device for r in idx],
+                    rack_mitigation=[rows[r][2].rack for r in idx],
+                    specs=[sp for _, sp in specs], hw=hw,
+                    seeds=[rows[r][3] for r in idx],
+                    sample_chips=sample_chips,
+                    levels=[levels[rows[r][0]] for r in idx],
+                    pad_to=max(lens) if len(lens) > 1 else None,
+                    bands=True, device=dev):
+                _fill_chunk(cols, rows, row_len, idx, ch, specs=specs,
+                            workloads=workloads)
+    return StudyResult(columns=cols)
+
+
+def _fill_chunk(cols: Dict[str, np.ndarray], rows, row_len, idx: List[int],
+                ch: StreamChunk, *, specs, workloads) -> None:
+    """Write one ``StreamChunk``'s metrics into the columnar record
+    store (record position = pipeline row * n_specs + spec index)."""
+    S = len(specs)
+    for j in range(len(ch)):
+        r = idx[ch.start + j]
+        wname, n_chips, config, seed = rows[r]
+        base = {
+            "row": r, "workload": wname, "n_chips": n_chips,
+            "config": config.name, "seed": seed,
+            "period_s": float(workloads[wname].period_s),
+            "n_samples": row_len[r],
+            "mean_mw": float(ch.swing["mean_w"][j]) / 1e6,
+            "swing_mw": float(ch.swing["swing_w"][j]) / 1e6,
+            "swing_mitigated_mw":
+                float(ch.swing_mitigated["swing_w"][j]) / 1e6,
+            "energy_overhead": float(ch.energy_overhead[j]),
+            "paper_band_frac":
+                float(ch.bands_mitigated["paper_band_0p2_3hz"][j]),
+            "designed": False,
+        }
+        for si, (spec_name, spec) in enumerate(specs):
+            p = r * S + si
+            for k, v in base.items():
+                cols[k][p] = v
+            cols["spec"][p] = spec_name
+            if spec is None:
+                cols["spec_ok"][p] = None
+                cols["violations"][p] = ()
+                continue
+            report = ch.report(si, j)
+            cols["spec_ok"][p] = report.ok
+            cols["violations"][p] = report.violations
+            # spec metrics live in numeric side columns "metrics:<name>"
+            # (NaN = not measured for this record), not per-record dicts
+            for mk, mv in report.metrics.items():
+                mc = cols.get("metrics:" + mk)
+                if mc is None:
+                    mc = cols["metrics:" + mk] = np.full(len(cols["index"]),
+                                                         np.nan)
+                mc[p] = mv
+
+
+# ---------------------------------------------------------------------------
+# the study
+# ---------------------------------------------------------------------------
+
+class Study:
+    """A declared scenario grid; ``run()`` runs it on ``device``.
+
+    Axes (each a singleton or a collection):
+      workloads  name -> IterationTimeline (dict, sequence, or one timeline)
+      fleets     chip counts
+      configs    name -> None | MitigationConfig | (device, rack) pair
+      specs      None | UtilitySpec | dict name -> spec | sequence
+      seeds      jitter seeds (per-chip phase jitter draws)
+    """
+
+    def __init__(self, workloads, *, fleets=(512,), configs=None,
+                 specs=None, seeds=(0,),
+                 wave_cfg: Optional[WaveformConfig] = None,
+                 hw: Hardware = DEFAULT_HW, padding: str = "auto",
+                 sample_chips: int = 64, device=None, plan=None):
+        if padding not in PADDING_MODES:
+            raise ValueError(f"padding must be one of {PADDING_MODES}")
+        if plan is not None:
+            raise NotImplementedError(NOT_PORTED["plan"])
+        self.workloads = _as_workloads(workloads)
+        self.fleets = [int(n) for n in _as_seq(fleets)]
+        self.configs = _as_configs(configs)
+        self.specs = _as_specs(specs)
+        self.seeds = [int(s) for s in _as_seq(seeds)]
+        self.wave_cfg = wave_cfg or WaveformConfig()
+        self.hw = hw
+        self.padding = padding
+        self.sample_chips = sample_chips
+        self.device = device
+        names = [c.name for c in self.configs]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate config names: {names}")
+
+    @property
+    def n_rows(self) -> int:
+        """Pipeline rows: the grid without the (physics-free) spec axis."""
+        return (len(self.workloads) * len(self.fleets) * len(self.configs)
+                * len(self.seeds))
+
+    def __len__(self) -> int:
+        return self.n_rows * len(self.specs)
+
+    def rows(self) -> List[Tuple[str, int, MitigationConfig, int]]:
+        """Pipeline rows in study order: workload-major, then fleet,
+        config, seed."""
+        return [(w, n, c, s)
+                for w in self.workloads for n in self.fleets
+                for c in self.configs for s in self.seeds]
+
+    def describe(self) -> str:
+        lens = sorted({len(phase_levels(tl, self.wave_cfg, self.hw))
+                       for tl in self.workloads.values()})
+        return (f"Study: {len(self.workloads)} workloads x "
+                f"{len(self.fleets)} fleets x {len(self.configs)} configs x "
+                f"{len(self.seeds)} seeds = {self.n_rows} scenarios "
+                f"({len(self.specs)} specs -> {len(self)} records); "
+                f"waveform lengths {lens}, padding={self.padding}")
+
+    def run(self, *, padding: Optional[str] = None, stream=None,
+            resume: Optional[str] = None) -> "StudyResult":
+        """Run the whole grid as one batch per structure group (and per
+        length in bucket mode) on the study's device."""
+        if stream not in (None, False):
+            raise NotImplementedError(NOT_PORTED["stream"])
+        if resume is not None:
+            raise NotImplementedError(NOT_PORTED["resume"])
+        return run_rows(self.workloads, self.rows(), self.specs,
+                        wave_cfg=self.wave_cfg, hw=self.hw,
+                        padding=padding or self.padding,
+                        sample_chips=self.sample_chips, device=self.device)
+
+    def optimize(self, **_):
+        raise NotImplementedError(NOT_PORTED["optimize"])
+
+
+# ---------------------------------------------------------------------------
+# results
+# ---------------------------------------------------------------------------
+
+# the columnar record schema (field order = record dict key order)
+_COLUMN_DTYPES = (
+    ("index", np.int64), ("row", np.int64), ("workload", object),
+    ("n_chips", np.int64), ("config", object), ("spec", object),
+    ("seed", np.int64), ("period_s", np.float64), ("n_samples", np.int64),
+    ("mean_mw", np.float64), ("swing_mw", np.float64),
+    ("swing_mitigated_mw", np.float64), ("energy_overhead", np.float64),
+    ("paper_band_frac", np.float64), ("designed", np.bool_),
+    ("spec_ok", object), ("violations", object),
+)
+
+
+def _empty_columns(n: int) -> Dict[str, np.ndarray]:
+    cols = {k: np.empty(n, dtype=dt) for k, dt in _COLUMN_DTYPES}
+    cols["index"] = np.arange(n, dtype=np.int64)
+    return cols
+
+
+def _to_py(v):
+    """numpy scalar -> the python scalar a record holds."""
+    if isinstance(v, np.bool_):
+        return bool(v)
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    return v
+
+
+class StudyResult:
+    """Flat scenario records with query helpers, stored columnar.
+
+    Each record is one (workload, fleet, config, seed, spec) cell:
+    identity fields, swing/overhead/band metrics and, when a spec was
+    declared, ``spec_ok`` / ``violations`` / the spec's metric dict
+    (stored as ``metrics:<name>`` side columns, NaN where a record's spec
+    did not measure that key).  Record dicts are built on demand.
+    """
+
+    def __init__(self, columns: Dict[str, np.ndarray]):
+        self._cols = columns
+        self._n = len(columns["index"])
+
+    def _row(self, i: int) -> Dict:
+        rec = {k: _to_py(col[i]) for k, col in self._cols.items()
+               if not k.startswith("metrics:")}
+        rec["metrics"] = {k[8:]: _to_py(col[i])
+                          for k, col in self._cols.items()
+                          if k.startswith("metrics:")
+                          and not np.isnan(col[i])}
+        return rec
+
+    @property
+    def records(self) -> List[Dict]:
+        return [self._row(i) for i in range(self._n)]
+
+    @property
+    def columns(self) -> Dict[str, np.ndarray]:
+        return self._cols
+
+    def _field(self, name: str):
+        col = self._cols.get(name)
+        return [None] * self._n if col is None else col
+
+    def _subset(self, keep: Sequence[int]) -> "StudyResult":
+        idx = np.asarray(keep, dtype=np.int64)
+        return StudyResult({k: col[idx] for k, col in self._cols.items()})
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __iter__(self) -> Iterator[Dict]:
+        return (self._row(i) for i in range(self._n))
+
+    def __getitem__(self, i: int) -> Dict:
+        return self._row(i)
+
+    def filter(self, **where) -> "StudyResult":
+        """Records whose field equals the given value (or is contained in
+        it, when a list/tuple/set is given): ``filter(workload="moe_3s",
+        config=["none", "mpf90"])``."""
+        fields = {k: self._field(k) for k in where}
+        keep = []
+        for i in range(self._n):
+            for k, v in where.items():
+                got = _to_py(fields[k][i])
+                if isinstance(v, (list, tuple, set, frozenset)):
+                    if got not in v:
+                        break
+                elif got != v:
+                    break
+            else:
+                keep.append(i)
+        return self._subset(keep)
+
+    def passing(self) -> "StudyResult":
+        ok = self._field("spec_ok")
+        return self._subset([i for i in range(self._n) if ok[i]])
+
+    def pivot(self, index: str, columns: str,
+              values: str = "spec_ok") -> Dict:
+        """Nested dict table: ``pivot("workload", "config",
+        "energy_overhead")[w][c]``.  Cells with several matching records
+        keep the first."""
+        idx_v, col_v = self._field(index), self._field(columns)
+        val_v = self._field(values)
+        out: Dict = {}
+        for i in range(self._n):
+            out.setdefault(_to_py(idx_v[i]), {}).setdefault(
+                _to_py(col_v[i]), _to_py(val_v[i]))
+        return out
+
+    def table(self, columns: Optional[Sequence[str]] = None) -> str:
+        """Records as a markdown table (spec verdicts rendered PASS/fail)."""
+        if not self._n:
+            return "(no records)"
+        columns = list(columns or [
+            "workload", "n_chips", "config", "spec", "seed", "swing_mw",
+            "swing_mitigated_mw", "energy_overhead", "spec_ok"])
+
+        def cell(r, c):
+            v = r.get(c)
+            if c == "spec_ok" and v is not None:
+                return "PASS" if v else ",".join(r["violations"]) or "FAIL"
+            if isinstance(v, float):
+                return f"{v:.4g}"
+            return str(v)
+
+        lines = ["| " + " | ".join(columns) + " |",
+                 "|" + "---|" * len(columns)]
+        lines += ["| " + " | ".join(cell(r, c) for c in columns) + " |"
+                  for r in self]
+        return "\n".join(lines)
+
+    def to_records(self) -> List[Dict]:
+        """JSON-safe copies (tuples -> lists) of every record."""
+        return json.loads(json.dumps(self.records, default=list))

@@ -1,0 +1,137 @@
+"""Shared monitor gating: the warm-up ramp and the escalation state
+machine of the telemetry backstop (paper Sec. IV-A/E).
+
+``escalation_classify`` reduces a monitored amplitude to a sample class;
+``escalation_class_step`` is one transition of the threshold-with-
+hysteresis machine on a class; ``escalation_scan`` folds the machine over
+a batch of class streams ``[B, n]``.  On a CUDA tensor the fold runs as
+kernel D (``kernels/scans/csrc/escalation.cu``, one thread per row); on a
+CPU tensor it runs ``escalation_scan_plain``, a Python loop over samples
+of ``escalation_class_step``.
+
+The carry is an int64 ``[B, 4]`` tensor ``(level, above, below,
+detect)``; sample indices are int64, so ``detect`` is exact at any trace
+length.  ``TelemetrySource`` (telemetry noise) is not ported yet.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple, Union
+
+import torch
+
+from repro_torch.kernels.build import CudaKernel, ptr, stream_of
+
+#: escalation sample classes.  CLS_PAD is the identity transition.
+CLS_CLEAR, CLS_BAND, CLS_HIT, CLS_PAD = 0, 1, 2, 3
+
+ESCALATION_KERNEL = CudaKernel(
+    "scans/csrc/escalation.cu", "escalation_launch",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_longlong] * 4
+    + [ctypes.c_void_p])
+
+
+def warmup_scale(idx: torch.Tensor, win: int) -> torch.Tensor:
+    """The sliding monitor's warm-up renormalization ``win / min(i+1, win)``
+    at global sample index ``idx`` (any integer dtype), in float32."""
+    denom = torch.clamp(idx + 1, max=win).to(torch.float32)
+    # a true division: ``float / tensor`` would multiply by the reciprocal
+    return torch.div(torch.tensor(float(win), device=denom.device), denom)
+
+
+def escalation_init(rows: int, device=None) -> torch.Tensor:
+    """Initial carry ``[rows, 4]``: level 0, counters 0, detect -1."""
+    carry = torch.zeros((rows, 4), dtype=torch.int64, device=device)
+    carry[:, 3] = -1
+    return carry
+
+
+def escalation_classify(amp: torch.Tensor, idx: torch.Tensor, *,
+                        threshold, win: int, n, release=None
+                        ) -> torch.Tensor:
+    """Sample class (int8): 2 above ``threshold`` and live, 0 at or below
+    ``release`` (default ``threshold``) or not live, 1 in between.  Live
+    means ``win - 1 <= idx < n``.  ``threshold``/``release`` broadcast
+    against ``amp``; ``release <= threshold`` is required."""
+    live = (idx >= win - 1) & (idx < n)
+    hit = (amp > threshold) & live
+    rel = threshold if release is None else release
+    clear = ~((amp > rel) & live)
+    band = ~hit & ~clear
+    return (2 * hit.to(torch.int32) + band.to(torch.int32)).to(torch.int8)
+
+
+def escalation_class_step(carry, cls: torch.Tensor, idx: torch.Tensor, *,
+                          sustain_n: int, cool_n: int, max_level: int = 3):
+    """One transition of every row's machine.  ``carry`` is the tuple
+    ``(level, above, below, detect)`` of int64 ``[B]`` tensors, ``cls``
+    the rows' classes ``[B]`` at global indices ``idx`` ``[B]``.  Returns
+    the new carry tuple."""
+    level, above, below, detect = carry
+    hit = cls == CLS_HIT
+    clear = cls == CLS_CLEAR
+    on = cls != CLS_PAD
+    zero = torch.zeros_like(above)
+    above = torch.where(hit, above + 1, torch.where(on, zero, above))
+    below = torch.where(clear, below + 1, torch.where(on, zero, below))
+    esc = hit & (above >= sustain_n) & (level < max_level)
+    detect = torch.where(esc & (detect < 0), idx, detect)
+    level = level + esc
+    above = torch.where(esc, zero, above)
+    deesc = clear & (below >= cool_n) & (level > 0)
+    level = level - deesc.to(level.dtype)
+    below = torch.where(deesc, zero, below)
+    return level, above, below, detect
+
+
+def _idx0_rows(idx0: Union[int, torch.Tensor], rows: int, device
+               ) -> torch.Tensor:
+    idx0 = torch.as_tensor(idx0, dtype=torch.int64, device=device)
+    return idx0.expand(rows).contiguous()
+
+
+def escalation_scan_plain(cls: torch.Tensor, idx0, carry: torch.Tensor, *,
+                          sustain_n: int, cool_n: int, max_level: int = 3
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D's plain version: fold ``escalation_class_step`` over the
+    samples of ``cls`` ``[B, n]`` in a Python loop.  Returns
+    ``(carry' [B, 4], levels [B, n] int8)``."""
+    B, n = cls.shape
+    g0 = _idx0_rows(idx0, B, cls.device)
+    levels = torch.empty((B, n), dtype=torch.int8, device=cls.device)
+    state = carry.unbind(-1)
+    for i in range(n):
+        state = escalation_class_step(state, cls[:, i], g0 + i,
+                                      sustain_n=sustain_n, cool_n=cool_n,
+                                      max_level=max_level)
+        levels[:, i] = state[0]
+    return torch.stack(state, dim=-1), levels
+
+
+def escalation_scan(cls: torch.Tensor, idx0, carry: torch.Tensor, *,
+                    sustain_n: int, cool_n: int, max_level: int = 3
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The escalation machine over class streams ``cls`` ``[B, n]`` int8
+    whose first samples sit at global index ``idx0`` (int or ``[B]``),
+    from ``carry`` ``[B, 4]``.  Returns ``(carry', levels [B, n] int8)``.
+    Chunked calls that pass the carry on equal one call."""
+    if cls.dtype != torch.int8 or cls.dim() != 2:
+        raise ValueError("cls must be an int8 [B, n] tensor")
+    if carry.shape != (cls.shape[0], 4) or carry.dtype != torch.int64:
+        raise ValueError("carry must be an int64 [B, 4] tensor")
+    if cls.device.type == "cpu":
+        return escalation_scan_plain(cls, idx0, carry, sustain_n=sustain_n,
+                                     cool_n=cool_n, max_level=max_level)
+    if cls.device.type != "cuda" or carry.device != cls.device:
+        raise ValueError("escalation_scan: cls and carry must share one "
+                         "CUDA device")
+    B, n = cls.shape
+    cls = cls.contiguous()
+    carry = carry.contiguous()
+    g0 = _idx0_rows(idx0, B, cls.device)
+    levels = torch.empty((B, n), dtype=torch.int8, device=cls.device)
+    carry_out = torch.empty_like(carry)
+    ESCALATION_KERNEL.launch(
+        ptr(cls), ptr(g0), ptr(carry), ptr(levels), ptr(carry_out), B, n,
+        sustain_n, cool_n, max_level, stream_of(cls))
+    return carry_out, levels

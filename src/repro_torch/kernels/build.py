@@ -1,0 +1,147 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source ``kernels/<family>/csrc/<name>.cu`` exports a plain C
+entry point.  It is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library, at first use, and loaded with ``ctypes``; pointers and
+the stream cross as Python ints.  The library's file name carries a hash
+of the source and flags, so an edited source is rebuilt.  Libraries go to
+``build/kernels`` at the root of the checkout, a directory git ignores.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine may have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+PACKAGE_ROOT = Path(__file__).resolve().parents[1]
+BUILD_DIR = PACKAGE_ROOT.parents[1] / "build" / "kernels"
+
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+# every CudaKernel, so a caller can build them all at once and read or
+# reset their launch counts
+KERNELS: List["CudaKernel"] = []
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+class CudaKernel:
+    """One C entry point of one ``.cu`` source.
+
+    ``launch(*args)`` builds and loads the library on first use, calls the
+    entry (which enqueues the kernel on the given stream and returns
+    ``cudaGetLastError()``), raises if that is not 0, and only then adds
+    one to ``launches``.  ``argtypes`` are ctypes types; pass pointers and
+    the stream as ``ctypes.c_void_p`` so they are not cut to 32 bits.
+    """
+
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 extra_flags: Sequence[str] = ()):
+        self.source = PACKAGE_ROOT / "kernels" / source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.extra_flags = tuple(extra_flags)
+        self.launches = 0
+        self.build_seconds: Optional[float] = None
+        self.ptxas_log = ""
+        self._fn = None
+        KERNELS.append(self)
+
+    @property
+    def name(self) -> str:
+        return self.source.stem
+
+    def _flags(self) -> List[str]:
+        return [*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo",
+                "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+                *self.extra_flags]
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(self._flags()).encode())
+        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
+
+    def start_build(self) -> Optional[subprocess.Popen]:
+        """Start ``nvcc`` for this source unless its library exists;
+        returns the running process (``finish_build`` waits for it)."""
+        if self.library_path().exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = self.library_path().with_suffix(f".{os.getpid()}.tmp")
+        self._t0 = time.perf_counter()
+        return subprocess.Popen(
+            [nvcc_path(), *self._flags(), "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish_build(self, proc: Optional[subprocess.Popen]) -> None:
+        if proc is None:
+            return
+        out, _ = proc.communicate()
+        self.ptxas_log = out
+        tmp = self.library_path().with_suffix(f".{os.getpid()}.tmp")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {self.source}:\n{out}")
+        os.replace(tmp, self.library_path())
+        self.build_seconds = time.perf_counter() - self._t0
+
+    def _load(self):
+        if self._fn is None:
+            self.finish_build(self.start_build())
+            lib = ctypes.CDLL(str(self.library_path()))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, *args) -> None:
+        err = self._load()(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.symbol}: CUDA error {err} at launch")
+        self.launches += 1
+
+
+def build_all() -> Dict[str, float]:
+    """Build every kernel's library at once (one ``nvcc`` per source, all
+    started together) and load them; returns build seconds by kernel
+    (0.0 for a library that was already built)."""
+    procs = [(k, k.start_build()) for k in KERNELS]
+    for k, proc in procs:
+        k.finish_build(proc)
+        k._load()
+    return {k.name: (k.build_seconds or 0.0) for k in KERNELS}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,123 @@
+"""Rules of the port: it imports neither JAX nor the reference package,
+it never runs on the CPU unless asked to, and ``convert.py`` carries
+every configuration dataclass of the slice across unchanged."""
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import core  # noqa: E402
+from repro.core.phases import CKPT, Phase  # noqa: E402
+from repro_torch import api  # noqa: E402
+from repro_torch.convert import from_reference_fields  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "repro")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert len(files) > 15
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    bad = [(p.relative_to(ROOT).as_posix(), m)
+           for p in _port_files() for m in _imported_modules(p)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_study_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    study = api.Study({"w": api.synthetic_timeline(1.0)}, fleets=[64],
+                      wave_cfg=api.WaveformConfig(dt=0.01, steps=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        study.run()
+    with pytest.raises(RuntimeError):
+        api.Study({"w": api.synthetic_timeline(1.0)}, device="cuda",
+                  wave_cfg=api.WaveformConfig(dt=0.01, steps=2)).run()
+    res = api.Study({"w": api.synthetic_timeline(1.0)}, fleets=[64],
+                    wave_cfg=api.WaveformConfig(dt=0.01, steps=2),
+                    device="cpu").run()
+    assert len(res) == 1
+
+
+def test_unported_options_raise():
+    study = api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
+                      wave_cfg=api.WaveformConfig(dt=0.01, steps=2))
+    for kw in ({"stream": 4}, {"stream": True}, {"resume": "ckpt"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+            study.run(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        study.optimize()
+    relaxed = api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
+                        wave_cfg=api.WaveformConfig(dt=0.01, steps=2),
+                        configs={"g": (api.GpuPowerSmoothing(smooth_tau=0.1),
+                                       None)})
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        relaxed.run()
+
+
+def _reference_objects():
+    gpu = core.GpuPowerSmoothing(mpf_frac=0.8, ramp_up_w_per_s=1500.0,
+                                 edp_cap_frac=1.05)
+    bat = core.RackBattery(capacity_j=3e6, max_discharge_w=2e6,
+                           max_charge_w=1e6, switch_latency_s=0.01)
+    bs = core.TelemetryBackstop(critical_hz=(0.5, 2.0), window_s=4.0,
+                                amp_threshold_w=2.5e5)
+    return {
+        "WaveformConfig": core.WaveformConfig(
+            dt=0.002, steps=7, ckpt_every=3,
+            ckpt_phase=Phase("checkpoint", 1.5, CKPT), jitter_s=0.003),
+        "IterationTimeline": core.synthetic_timeline(2.0, 0.2,
+                                                     moe_notch=True),
+        "Hardware": core.Hardware(),
+        "UtilitySpec": core.example_specs(12.0)["tight"],
+        "GpuPowerSmoothing": gpu, "RackBattery": bat,
+        "TelemetryBackstop": bs,
+    }
+
+
+@pytest.mark.parametrize("kind", ["WaveformConfig", "IterationTimeline",
+                                  "Hardware", "UtilitySpec",
+                                  "GpuPowerSmoothing", "RackBattery",
+                                  "TelemetryBackstop"])
+def test_convert_carries_reference_objects_across(kind):
+    ref = _reference_objects()[kind]
+    fields = dataclasses.asdict(ref)
+    port = from_reference_fields(kind, fields)
+    assert type(port).__name__ == type(ref).__name__
+    assert dataclasses.asdict(port) == fields
+    # and the port's own fields round-trip to an equal object
+    assert from_reference_fields(kind, dataclasses.asdict(port)) == port
+
+
+def test_convert_builds_a_stack_and_reads_numpy_fields():
+    objs = _reference_objects()
+    stages = [(k, dataclasses.asdict(objs[k]))
+              for k in ("RackBattery", "TelemetryBackstop")]
+    stack = from_reference_fields("Stack", {"stages": stages})
+    assert isinstance(stack, api.Stack)
+    assert [type(s).__name__ for s in stack.stages] == [k for k, _ in stages]
+    assert from_reference_fields("Stack", {"stages": [
+        (type(s).__name__, dataclasses.asdict(s)) for s in stack.stages]}
+    ) == stack
+    bs = from_reference_fields("TelemetryBackstop", {
+        "critical_hz": np.array([0.5, 9.0]),
+        "amp_threshold_w": np.float32(1e5)})
+    assert bs.critical_hz == (0.5, 9.0) and bs.amp_threshold_w == 1e5
+    with pytest.raises(ValueError, match="unknown kind"):
+        from_reference_fields("Firefly", {})
