@@ -5,8 +5,12 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
-main path gives it, runs a full-size ``Study.run()`` on the card (counting
-every kernel's launches), re-runs a subset of it on the CPU, and prints:
+main paths give it, runs a full-size ``Study.run()`` on the card (counting
+every kernel's launches), re-runs a subset of it on the CPU, then closes
+the grid-interactive control loop (``control.watch_trace``) on the
+canonical 48 s ramp and on a 10-minute 1 kHz replay, holds kernel E and
+the monitor's chunked online path against their offline calls, and
+re-runs the canonical loop on the CPU.  It prints:
 
   * the card's name and power limit (``nvidia-smi``);
   * build times and ``ptxas`` register and spill lines;
@@ -15,6 +19,10 @@ every kernel's launches), re-runs a subset of it on the CPU, and prints:
     ``plain_ms``, ``bound_ms``/``bound_by`` and launches per Study;
   * the Study's wall times, rows/s, verdicts, backstop levels, device busy
     share and top device operations;
+  * per control-loop run: the action timeline, detection lead,
+    counterfactual breach, warm dispatch latencies, loop wall,
+    ``realtime_x``, per-tick step times, launches per run of every kernel,
+    and the device busy share of a profiled run;
   * one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again,
     and, last, ``{"ok": true, "device": {...}}``.
 
@@ -43,6 +51,13 @@ MONITOR_TOL = 1e-4        # of the row's amplitude scale max |x - mean|
 ORACLE_TOL = 1e-3         # of the amplitude scale, against float64
 SCAN_TOL = 1e-5           # of max |w|, kernels B and C
 STUDY_RTOL = 1e-4         # CPU-vs-card metrics
+
+# the control loop (benchmarks/control_bench.py's configuration)
+CONTROL_DT = 0.002
+CONTROL_CHIPS = 512
+CONTROL_JOB_MW = 500.0
+CARRY_TICKS = (7, 250, 1999, 2000, 3, 1211, 777, 2000, 753)
+SLIDING_OPS = 20          # f32 operations per sample and bin, kernel E
 
 DT = 0.001
 FLEETS = (8192, 32768)
@@ -133,16 +148,21 @@ def build_study(api, workloads=None, fleets=FLEETS, configs=None,
 class Capture:
     """Wrap each kernel wrapper where the main path looks it up, keeping
     copies of the arguments of its largest call and the escalation
-    levels of every backstop row."""
+    levels of every backstop row.  ``by="rows"`` keeps the first call
+    with the most rows (the Study's batches); ``by="numel"`` the last call
+    with the most elements (the control loop's one-row calls, whose
+    latest carry the most signal)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, by="rows"):
+        self.by = by
         from repro_torch.core.smoothing import battery, gpu_floor
         from repro_torch.kernels.goertzel import ops
         self.torch = torch
         self.sites = [(gpu_floor, "gpu_floor_scan", "gpu_floor"),
                       (battery, "battery_scan", "battery"),
                       (ops, "sliding_monitor", "monitor"),
-                      (ops, "escalation_scan", "escalation")]
+                      (ops, "escalation_scan", "escalation"),
+                      (ops, "sliding_bin_power_v2", "sliding")]
         self.args = {}
         self.max_levels = []
 
@@ -160,8 +180,13 @@ class Capture:
     def _wrap(self, fn, name):
         def wrapped(*args, **kw):
             out = fn(*args, **kw)
-            rows = args[0].shape[0]
-            if name not in self.args or rows > self.args[name][0]:
+            if self.by == "rows":
+                rows = args[0].shape[0]
+                bigger = name not in self.args or rows > self.args[name][0]
+            else:
+                rows = args[0].numel()
+                bigger = name not in self.args or rows >= self.args[name][0]
+            if bigger:
                 keep = tuple(a.clone() if isinstance(a, self.torch.Tensor)
                              else a for a in args)
                 self.args[name] = (rows, keep, dict(kw))
@@ -288,56 +313,85 @@ def check_monitor(torch, cap, launches, freqs):
                             "windowed DFT reduced to a worst bin"}
 
 
-def check_scan(torch, cap, launches, name):
-    from repro_torch.core.smoothing import battery, gpu_floor
+def kernel_vs_plain(torch, name, args, kw, repeat=10):
+    """A kernel against its plain version on the arguments of one of its
+    calls: ``(shape, max_abs_err, ok, ms, plain_ms, bound_ms,
+    bound_by)``.  Escalation must be exact; the others within their
+    tolerance of the input's max |x| (a monitor's classes may differ
+    only within it of a threshold)."""
     from repro_torch.core import telemetry
-    _, args, kw = cap.args[name]
-    if name == "gpu_floor":
-        kern, plain = gpu_floor.gpu_floor_scan, gpu_floor.gpu_floor_scan_plain
-        w, params = args
-        B, n = w.shape
-        ops_per = 11
-        src, rep = "gpu_floor.cu", "src/repro/core/smoothing/gpu_floor.py:85"
-        tname = "gpu_floor_scan"
-    elif name == "battery":
-        kern, plain = battery.battery_scan, battery.battery_scan_plain
-        w, params, _dt = args
-        B, n = w.shape
-        ops_per = 32
-        src, rep = "battery.cu", "src/repro/core/smoothing/battery.py:96"
-        tname = "battery_scan"
-    else:
-        kern = telemetry.escalation_scan
-        plain = telemetry.escalation_scan_plain
-        B, n = args[0].shape
-        ops_per = 14
-        src, rep = "escalation.cu", "src/repro/core/telemetry.py:212"
-        tname = "escalation_scan"
+    from repro_torch.core.smoothing import battery, gpu_floor
+    from repro_torch.kernels.goertzel import monitor, sliding
+    kern, plain, ops_per, tol = {
+        "monitor": (monitor.sliding_monitor, monitor.sliding_monitor_plain,
+                    21, MONITOR_TOL),
+        "sliding": (sliding.sliding_bin_power_v2,
+                    sliding.sliding_bin_power_v2_plain, SLIDING_OPS,
+                    MONITOR_TOL),
+        "gpu_floor": (gpu_floor.gpu_floor_scan,
+                      gpu_floor.gpu_floor_scan_plain, 11, SCAN_TOL),
+        "battery": (battery.battery_scan, battery.battery_scan_plain, 32,
+                    SCAN_TOL),
+        "escalation": (telemetry.escalation_scan,
+                       telemetry.escalation_scan_plain, 14, 0.0),
+    }[name]
     got = kern(*args, **kw)
     torch.cuda.synchronize()
     ref, plain_ms = timed_once(torch, lambda: plain(*args, **kw))
+    got_t = got if isinstance(got, tuple) else (got,)
+    ref_t = ref if isinstance(ref, tuple) else (ref,)
+    x = args[0]
     if name == "escalation":
-        mism = int((got[1] != ref[1]).sum()) + int((got[0] != ref[0]).sum())
-        err, ok = float(mism), mism == 0
-        tol = "exact"
-        log(f"escalation [{B} rows x {n}]: level/carry mismatches {mism}; "
-            f"rows escalating {int((got[1].amax(-1) > 0).sum())}/{B}")
+        err = float(sum(int((g != r).sum()) for g, r in zip(got_t, ref_t)))
+        ok = err == 0
+    elif name == "monitor":
+        scale = max(x.abs().max().item(), 1e-30)
+        err = (got_t[0] - ref_t[0]).abs().max().item()
+        # classes may differ only within tol of a threshold
+        near = (((ref_t[0] - args[4][:, None, None]).abs() <= tol * scale)
+                | ((ref_t[0] - args[5][:, None, None]).abs() <= tol * scale))
+        off_band = int(((got_t[1] != ref_t[1]) & ~near).sum())
+        ok = err <= tol * scale and off_band == 0
+    elif name == "sliding":
+        # amplitudes within tol of the scale; the state out holds prefix
+        # sums, up to win times larger
+        scale = max(x.abs().max().item(), 1e-30)
+        err = (got_t[0] - ref_t[0]).abs().max().item()
+        state = max((got_t[i] - ref_t[i]).abs().max().item() for i in (1, 2))
+        ok = err <= tol * scale and state <= tol * scale * x.shape[-1]
     else:
-        scale = args[0].abs().max().item()
-        err = max((g - r).abs().max().item() for g, r in
-                  zip(got if isinstance(got, tuple) else (got,),
-                      ref if isinstance(ref, tuple) else (ref,)))
-        ok = err <= SCAN_TOL * scale
-        tol = f"{SCAN_TOL} x max|w| = {SCAN_TOL * scale:.4g} W"
-        log(f"{name} [{B} rows x {n}]: max |kernel - plain| {err:.4g} "
-            f"(tol {tol})")
+        scale = max(x.abs().max().item(), 1e-30)
+        err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(got_t, ref_t))
+        ok = err <= tol * scale
+    ms = cuda_ms(torch, lambda: kern(*args, **kw), repeat)
+    inputs = nbytes(*(a for a in args if isinstance(a, torch.Tensor)))
+    per = x.numel() * (args[1].shape[0] if name in ("monitor", "sliding")
+                       else 1)
+    b_ms, b_by = bound(inputs + nbytes(*got_t), ops_per * per)
+    return list(x.shape), err, ok, ms, plain_ms, b_ms, b_by
+
+
+def check_scan(torch, cap, launches, name):
+    _, args, kw = cap.args[name]
+    src, rep, tname = {
+        "gpu_floor": ("gpu_floor.cu",
+                      "src/repro/core/smoothing/gpu_floor.py:85",
+                      "gpu_floor_scan"),
+        "battery": ("battery.cu", "src/repro/core/smoothing/battery.py:96",
+                    "battery_scan"),
+        "escalation": ("escalation.cu", "src/repro/core/telemetry.py:212",
+                       "escalation_scan")}[name]
+    (B, n), err, ok, ms, plain_ms, b_ms, b_by = kernel_vs_plain(
+        torch, name, args, kw, repeat=3)
+    tol = ("exact" if name == "escalation" else
+           f"{SCAN_TOL} x max|w| = {SCAN_TOL * args[0].abs().max().item():.4g}"
+           " W")
+    log(f"{name} [{B} rows x {n}]: max |kernel - plain| {err:.4g} (tol "
+        f"{tol})")
     if not ok:
         raise AssertionError(f"{name} kernel disagrees with its plain "
                              "version")
-    ms = cuda_ms(torch, lambda: kern(*args, **kw), 3)
-    inputs = nbytes(*(a for a in args if isinstance(a, torch.Tensor)))
-    outputs = nbytes(*(got if isinstance(got, tuple) else (got,)))
-    b_ms, b_by = bound(inputs + outputs, ops_per * B * n)
     return {"name": tname, "route": "cuda",
             "source": f"src/repro_torch/kernels/scans/csrc/{src}",
             "replaces": rep, "launches": launches[name],
@@ -354,13 +408,17 @@ def check_scan(torch, cap, launches, name):
 # the Study, profiled, and its CPU subset
 # ---------------------------------------------------------------------------
 
-def profile_study(torch, study):
+def profile_device(torch, run, top_n=12):
+    """Run ``run()`` once under ``torch.profiler``: its wall time, the
+    device busy time inside it, and the ``top_n`` device operations as
+    ``(ms, calls, name)``.  Busy over this same run's traced wall is the
+    device busy share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        study.run()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
@@ -378,7 +436,7 @@ def profile_study(torch, study):
 
     events = [e for e in events if dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events) / 1e6
-    top = sorted(events, key=dev_us, reverse=True)[:12]
+    top = sorted(events, key=dev_us, reverse=True)[:top_n]
     return wall, busy, [(dev_us(e) / 1e3, e.count, e.key) for e in top]
 
 
@@ -425,6 +483,296 @@ def compare_cpu_subset(api, gpu_res):
         f"{equal} records, {near} near-limit records not compared; worst "
         f"metric rel diff {worst:.3g} (rtol {STUDY_RTOL}, energy_overhead "
         "abs 1e-6)")
+
+
+# ---------------------------------------------------------------------------
+# the control loop: watch_trace on the canonical ramp and a long replay
+# ---------------------------------------------------------------------------
+
+def control_trace(control, long=False):
+    """(trace, dt): the canonical 48 s ramp at 2 ms, or a 10-minute 1 kHz
+    telemetry archive ramping from 60 s to 300 s."""
+    if long:
+        return control.synthesize_ramp(duration_s=600.0, dt=0.001,
+                                       ramp_start_s=60.0,
+                                       ramp_end_s=300.0), 0.001
+    return control.synthesize_ramp(dt=CONTROL_DT), CONTROL_DT
+
+
+def run_watch(torch, control, api, w, dt, device, step_times=None):
+    """One ``watch_trace`` run; returns (log, wall seconds).  With
+    ``step_times``, each detector step's wall time is appended to it
+    (the step ends in a read-back, so the time includes its kernels)."""
+    det_cls = control.OnlineGoertzelDetector
+    step = det_cls.step
+    if step_times is not None:
+        def timed(self, chunk):
+            t0 = time.perf_counter()
+            out = step(self, chunk)
+            step_times.append(time.perf_counter() - t0)
+            return out
+        det_cls.step = timed
+    try:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clog = control.watch_trace(
+            w, dt, spec=api.example_specs(CONTROL_JOB_MW)["moderate"],
+            n_chips=CONTROL_CHIPS, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return clog, time.perf_counter() - t0
+    finally:
+        det_cls.step = step
+
+
+def pctl(values, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def report_loop(tag, clog, wall, trace_s, counts, steps=None):
+    s = clog.summary()
+    lats = clog.dispatch_latencies()
+    log(f"[{tag}] action timeline:\n{clog.timeline()}")
+    line = (f"[{tag}] n_ticks {s['n_ticks']}, dispatches "
+            f"{s['n_dispatches']}, first escalate {s['first_escalate_t_s']} "
+            f"s, counterfactual_breach_t_s {s['counterfactual_breach_t_s']}"
+            f", detection_lead_s {s['detection_lead_s']}, recession_t_s "
+            f"{s['recession_t_s']}, final level {s['final_level']}")
+    log(line)
+    if lats:
+        log(f"[{tag}] dispatch latency p50 {pctl(lats, 50) * 1e3:.3f} ms, "
+            f"max {max(lats) * 1e3:.3f} ms over {len(lats)}")
+    log(f"[{tag}] loop wall {wall:.3f} s for {trace_s:g} s of telemetry: "
+        f"realtime_x {trace_s / wall:.1f}")
+    if steps:
+        log(f"[{tag}] detector step p50 {pctl(steps, 50) * 1e3:.3f} ms, "
+            f"p99 {pctl(steps, 99) * 1e3:.3f} ms, max "
+            f"{max(steps) * 1e3:.3f} ms over {len(steps)} ticks")
+    log(f"[{tag}] launches per run: " + json.dumps(counts))
+
+
+def loop_invariants(tag, clog, counts):
+    """What ``tests/test_control.py::TestClosedLoop`` and
+    ``benchmarks/control_bench.py`` assert, and every kernel launched."""
+    s = clog.summary()
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"[{tag}] a kernel of the control path was not "
+                             f"launched: {counts}")
+    if s["n_dispatches"] < 1:
+        raise AssertionError(f"[{tag}] no intervention fired")
+    if not (s["detection_lead_s"] is not None and s["detection_lead_s"] > 0):
+        raise AssertionError(f"[{tag}] detection after the breach")
+    if s["recession_t_s"] is None:
+        raise AssertionError(f"[{tag}] the amplitude never receded")
+    row = next(r for r in clog.series if r["t_s"] == s["recession_t_s"])
+    if not max(row["amps_w"]) < clog.release_w < clog.trigger_w:
+        raise AssertionError(f"[{tag}] the recession row is not below the "
+                             "release level")
+    blob = json.loads(clog.dumps())
+    if blob["summary"]["n_dispatches"] != s["n_dispatches"]:
+        raise AssertionError(f"[{tag}] the log does not round-trip JSON")
+
+
+# kernels A, B, C, D and E by their launch-count names
+CONTROL_KERNELS = ("monitor", "gpu_floor", "battery", "escalation", "sliding")
+
+
+def path_counts(build):
+    counts = build.launch_counts()
+    return {k: counts[k] for k in CONTROL_KERNELS}
+
+
+def control_phase(torch, control, api, build, w, dt, tag):
+    """Phase 7: cold and warm ``watch_trace`` on the card, launch counts
+    from 0 before each run, the loop's invariants, and the arguments of
+    each kernel's largest call on the path (captured in the cold run)."""
+    cap = Capture(torch, by="numel")
+    build.reset_launch_counts()
+    with cap:
+        cold_log, cold = run_watch(torch, control, api, w, dt, "cuda")
+    cold_counts = path_counts(build)
+    trace_s = len(w) * dt
+    log(f"[{tag}] cold run {cold:.3f} s (argument captures included)")
+    loop_invariants(tag + " cold", cold_log, cold_counts)
+    steps = []
+    build.reset_launch_counts()
+    warm_log, warm = run_watch(torch, control, api, w, dt, "cuda",
+                               step_times=steps)
+    counts = path_counts(build)
+    report_loop(tag, warm_log, warm, trace_s, counts, steps)
+    loop_invariants(tag + " warm", warm_log, counts)
+    if counts != cold_counts:
+        raise AssertionError(f"[{tag}] cold and warm runs launched "
+                             f"differently: {cold_counts} {counts}")
+    if ([(r.tick, r.action) for r in cold_log.records]
+            != [(r.tick, r.action) for r in warm_log.records]):
+        raise AssertionError(f"[{tag}] cold and warm timelines differ")
+    return {"cold_log": cold_log, "counts": counts, "capture": cap}
+
+
+# ---------------------------------------------------------------------------
+# kernel E and the chunked online path against their offline calls
+# ---------------------------------------------------------------------------
+
+def uneven_ticks(n):
+    """Tick sizes summing to n: the reference tests' uneven ticks (some
+    shorter than a window, some crossing one), cycled, the last cut."""
+    sizes, i = [], 0
+    while sum(sizes) < n:
+        sizes.append(min(CARRY_TICKS[i % len(CARRY_TICKS)], n - sum(sizes)))
+        i += 1
+    return sizes
+
+
+def check_sliding(torch, w, dt, device="cuda"):
+    """Kernel E at a counterfactual shape against its plain version and
+    the float64 oracle; its row of the kernels line."""
+    import numpy as np
+    from repro_torch.core.spectrum import GRID_CRITICAL_HZ
+    from repro_torch.kernels.goertzel import ops, sliding
+    from repro_torch.kernels.goertzel.ref import sliding_bin_power_ref
+    win = int(4.0 / dt)
+    freqs = GRID_CRITICAL_HZ
+    x = torch.as_tensor(w, device=device)
+    xseg = ops.segments(ops.centre(x[None]), win)
+    B, S, _ = xseg.shape
+    cosp, sinp, rot = ops.device_tables(freqs, dt, win, device)
+    K = cosp.shape[0]
+    zeros = torch.zeros((B, K, win), device=device)
+    seg0 = torch.zeros(B, dtype=torch.int64, device=device)
+    args = (xseg, cosp, sinp, rot, seg0, zeros, zeros)
+    got = sliding.sliding_bin_power_v2(*args)
+    sliding.sliding_bin_power_v2_plain(*args)        # warm its first call
+    ref, plain_ms = timed_once(
+        torch, lambda: sliding.sliding_bin_power_v2_plain(*args))
+    scale = xseg.abs().max().item()
+    err_w = (got[0] - ref[0]).abs().max().item()
+    state_err = max((got[i] - ref[i]).abs().max().item() for i in (1, 2))
+    n = len(w)
+    amps = got[0].reshape(-1, K)[:n].double().cpu().numpy()
+    oracle = sliding_bin_power_ref(w, dt, freqs, win)
+    oracle_err = float(np.abs(amps - oracle).max()) / scale
+    log(f"sliding [{B} x {S} x {win}, K={K}]: max |kernel - plain| "
+        f"{err_w:.4g} W ({err_w / scale:.3g} of the amplitude scale "
+        f"{scale:.4g} W, tol {MONITOR_TOL}); state out {state_err:.4g}; vs "
+        f"float64 oracle {oracle_err:.3g} of the scale (tol {ORACLE_TOL})")
+    if err_w > MONITOR_TOL * scale or state_err > MONITOR_TOL * scale * win:
+        raise AssertionError("kernel E disagrees with its plain version")
+    if oracle_err > ORACLE_TOL:
+        raise AssertionError("kernel E disagrees with the float64 oracle")
+    ms = cuda_ms(torch, lambda: sliding.sliding_bin_power_v2(*args), 20)
+    b_ms, b_by = bound(nbytes(*args) + nbytes(*got),
+                       SLIDING_OPS * B * S * win * K)
+    return {"shape": [B, S, win, K], "max_abs_err": err_w,
+            "err_of_scale": err_w / scale, "oracle_err": oracle_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def check_chunked(torch, w, dt, device="cuda"):
+    """Chunked carry calls at uneven ticks (a final partial one included)
+    against one offline call, bit for bit: ``sliding_bin_power`` (E) and
+    the online ``sliding_monitor_fused`` (A then D)."""
+    from repro_torch.core.spectrum import GRID_CRITICAL_HZ
+    from repro_torch.kernels.goertzel import ops
+    win = int(4.0 / dt)
+    freqs = GRID_CRITICAL_HZ
+    x = torch.as_tensor(w, device=device)
+    mean = ops.trace_mean(x)
+    ticks = uneven_ticks(len(w))
+    trig = CONTROL_JOB_MW * 1e6 * 0.2 * 0.5 * 0.85   # the loop's trigger
+    rel = trig * 0.6 / 0.85
+    kw = dict(win=win, threshold=trig, release=rel, sustain_n=500,
+              cool_n=1000)
+    off = ops.sliding_bin_power(x, dt, freqs, win=win)
+    woff, loff, _, _ = ops.sliding_monitor_fused(x[None], dt, freqs, **kw)
+    c = ops.sliding_carry_init(dt, freqs, win=win, mean=mean, device=device)
+    mc = ops.monitor_carry_init(dt, freqs, win=win, mean=mean,
+                                device=device)
+    amps, worsts, levels, last_err, pos = [], [], [], 0.0, 0
+    for m in ticks:
+        a, c = ops.sliding_bin_power(x[pos:pos + m], dt, freqs, win=win,
+                                     carry=c)
+        wv, lv, al, mc = ops.sliding_monitor_fused(
+            x[pos:pos + m], dt, freqs, carry=mc, **kw)
+        amps.append(a)
+        worsts.append(wv)
+        levels.append(lv)
+        pos += m
+        last_err = max(last_err, (al - off[pos - 1]).abs().max().item())
+    amps_eq = torch.equal(torch.cat(amps), off)
+    worst_eq = torch.equal(torch.cat(worsts), woff[0])
+    level_eq = torch.equal(torch.cat(levels), loff[0])
+    scale = (x.double() - mean).abs().max().item()
+    log(f"chunked carry, {len(ticks)} ticks of {min(ticks)}..{max(ticks)} "
+        f"samples over {len(w)}: kernel E bitwise {amps_eq}; kernels A+D "
+        f"worst bitwise {worst_eq}, levels bitwise {level_eq} (max level "
+        f"{int(loff.max())}); per-tick amps_last vs offline E "
+        f"{last_err / scale:.3g} of the scale (tol {MONITOR_TOL})")
+    if not (amps_eq and worst_eq and level_eq):
+        raise AssertionError("chunked carry calls differ from one offline "
+                             "call")
+    if last_err > MONITOR_TOL * scale or int(loff.max()) < 1:
+        raise AssertionError("online per-bin amplitudes disagree, or the "
+                             "machine never escalated")
+    return {"ticks": len(ticks), "bitwise": True}
+
+
+# ---------------------------------------------------------------------------
+# the canonical loop on the CPU against the card
+# ---------------------------------------------------------------------------
+
+def compare_cpu_loop(torch, control, api, w, dt, card_log):
+    cpu_log, secs = run_watch(torch, control, api, w, dt, "cpu")
+    a = [(r.tick, r.action, r.level, r.bin_hz) for r in cpu_log.records]
+    b = [(r.tick, r.action, r.level, r.bin_hz) for r in card_log.records]
+    if a != b:
+        raise AssertionError(f"cpu vs card: timelines differ\n{a}\n{b}")
+    worst = 0.0
+    for c, g in zip(cpu_log.records, card_log.records):
+        for k in ("amplitude_w", "margin_w"):
+            x, y = getattr(c, k), getattr(g, k)
+            if abs(x - y) > STUDY_RTOL * abs(y):
+                raise AssertionError(f"cpu vs card: {k} {x} vs {y} at "
+                                     f"tick {c.tick}")
+            worst = max(worst, abs(x - y) / max(abs(y), 1e-30))
+        if c.action == "dispatch:redesign":
+            for k in ("mpf_frac", "battery_capacity_j"):
+                if c.params[k] != g.params[k]:
+                    raise AssertionError(f"cpu vs card: redesign {k} "
+                                         f"{c.params[k]} vs {g.params[k]}")
+            if abs(c.params["energy_overhead"]
+                   - g.params["energy_overhead"]) > 1e-6:
+                raise AssertionError("cpu vs card: redesign energy_overhead")
+    scale = float(abs(w.astype("float64") - w.mean()).max())
+    series = max(max(abs(x - y) for x, y in zip(c["amps_w"], g["amps_w"]))
+                 for c, g in zip(cpu_log.series, card_log.series)) / scale
+    if series > STUDY_RTOL:
+        raise AssertionError(f"cpu vs card: tick amplitudes {series:.3g} of "
+                             "the scale")
+    # the counterfactual breach is the first sample whose raw amplitude
+    # crosses breach_w: the two may cross at different samples only where
+    # the amplitude sits within the kernel tolerance of breach_w
+    from repro_torch.kernels.goertzel import ops
+    t_cpu = cpu_log.counterfactual_breach_t_s
+    t_card = card_log.counterfactual_breach_t_s
+    if (t_cpu is None) != (t_card is None):
+        raise AssertionError("cpu vs card: one run never breaches")
+    lo, hi = sorted(int(round(t / dt)) for t in (t_cpu, t_card))
+    amps = ops.sliding_bin_power(torch.as_tensor(w), dt, card_log.freqs,
+                                 win=int(4.0 / dt)).amax(1)
+    gap = (amps[lo:hi + 1] - card_log.breach_w).abs().max().item() / scale
+    if gap > MONITOR_TOL:
+        raise AssertionError(f"cpu vs card: counterfactual breach {t_cpu} vs"
+                             f" {t_card} s, {gap:.3g} of the scale apart")
+    log(f"cpu re-run of the canonical loop: {secs:.1f} s; {len(a)} records "
+        f"equal in tick, action, level and bin; redesign choices equal; "
+        f"worst record rel diff {worst:.3g} (rtol {STUDY_RTOL}); tick "
+        f"amplitudes within {series:.3g} of the scale; energy_overhead abs "
+        f"1e-6; counterfactual breach {t_cpu} s (cpu) vs {t_card} s (card),"
+        f" the amplitude within {gap:.3g} of the scale of breach_w between")
 
 
 # ---------------------------------------------------------------------------
@@ -507,7 +855,7 @@ def main() -> int:
                              "and not on others")
     if any(a["spec_ok"] != b["spec_ok"] for a, b in zip(res, res_warm)):
         raise AssertionError("the warm run's verdicts differ from the cold")
-    wall, busy, top = profile_study(torch, study)
+    wall, busy, top = profile_device(torch, study.run)
     log(f"profiled run {wall:.3f} s, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}% of the traced wall)")
     for ms, cnt, key in top:
@@ -520,6 +868,84 @@ def main() -> int:
 
     # 6. a subset of the same Study on the CPU (the plain versions)
     compare_cpu_subset(api, res)
+    for k in kernels:
+        k["launches_by_path"] = {"study": k["launches"]}
+
+    # 7. the control loop on the canonical ramp: cold and warm on the card
+    from repro_torch import control
+    w, dt = control_trace(control)
+    canon = control_phase(torch, control, api, build, w, dt, "watch_trace")
+    wall, busy, top = profile_device(
+        torch, lambda: run_watch(torch, control, api, w, dt, "cuda"), 10)
+    log(f"[watch_trace] profiled run {wall:.3f} s, device busy {busy:.4f} s"
+        f" ({100 * busy / wall:.1f}% of this run's traced wall)")
+    for ms, cnt, key in top:
+        log(f"  {ms:10.3f} ms {cnt:6d}x {key[:110]}")
+    # each kernel against its plain version at its largest call on the path
+    path_rows = {}
+    for nm, (_, args, kw) in sorted(canon["capture"].args.items()):
+        shape, err, ok, ms, plain_ms, b_ms, b_by = kernel_vs_plain(
+            torch, nm, args, kw)
+        log(f"[watch_trace] {nm} at {shape}: max |kernel - plain| "
+            f"{err:.4g}, {ms:.4g} ms (plain {plain_ms:.4g} ms, bound "
+            f"{b_ms:.4g} ms by {b_by})")
+        if not ok:
+            raise AssertionError(f"{nm} disagrees with its plain version on "
+                                 "the control path")
+        path_rows[nm] = {"shape": shape, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by}
+
+    # 8. a 10-minute 1 kHz replay: 600 000 samples, 1200 ticks
+    w_long, dt_long = control_trace(control, long=True)
+    build.reset_launch_counts()
+    long_log, long_wall = run_watch(torch, control, api, w_long, dt_long,
+                                    "cuda")
+    long_counts = path_counts(build)
+    report_loop("watch_trace 600 s", long_log, long_wall,
+                len(w_long) * dt_long, long_counts)
+    if min(long_counts.values()) <= 0 or long_log.summary()[
+            "n_dispatches"] < 1:
+        raise AssertionError("the long replay launched no kernel of the path "
+                             "or dispatched nothing")
+    wall, busy, top = profile_device(
+        torch, lambda: run_watch(torch, control, api, w_long, dt_long,
+                                 "cuda"), 6)
+    log(f"[watch_trace 600 s] profiled run {wall:.3f} s, device busy "
+        f"{busy:.4f} s ({100 * busy / wall:.1f}% of this run's traced wall)")
+    for ms, cnt, key in top:
+        log(f"  {ms:10.3f} ms {cnt:6d}x {key[:110]}")
+
+    # 9. kernel E at both counterfactual shapes, the chunked online path
+    e_rows = [check_sliding(torch, w, dt), check_sliding(torch, w_long,
+                                                          dt_long)]
+    check_chunked(torch, w, dt)
+    e = {"name": "sliding_bin_power_v2", "route": "cuda",
+         "source": "src/repro_torch/kernels/goertzel/csrc/sliding.cu",
+         "replaces": "src/repro/kernels/goertzel/goertzel.py:250",
+         "launches": canon["counts"]["sliding"],
+         "tolerance": f"{MONITOR_TOL} x amplitude scale",
+         "chunked_bitwise": True, **e_rows[0], "library_ms": None,
+         "library_note": "no single PyTorch call computes every sample's "
+                         "sliding windowed DFT bins",
+         "long_replay": e_rows[1]}
+    kernels.append(e)
+    for k in kernels:
+        nm = {"sliding_monitor": "monitor", "gpu_floor_scan": "gpu_floor",
+              "battery_scan": "battery", "escalation_scan": "escalation",
+              "sliding_bin_power_v2": "sliding"}[k["name"]]
+        k.setdefault("launches_by_path", {})
+        k["launches_by_path"]["watch_trace"] = canon["counts"][nm]
+        k["launches_by_path"]["watch_trace_600s"] = long_counts[nm]
+        if nm in path_rows:
+            k["watch_trace_call"] = path_rows[nm]
+    for k in kernels:
+        log(f"{k['name']}: {k['ms']:.4g} ms (plain {k['plain_ms']:.4g} ms, "
+            f"bound {k['bound_ms']:.4g} ms by {k['bound_by']}), launches "
+            + json.dumps(k["launches_by_path"]))
+
+    # 10. the canonical loop on the CPU (the plain versions) against 7
+    compare_cpu_loop(torch, control, api, w, dt, canon["cold_log"])
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,8 +12,15 @@ query), mirroring ``repro.api``.
         specs=api.example_specs(job_mw=5.0))
     result = study.run()                      # on the card
     result.passing().pivot("workload", "config", "energy_overhead")
+
+    log = api.watch_trace(api.synthesize_ramp(), 0.002, n_chips=512,
+                          spec=api.example_specs(500.0)["moderate"])
 """
-from repro_torch.core.engine import StreamChunk, stream_batches
+from repro_torch.control import (ControlLog, ControlLoop, GridController,
+                                 InterventionLadder, OnlineGoertzelDetector,
+                                 ReplaySource, synthesize_ramp, watch_trace)
+from repro_torch.core.engine import (StreamChunk, design, design_grid,
+                                     stream_batches)
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
 from repro_torch.core.phases import IterationTimeline, Phase, synthetic_timeline
 from repro_torch.core.smoothing import (GpuPowerSmoothing, RackBattery, Stack,
@@ -22,12 +29,18 @@ from repro_torch.core.spec import (FrequencyDomainSpec, SpecReport,
                                    TimeDomainSpec, UtilitySpec, example_specs)
 from repro_torch.core.stratosim import SimResult
 from repro_torch.core.study import MitigationConfig, Study, StudyResult
+from repro_torch.core.telemetry import TelemetrySource
 from repro_torch.core.waveform import WaveformConfig
 
 __all__ = [
     "Study", "StudyResult", "MitigationConfig",
-    "stream_batches", "StreamChunk",
+    "stream_batches", "StreamChunk", "design", "design_grid",
+    # the grid-interactive control plane
+    "ControlLoop", "ControlLog", "GridController", "InterventionLadder",
+    "OnlineGoertzelDetector", "ReplaySource", "synthesize_ramp",
+    "watch_trace",
     "IterationTimeline", "Phase", "synthetic_timeline", "WaveformConfig",
+    "TelemetrySource",
     "Hardware", "DEFAULT_HW",
     "GpuPowerSmoothing", "RackBattery", "TelemetryBackstop", "Stack",
     "UtilitySpec", "TimeDomainSpec", "FrequencyDomainSpec", "SpecReport",

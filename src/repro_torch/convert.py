@@ -6,12 +6,18 @@ them for the reference package's dataclasses (nested dataclasses as
 nested dicts), and returns the port's object of that kind.  A ``Stack``
 is ``{"stages": [(kind, fields), ...]}``.  Nothing of the reference
 package is imported: the dicts are the interface.
+
+``from_reference_carry(carry, n_bins=K)`` carries a stream's state
+across: it takes the reference's ``SlidingCarry`` or ``MonitorCarry``
+(its arrays as numpy, or anything ``np.asarray`` reads) and returns the
+port's, so a stream started in the reference resumes in the port.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.hardware import (ChipSpec, DatacenterTopology, Hardware,
                                        ServerSpec)
@@ -21,6 +27,8 @@ from repro_torch.core.smoothing import (GpuPowerSmoothing, RackBattery, Stack,
 from repro_torch.core.spec import (FrequencyDomainSpec, TimeDomainSpec,
                                    UtilitySpec)
 from repro_torch.core.waveform import WaveformConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.goertzel.ops import MonitorCarry, SlidingCarry
 
 KINDS = ("WaveformConfig", "IterationTimeline", "Phase", "Hardware",
          "UtilitySpec", "GpuPowerSmoothing", "RackBattery",
@@ -80,3 +88,34 @@ def from_reference_fields(kind: str, fields: Mapping[str, Any]):
         return Stack(tuple(from_reference_fields(k, f)
                            for k, f in fields["stages"]))
     raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
+
+
+def _sliding_carry(c, n_bins: int, device) -> SlidingCarry:
+    def table(t):
+        # the reference pads K up to a multiple of 8 rows; rows >= K are 0
+        return torch.tensor(np.asarray(t, np.float32)[:n_bins][None],
+                            device=device)
+    return SlidingCarry(
+        offset=int(c.offset), fill=int(c.fill),
+        seg=torch.tensor(np.asarray(c.seg, np.float32)[None], device=device),
+        prev_re=table(c.prev_re), prev_im=table(c.prev_im),
+        mean=float(c.mean))
+
+
+def from_reference_carry(carry, *, n_bins: int, device=None
+                         ) -> Union[SlidingCarry, MonitorCarry]:
+    """The port's carry from the reference's ``SlidingCarry`` (fields
+    ``offset, fill, seg [win], prev_re/prev_im [KP, win], mean``) or
+    ``MonitorCarry`` (``sliding`` and the escalation tuple ``esc`` of four
+    scalars).  The ``[KP, win]`` tables become ``[1, K, win]`` with
+    ``K = n_bins``; ``esc`` becomes the ``[1, 4]`` int64 carry.  The
+    reference holds its mean as a float32 value: subtracted in float64
+    from a float32 sample near it, it centres exactly as the reference's
+    float32 subtraction does.  ``device=None`` means the card."""
+    dev = resolve_device(device)
+    if hasattr(carry, "sliding"):
+        esc = torch.tensor([[int(np.asarray(v)) for v in carry.esc]],
+                           dtype=torch.int64, device=dev)
+        return MonitorCarry(sliding=_sliding_carry(carry.sliding, n_bins,
+                                                   dev), esc=esc)
+    return _sliding_carry(carry, n_bins, dev)

@@ -9,6 +9,9 @@ scenario rows, as a handful of whole-batch tensor passes on one device.
   ``stream_batches``  the executor behind ``Study.run``: one chunk (the
                       whole batch) of ``simulate_batch`` reduced to
                       per-row metrics, analysis grouped by true length.
+  ``design``          the (MPF, battery capacity) design search on one
+                      trace: ``method="grid"`` (``design_grid``) judges
+                      every candidate of the coarse grid in one batch.
 
 Rows may mix enabled and disabled (None) stages: ``_normalize_mits``
 returns the enabled rows and an on-mask, the stage runs on the enabled
@@ -21,7 +24,8 @@ live.  The synthesis prefix (chip waveform and raw aggregate) runs once
 per unique (workload, fleet, seed).
 
 Chunked streaming (``chunk_size`` below the row count), sharding and the
-design solvers are not ported yet.
+gradient-based design solvers (``method`` gradient, hybrid, warmstart)
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,12 +36,19 @@ import numpy as np
 import torch
 
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
-from repro_torch.core.smoothing.base import apply_mitigation, structure
+from repro_torch.core.smoothing.base import (apply_mitigation,
+                                             energy_overhead, structure)
+from repro_torch.core.smoothing.battery import RackBattery
+from repro_torch.core.smoothing.gpu_floor import GpuPowerSmoothing
 from repro_torch.core.spec import SpecReport, UtilitySpec, report_from_arrays
 from repro_torch.core.spectrum import critical_band_report
 from repro_torch.core.waveform import (WaveformConfig, aggregate,
                                        chip_waveform, jitter_shifts,
                                        phase_levels, swing_stats)
+from repro_torch.device import resolve_device
+
+DESIGN_NOT_PORTED = ("design(method={!r}) is not ported yet: ROADMAP queue "
+                     "A, the design path (only method='grid' runs)")
 
 CHUNKED_NOT_PORTED = ("chunked streaming (a chunk smaller than the batch) is "
                       "not ported yet: ROADMAP queue A, chunked streaming "
@@ -69,6 +80,12 @@ def _normalize_mits(mits: Sequence, B: int, what: str
     if len(enabled) == len(mits):
         return enabled, None
     return enabled, torch.tensor([m is not None for m in mits])
+
+
+def _on_rows(on: Optional[torch.Tensor], B: int, device) -> torch.Tensor:
+    """Indices of the enabled rows of a ``_normalize_mits`` on-mask."""
+    return (torch.arange(B, device=device) if on is None
+            else on.nonzero().squeeze(1).to(device))
 
 
 def _mask_helpers(n: int, n_valid: torch.Tensor):
@@ -191,8 +208,7 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
     # -- device stage on the per-chip waveform, then re-aggregation
     devs, dev_on = _normalize_mits(dev_list, B, "device_mitigation")
     if devs:
-        on = (torch.arange(B, device=device) if dev_on is None
-              else dev_on.nonzero().squeeze(1).to(device))
+        on = _on_rows(dev_on, B, device)
         chip_m, aux["device"] = apply_mitigation(devs, chip_u[u_idx_t[on]],
                                                  dt)
         chip_m = _mask_helpers(n, n_valid[on])[0](chip_m)
@@ -203,8 +219,7 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
     racks, rack_on = _normalize_mits(rack_list, B, "rack_mitigation")
     if racks:
         dc = fill_mean(dc)
-        on = (torch.arange(B, device=device) if rack_on is None
-              else rack_on.nonzero().squeeze(1).to(device))
+        on = _on_rows(rack_on, B, device)
         out, aux["rack"] = apply_mitigation(racks, dc[on], dt)
         dc[on] = out
 
@@ -343,3 +358,147 @@ def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
     if bands_cols:
         chunk.bands_mitigated = bands_cols
     yield chunk
+
+
+# ---------------------------------------------------------------------------
+# batched (MPF x battery) design search
+# ---------------------------------------------------------------------------
+
+def _rank_feasible(ok: np.ndarray, overhead: np.ndarray,
+                   candidates: Sequence[Tuple[float, float]]) -> np.ndarray:
+    """Feasible candidate indices ranked by (energy overhead, capacity,
+    MPF): minimal waste first, then minimal capacity.  The overhead is
+    rounded to 6 decimals so float noise cannot outrank a smaller
+    battery."""
+    feasible = np.flatnonzero(np.asarray(ok))
+    caps = np.asarray([candidates[i][1] for i in feasible])
+    mpfs = np.asarray([candidates[i][0] for i in feasible])
+    oh = np.round(np.asarray(overhead)[feasible], 6)
+    return feasible[np.lexsort((mpfs, caps, oh))]
+
+
+def _design_pair(spec: UtilitySpec, mpf: float, cap: float, n_chips: int,
+                 swing: float, hw: Hardware
+                 ) -> Tuple[Optional[GpuPowerSmoothing],
+                            Optional[RackBattery]]:
+    """The (device, rack) mitigations a candidate stands for; an ``mpf``
+    or ``cap`` of 0 turns its stage off."""
+    gpu = (GpuPowerSmoothing(
+        mpf_frac=mpf, hw=hw,
+        ramp_up_w_per_s=spec.time.ramp_up_w_per_s / n_chips,
+        ramp_down_w_per_s=spec.time.ramp_down_w_per_s / n_chips)
+        if mpf > 0 else None)
+    bat = (RackBattery(capacity_j=cap, max_discharge_w=swing,
+                       max_charge_w=swing) if cap > 0 else None)
+    return gpu, bat
+
+
+def _eval_candidates(spec: UtilitySpec, w: torch.Tensor, dt: float,
+                     n_chips: int, candidates: Sequence[Tuple[float, float]],
+                     *, swing: float, hw: Hardware):
+    """Every ``(mpf, cap)`` candidate applied to the trace ``w`` ``[n]``
+    and judged, as one batch: ``(outs [B, n], ok [B], overhead [B],
+    flags, metrics)`` on ``w``'s device.  The device stage runs on the
+    per-chip trace (``w / n_chips``) and is multiplied back; the rack
+    stage follows on the aggregate."""
+    B = len(candidates)
+    pairs = [_design_pair(spec, m, c, n_chips, swing, hw)
+             for m, c in candidates]
+    outs = w[None].expand(B, -1).clone()
+    gpus, gpu_on = _normalize_mits([g for g, _ in pairs], B,
+                                   "design gpu candidates")
+    if gpus:
+        rows = _on_rows(gpu_on, B, w.device)
+        chips = torch.tensor(float(n_chips), dtype=torch.float32,
+                             device=w.device)
+        out, _ = apply_mitigation(gpus, outs[rows] / chips, dt)
+        outs[rows] = out * chips
+    bats, bat_on = _normalize_mits([b for _, b in pairs], B,
+                                   "design battery candidates")
+    if bats:
+        rows = _on_rows(bat_on, B, w.device)
+        outs[rows], _ = apply_mitigation(bats, outs[rows], dt)
+    ok, flags, metrics = spec.validate(outs, dt)
+    overhead = energy_overhead(w[None].expand(B, -1), outs)
+    return outs, ok, overhead, flags, metrics
+
+
+def design_grid(spec: UtilitySpec, w, dt: float, n_chips: int,
+                mpf_grid: Sequence[float], cap_grid: Sequence[float], *,
+                swing: float, hw: Hardware = DEFAULT_HW, top_k: int = 1,
+                device=None) -> Optional[Dict]:
+    """Judge every (MPF, capacity) candidate in one batch and return the
+    first passing one in grid order (MPF-major, ascending), or None.
+
+    ``top_k`` > 1 also ranks the feasible candidates by energy overhead
+    (``_rank_feasible``) and returns the best ``top_k`` under
+    ``"alternatives"``; the winner stays the grid-order pick.  Runs on
+    ``device`` (None: the card); the result is host data.
+    """
+    dev = resolve_device(device)
+    candidates = [(m, c) for m in mpf_grid for c in cap_grid]
+    outs, ok, overhead, flags, metrics = _eval_candidates(
+        spec, torch.as_tensor(np.asarray(w, np.float32), device=dev), dt,
+        n_chips, candidates, swing=swing, hw=hw)
+    ok = ok.cpu().numpy()
+    if not ok.any():
+        return None
+    idx = int(np.argmax(ok))
+    mpf, cap = candidates[idx]
+    overhead = overhead.cpu().numpy()
+    ranked = _rank_feasible(ok, overhead, candidates)[:top_k]
+    gpu_sel, bat_sel = _design_pair(spec, mpf, cap, n_chips, swing, hw)
+    return {
+        "mpf_frac": mpf,
+        "battery_capacity_j": cap,
+        "energy_overhead": float(overhead[idx]),
+        "report": report_from_arrays(
+            ok[idx], {k: v[idx].item() for k, v in flags.items()},
+            {k: v[idx].item() for k, v in metrics.items()}),
+        "device_mitigation": gpu_sel,
+        "rack_mitigation": bat_sel,
+        "mitigated": outs[idx].cpu().numpy(),
+        "grid_ok": ok.reshape(len(mpf_grid), len(cap_grid)),
+        "alternatives": [{
+            "mpf_frac": candidates[i][0],
+            "battery_capacity_j": candidates[i][1],
+            "energy_overhead": float(overhead[i]),
+        } for i in ranked],
+        "method": "grid",
+        "aux": {},
+    }
+
+
+def design(spec: UtilitySpec, w, dt: float, n_chips: int, *,
+           method: str = "grid", hw: Hardware = DEFAULT_HW,
+           period_hint_s: float = 2.0,
+           mpf_grid: Optional[Sequence[float]] = None,
+           cap_grid: Optional[Sequence[float]] = None, top_k: int = 4,
+           warmstart=None, device=None, **unported) -> Optional[Dict]:
+    """The (MPF, battery-capacity) design entry point.
+
+    ``method="grid"`` is the batched coarse grid search (``design_grid``)
+    over MPF floors up to the chip's cap and battery capacities of
+    ``swing * period_hint_s`` times 0 and 1/8 to 2.  The gradient-based
+    methods (``gradient``, ``hybrid``, ``warmstart``) and their options
+    (``warmstart=``, the gradient keywords) are not ported yet and raise
+    ``NotImplementedError``.  The reference
+    defaults to ``hybrid``; the port to the one method it has.
+    """
+    if (method in ("gradient", "hybrid", "warmstart")
+            or warmstart is not None or unported):
+        raise NotImplementedError(DESIGN_NOT_PORTED.format(method))
+    if method != "grid":
+        raise ValueError(f"method must be grid|gradient|hybrid|warmstart, "
+                         f"got {method!r}")
+    w = np.asarray(w, np.float32)
+    swing = float(w.max() - w.min())
+    if mpf_grid is None:
+        # the hardware caps how high a floor is programmable
+        mpf_grid = [m for m in (0.0, 0.5, 0.65, 0.8, 0.9)
+                    if m <= hw.chip.mpf_max + 1e-9]
+    if cap_grid is None:
+        cap_grid = [0.0] + [swing * period_hint_s * f for f in
+                            (0.125, 0.25, 0.5, 1.0, 2.0)]
+    return design_grid(spec, w, dt, n_chips, mpf_grid, cap_grid,
+                       swing=swing, hw=hw, top_k=top_k, device=device)

@@ -13,6 +13,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+# the grid-critical probe frequencies: inter-area (<1 Hz), plant-coupling
+# (1-2.5 Hz), the paper band's center, and low torsional bins; the bins
+# the control plane's online detector watches
+GRID_CRITICAL_HZ = (0.25, 0.5, 1.0, 2.0, 3.0, 5.0, 9.0)
+
 
 def spectrum(x: torch.Tensor, dt: float) -> Tuple[np.ndarray, torch.Tensor]:
     """One-sided amplitude spectrum ``[B, n//2 + 1]`` of the AC component,

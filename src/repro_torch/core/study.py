@@ -39,6 +39,7 @@ from repro_torch.core.phases import IterationTimeline
 from repro_torch.core.smoothing.base import structure
 from repro_torch.core.spec import UtilitySpec
 from repro_torch.core.waveform import WaveformConfig, phase_levels
+from repro_torch.device import resolve_device
 
 PADDING_MODES = ("auto", "pad", "bucket")
 
@@ -52,16 +53,6 @@ NOT_PORTED = {
     "optimize": "Study.optimize() is not ported yet: ROADMAP queue A, the "
                 "differentiable design path",
 }
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  Without one, only an explicit ``"cpu"``
-    runs: a study never quietly falls back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the plain PyTorch versions on the CPU")
-    return dev
 
 
 # ---------------------------------------------------------------------------

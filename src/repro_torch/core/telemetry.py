@@ -11,13 +11,21 @@ of ``escalation_class_step``.
 
 The carry is an int64 ``[B, 4]`` tensor ``(level, above, below,
 detect)``; sample indices are int64, so ``detect`` is exact at any trace
-length.  ``TelemetrySource`` (telemetry noise) is not ported yet.
+length.  ``escalation_step`` is one amplitude-facing step on the carry
+as a tuple of tensors (the control plane's per-tick controller).
+
+``TelemetrySource`` is the host sensor model (sampling period, read-out
+latency, noise, quantization) on numpy, with the reference's numpy
+random draws.  Its traced mirror ``measure_jax`` is not ported yet
+(ROADMAP queue A, Firefly).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.build import CudaKernel, ptr, stream_of
@@ -84,6 +92,21 @@ def escalation_class_step(carry, cls: torch.Tensor, idx: torch.Tensor, *,
     return level, above, below, detect
 
 
+def escalation_step(carry, amp, idx, *, threshold, win: int, n,
+                    sustain_n: int, cool_n: int, max_level: int = 3,
+                    release=None):
+    """One step of the escalation machine on an amplitude: classify
+    ``amp`` at global index ``idx`` (``escalation_classify``), then one
+    ``escalation_class_step``.  ``carry`` is the tuple ``(level, above,
+    below, detect)`` of int64 tensors of one shape, ``amp`` and ``idx``
+    broadcast against it.  Returns ``(carry', level)``."""
+    cls = escalation_classify(amp, idx, threshold=threshold, win=win, n=n,
+                              release=release)
+    carry = escalation_class_step(carry, cls, idx, sustain_n=sustain_n,
+                                  cool_n=cool_n, max_level=max_level)
+    return carry, carry[0]
+
+
 def _idx0_rows(idx0: Union[int, torch.Tensor], rows: int, device
                ) -> torch.Tensor:
     idx0 = torch.as_tensor(idx0, dtype=torch.int64, device=device)
@@ -135,3 +158,31 @@ def escalation_scan(cls: torch.Tensor, idx0, carry: torch.Tensor, *,
         ptr(cls), ptr(g0), ptr(carry), ptr(levels), ptr(carry_out), B, n,
         sustain_n, cool_n, max_level, stream_of(cls))
     return carry_out, levels
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetrySource:
+    period_s: float = 0.001     # sampling period (1 ms fast counters)
+    latency_s: float = 0.002    # read-out latency
+    noise_w: float = 0.0
+    quantization_w: float = 1.0
+    averaged: bool = False      # True = boxcar average over period
+
+    def measure(self, w: np.ndarray, dt: float, seed: int = 0) -> np.ndarray:
+        """Sampled+delayed view of true power w (same length, ZOH)."""
+        n = len(w)
+        k = max(int(round(self.period_s / dt)), 1)
+        lag = int(round(self.latency_s / dt))
+        if self.averaged and k > 1:
+            kernel = np.ones(k) / k
+            base = np.convolve(w, kernel, mode="full")[:n]
+        else:
+            base = w
+        idx = (np.arange(n) // k) * k          # zero-order hold at samples
+        m = base[np.clip(idx - lag, 0, n - 1)]
+        if self.noise_w > 0:
+            rng = np.random.default_rng(seed)
+            m = m + rng.normal(0.0, self.noise_w, size=n)
+        if self.quantization_w > 0:
+            m = np.round(m / self.quantization_w) * self.quantization_w
+        return m

@@ -4,7 +4,8 @@ Each kernel source ``kernels/<family>/csrc/<name>.cu`` exports a plain C
 entry point.  It is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library, at first use, and loaded with ``ctypes``; pointers and
 the stream cross as Python ints.  The library's file name carries a hash
-of the source and flags, so an edited source is rebuilt.  Libraries go to
+of the source, the headers beside it and the flags, so an edited source
+or header is rebuilt.  Libraries go to
 ``build/kernels`` at the root of the checkout, a directory git ignores.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -74,6 +75,8 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(self._flags()).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
 

@@ -40,6 +40,14 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert not bad, bad
 
 
+def test_rules_cover_the_control_slice():
+    """The walk that the import rule reads reaches the control slice."""
+    files = _port_files()
+    for module in ("control/loop.py", "kernels/goertzel/sliding.py",
+                   "device.py"):
+        assert ROOT / "src" / "repro_torch" / module in files
+
+
 def test_study_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     study = api.Study({"w": api.synthetic_timeline(1.0)}, fleets=[64],
