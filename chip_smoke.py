@@ -10,7 +10,14 @@ every kernel's launches), re-runs a subset of it on the CPU, then closes
 the grid-interactive control loop (``control.watch_trace``) on the
 canonical 48 s ramp and on a 10-minute 1 kHz replay, holds kernel E and
 the monitor's chunked online path against their offline calls, and
-re-runs the canonical loop on the CPU.  It prints:
+re-runs the canonical loop on the CPU (phases 1-10).  Then the model zoo
+(phases 11-14): kernel F (flash attention) against its plain version and
+a float64 oracle at four shapes in bf16 and f32; granite-3-8b at full
+width (random f32 params from seed 0) prefilling 4 x 4096 tokens on the
+flash route (40 launches of F) and on the chunked route the reference
+serves on, the two compared; ``ServeEngine.generate`` of 32 greedy tokens
+against 32 tokens decoded from the flash route's cache; and the model cut
+to 2 layers in f32, run on the card and on the CPU.  It prints:
 
   * the card's name and power limit (``nvidia-smi``);
   * build times and ``ptxas`` register and spill lines;
@@ -23,6 +30,10 @@ re-runs the canonical loop on the CPU.  It prints:
     counterfactual breach, warm dispatch latencies, loop wall,
     ``realtime_x``, per-tick step times, launches per run of every kernel,
     and the device busy share of a profiled run;
+  * per model phase: kernel F's errors and times beside its bound and
+    ``F.scaled_dot_product_attention``'s time, prefill walls, tokens/s,
+    peak memory, the routes' gaps, the device busy share of a profiled
+    prefill, decode ms per token, and the CPU re-run's gaps;
   * one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again,
     and, last, ``{"ok": true, "device": {...}}``.
 
@@ -58,6 +69,24 @@ CONTROL_CHIPS = 512
 CONTROL_JOB_MW = 500.0
 CARRY_TICKS = (7, 250, 1999, 2000, 3, 1211, 777, 2000, 753)
 SLIDING_OPS = 20          # f32 operations per sample and bin, kernel E
+
+# the model zoo (phases 11-14): granite-3-8b at full width
+PREFILL_B, PREFILL_S = 4, 4096
+NEW_TOKENS = 32
+FLASH_BLOCKS = (2048, 1024)   # the reference's q_chunk and chunk_size
+# kernel F's checks: (q shape [B, S, KV, G, D], Dv, causal), each in bf16
+# and f32: the prefill's shape, a non-causal one and a Dv != D one
+FLASH_SHAPES = (((PREFILL_B, PREFILL_S, 8, 4, 128), 128, True),
+                ((1, 2048, 8, 4, 128), 128, False),
+                ((1, 2048, 16, 1, 192), 128, True))
+GRANITE = "granite-3-8b"
+DEVICE = "cuda"  # where phases 11-14 put the card's side
+# kernel F against its plain version and the float64 oracle, of max |plain|
+FLASH_TOL = {"bfloat16": (2.0 ** -8, 2.0 ** -7), "float32": (1e-5, 1e-5)}
+# dense tensor-core peaks (NVIDIA data sheet) for kernel F's bound
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+ROUTE_TOL = 2.0 ** -5     # flash vs chunked prefill, of max |.|
+CPU_RERUN_TOL = 1e-4      # card vs CPU logits, of max |logit|
 
 DT = 0.001
 FLEETS = (8192, 32768)
@@ -776,6 +805,330 @@ def compare_cpu_loop(torch, control, api, w, dt, card_log):
 
 
 # ---------------------------------------------------------------------------
+# the model zoo: kernel F, granite-3-8b prefill on both routes, serving
+# ---------------------------------------------------------------------------
+
+def flash_case(torch, gen, shape, Dv, causal, dtype):
+    """Kernel F against its plain version and the float64 dense oracle at
+    one shape (S == T, the reference's full-width blocks 2048 and 1024,
+    clamped to S as its ops.py does), with its times and bound."""
+    from repro_torch.kernels.flash import flash
+    from repro_torch.kernels.flash.ref import flash_ref
+    B, S, KV, G, D = shape
+    dt = getattr(torch, dtype)
+    q = torch.randn(shape, generator=gen, device=DEVICE).to(dt)
+    k = torch.randn((B, S, KV, D), generator=gen, device=DEVICE).to(dt)
+    v = torch.randn((B, S, KV, Dv), generator=gen, device=DEVICE).to(dt)
+    kw = dict(q_block=min(FLASH_BLOCKS[0], S), kv_chunk=min(FLASH_BLOCKS[1], S),
+              causal=causal)
+    got = flash.flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    plain, plain_ms = timed_once(
+        torch, lambda: flash.flash_forward_plain(q, k, v, **kw))
+    scale = plain.float().abs().max().item()
+    err = (got.float() - plain.float()).abs().max().item()
+    del plain
+    err_oracle = (got.double() - flash_ref(q, k, v, causal=causal)
+                  ).abs().max().item()
+    tol_plain, tol_oracle = FLASH_TOL[dtype]
+    ms = cuda_ms(torch, lambda: flash.flash_forward(q, k, v, **kw), 5)
+    H = KV * G
+    qh, kh, vh = (q.reshape(B, S, H, D).transpose(1, 2), k.transpose(1, 2),
+                  v.transpose(1, 2))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(torch, lambda: sdpa(qh, kh, vh, is_causal=causal,
+                                             enable_gqa=True), 5)
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    t_bytes = nbytes(q, k, v, got) / PEAK_BYTES_S * 1e3
+    t_ops = pairs * 2 * (D + Dv) / PEAK_FLOPS[dtype] * 1e3
+    row = {"shape": [B, S, KV, G, D, Dv], "dtype": dtype, "causal": causal,
+           "max_abs_err": err, "rel_err": err / scale, "tolerance": tol_plain,
+           "oracle_rel_err": err_oracle / scale,
+           "oracle_tolerance": tol_oracle, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    log(f"flash {dtype} {'causal' if causal else 'full'} q {list(shape)} Dv "
+        f"{Dv}: vs plain {err / scale:.3g} of max |plain| (tol "
+        f"{tol_plain:.3g}), vs float64 oracle {err_oracle / scale:.3g} (tol "
+        f"{tol_oracle:.3g}); {ms:.4g} ms (plain {plain_ms:.4g}, sdpa "
+        f"{library_ms:.4g}, bound {row['bound_ms']:.4g} by "
+        f"{row['bound_by']})")
+    if err > tol_plain * scale or err_oracle > tol_oracle * scale:
+        raise AssertionError("kernel F disagrees with its plain version or "
+                             "the float64 oracle")
+    return row
+
+
+def flash_phase(torch, build):
+    """Phase 11: kernel F at the prefill's shape in bf16 and f32, and at a
+    non-causal and a Dv != D shape in both."""
+    from repro_torch.kernels.flash import flash
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    rows = [flash_case(torch, gen, shape, Dv, causal, dtype)
+            for shape, Dv, causal in FLASH_SHAPES
+            for dtype in ("bfloat16", "float32")]
+    ptxas = [ln.strip() for ln in flash.FLASH_KERNEL.ptxas_log.splitlines()
+             if "Function properties" in ln or "registers" in ln
+             or "spill" in ln]
+    path = rows[0]
+    return {"name": "flash_forward", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
+            "replaces": "src/repro/kernels/flash/flash.py:64",
+            "launches": None, "max_abs_err": path["max_abs_err"],
+            "tolerance": f"{FLASH_TOL['bfloat16'][0]} x max |plain| (bf16), "
+                         f"{FLASH_TOL['float32'][0]} (f32)",
+            "shape": path["shape"], "ms": path["ms"],
+            "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
+            "bound_by": path["bound_by"], "library_ms": path["library_ms"],
+            "library_note": "F.scaled_dot_product_attention(is_causal, "
+                            "enable_gqa) on the same q, k, v",
+            "cases": rows, "ptxas": ptxas}
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def rel_gap(torch, a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def prefill_phase(torch, build, cfg, params, tokens):
+    """Phase 12: full-width prefill on the flash route (kernel F) and on the
+    chunked route the reference serves on, each cold (launch counts from 0)
+    and warm; the routes compared; a profiled flash prefill."""
+    from repro_torch.models import Ctx, init_cache, make_prefill
+    B, S = tokens.shape
+    prefill = make_prefill(cfg)
+    cache0 = init_cache(cfg, B, S + NEW_TOKENS, torch.float32, DEVICE)
+    batch = {"tokens": tokens}
+    out = {}
+    for flash in (True, False):
+        ctx = Ctx(cfg=cfg, flash=flash)
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        (logits, cache), cold_ms = timed_once(
+            torch, lambda: prefill(params, batch, cache0, ctx))
+        launches = build.launch_counts()
+        del cache
+        (logits_w, cache), warm_ms = timed_once(
+            torch, lambda: prefill(params, batch, cache0, ctx))
+        peak = torch.cuda.max_memory_allocated()
+        tag = "flash" if flash else "chunked"
+        log(f"[prefill {tag}] B {B} x S {S}: cold {cold_ms:.1f} ms, warm "
+            f"{warm_ms:.1f} ms ({B * S / warm_ms * 1e3:.0f} tokens/s), peak "
+            f"{peak / 2**30:.2f} GiB allocated; launches "
+            + json.dumps(launches))
+        if launches["flash_fwd"] != (cfg.n_layers if flash else 0):
+            raise AssertionError(f"[prefill {tag}] kernel F launched "
+                                 f"{launches['flash_fwd']} times")
+        if not torch.equal(logits, logits_w):
+            raise AssertionError(f"[prefill {tag}] cold and warm logits differ")
+        if (tuple(logits.shape) != (B, 1, cfg.vocab_size)
+                or not torch.isfinite(logits).all()):
+            raise AssertionError(f"[prefill {tag}] logits {tuple(logits.shape)}"
+                                 " are not finite [B, 1, V]")
+        out[tag] = {"logits": logits, "cache": cache, "cold_ms": cold_ms,
+                    "warm_ms": warm_ms, "peak_bytes": peak,
+                    "launches": launches}
+    del cache0
+    f, c = out["flash"], out["chunked"]
+    layer0 = all(torch.equal(f["cache"]["unit"][0][n][0],
+                             c["cache"]["unit"][0][n][0]) for n in ("k", "v"))
+    gaps = [max(rel_gap(torch, f["cache"]["unit"][0][n][r],
+                        c["cache"]["unit"][0][n][r]) for n in ("k", "v"))
+            for r in range(cfg.n_repeats)]
+    logit_gap = rel_gap(torch, f["logits"], c["logits"])
+    worst = max(range(1, cfg.n_repeats), key=lambda r: gaps[r])
+    log(f"[prefill] flash vs chunked route: layer 0 cache bitwise {layer0}; "
+        f"caches of layers 1-{cfg.n_repeats - 1} within {gaps[worst]:.3g} of "
+        f"their max |.| (worst layer {worst}; median "
+        f"{sorted(gaps[1:])[len(gaps) // 2 - 1]:.3g}); last logits "
+        f"{logit_gap:.3g} (tol {ROUTE_TOL:.3g})")
+    if not layer0 or gaps[worst] > ROUTE_TOL or logit_gap > ROUTE_TOL:
+        raise AssertionError("the flash and chunked routes disagree")
+    del c["cache"]
+    ctx = Ctx(cfg=cfg, flash=True)
+    wall, busy, top = profile_device(
+        torch, lambda: prefill(params, batch, f["cache"], ctx))
+    log(f"[prefill flash] profiled run {wall:.3f} s, device busy {busy:.3f} s"
+        f" ({100 * busy / wall:.1f}% of the traced wall)")
+    for ms, cnt, key in top:
+        log(f"  {ms:10.3f} ms {cnt:6d}x {key[:110]}")
+    return {"flash": f, "chunked_logits": c["logits"],
+            "launches": {"flash": f["launches"], "chunked": c["launches"]},
+            "summary": {
+                "B": B, "S": S, "layers": cfg.n_layers,
+                "flash_warm_ms": f["warm_ms"], "chunked_warm_ms": c["warm_ms"],
+                "flash_tokens_per_s": B * S / f["warm_ms"] * 1e3,
+                "chunked_tokens_per_s": B * S / c["warm_ms"] * 1e3,
+                "peak_gib": max(f["peak_bytes"], c["peak_bytes"]) / 2**30,
+                "layer0_bitwise": layer0, "cache_gap": gaps[worst],
+                "logit_gap": logit_gap, "busy_share": busy / wall}}
+
+
+def serve_phase(torch, build, cfg, params, tokens, flash_out):
+    """Phase 13: ServeEngine.generate (the chunked route, as the reference
+    serves) on the prompts, greedy; then the same number of greedy tokens
+    decoded from the flash route's cache, compared row by row."""
+    from repro_torch.models import make_decode_step
+    from repro_torch.serve import ServeEngine
+    B, S = tokens.shape
+    eng = ServeEngine(cfg, params, max_seq=S + NEW_TOKENS, batch=B,
+                      device=DEVICE)
+    rec = {"prefill": [], "decode": [], "logits": []}
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = fn(*args)
+            torch.cuda.synchronize()
+            rec[key].append((time.perf_counter() - t0) * 1e3)
+            rec["logits"].append(logits[:, -1].float().clone())
+            return logits, cache
+        return run
+
+    eng._prefill = timed(eng._prefill, "prefill")
+    eng._decode = timed(eng._decode, "decode")
+    build.reset_launch_counts()
+    served, wall_ms = timed_once(torch, lambda: eng.generate(tokens,
+                                                             NEW_TOKENS))
+    counts = build.launch_counts()
+    launches = counts["flash_fwd"]
+    dec = rec["decode"]
+    log(f"[serve] ServeEngine.generate {B} x ({S} + {NEW_TOKENS}): "
+        f"{wall_ms:.1f} ms, prefill {rec['prefill'][0]:.1f} ms, decode "
+        f"p50 {pctl(dec, 50):.2f} ms max {max(dec):.2f} ms per step, "
+        f"{B * NEW_TOKENS / wall_ms * 1e3:.1f} generated tokens/s "
+        f"({B * NEW_TOKENS / sum(dec) * 1e3:.1f} in decode alone); kernel F "
+        f"launches {launches}")
+    if launches != 0 or tuple(served.shape) != (B, NEW_TOKENS):
+        raise AssertionError("ServeEngine launched kernel F or returned "
+                             f"{tuple(served.shape)}")
+    del eng
+    decode = make_decode_step(cfg)
+    cache = flash_out["cache"]
+    tok = torch.argmax(flash_out["logits"][:, -1], dim=-1)
+    own = []
+    for i in range(NEW_TOKENS):
+        own.append(tok)
+        logits, cache = decode(params, tok[:, None], cache, S + i)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+    own = torch.stack(own, 1).to(served.dtype)
+    leads = []
+    for b in range(B):
+        diff = (own[b] != served[b]).nonzero()
+        lead = NEW_TOKENS if len(diff) == 0 else int(diff[0])
+        leads.append(lead)
+        if lead < NEW_TOKENS:
+            lg = rec["logits"][lead]
+            top2 = torch.topk(lg[b], 2).values
+            gap = (top2[0] - top2[1]).item()
+            limit = ROUTE_TOL * lg.abs().max().item()
+            log(f"[serve] row {b}: the flash route's tokens part at step "
+                f"{lead}, where ServeEngine's top-2 logit gap is {gap:.4g} "
+                f"(limit {limit:.4g})")
+            if gap > limit:
+                raise AssertionError("the routes' tokens part where the "
+                                     "logits are not near a tie")
+    log(f"[serve] flash-route decode vs ServeEngine: leading equal tokens "
+        f"per row {leads} of {NEW_TOKENS}")
+    return {"generate_ms": wall_ms, "prefill_ms": rec["prefill"][0],
+            "decode_p50_ms": pctl(dec, 50), "decode_max_ms": max(dec),
+            "tokens_per_s": B * NEW_TOKENS / wall_ms * 1e3,
+            "decode_tokens_per_s": B * NEW_TOKENS / sum(dec) * 1e3,
+            "leading_equal_tokens": leads, "launches": counts}
+
+
+def cpu_rerun_phase(torch, build, cfg_full):
+    """Phase 14: granite-3-8b at full width cut to 2 layers, in f32: a flash
+    prefill of 1 x 2048 and 8 greedy tokens on the card (kernel F) and on
+    the CPU (its plain version)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import (Ctx, init_cache, init_params,
+                                    make_decode_step, make_prefill)
+    cfg = dataclasses.replace(cfg_full, n_repeats=2, compute_dtype="float32")
+    S, n = 2048, 8
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, S)))
+
+    def run(p, device):
+        cache = init_cache(cfg, 1, S + n, torch.float32, device)
+        logits, cache = make_prefill(cfg)(
+            p, {"tokens": prompt.to(device)}, cache, Ctx(cfg=cfg, flash=True))
+        decode = make_decode_step(cfg)
+        seen, toks = [logits[:, -1].cpu()], []
+        for i in range(n):
+            toks.append(torch.argmax(logits[:, -1], dim=-1))
+            logits, cache = decode(p, toks[-1][:, None], cache, S + i)
+            seen.append(logits[:, -1].cpu())
+        return torch.stack(toks, 1).cpu(), torch.stack(seen)
+
+    build.reset_launch_counts()
+    (card_toks, card_logits), card_ms = timed_once(
+        torch, lambda: run(tree_to(params, DEVICE), DEVICE))
+    counts = build.launch_counts()
+    launches = counts["flash_fwd"]
+    t0 = time.perf_counter()
+    cpu_toks, cpu_logits = run(params, "cpu")
+    cpu_s = time.perf_counter() - t0
+    gap = rel_gap(torch, card_logits, cpu_logits)
+    equal = torch.equal(card_toks, cpu_toks)
+    log(f"[cpu re-run] granite-3-8b x 2 layers f32, 1 x {S} + {n}: card "
+        f"{card_ms:.0f} ms (kernel F launches {launches}), CPU {cpu_s:.1f} s;"
+        f" logits within {gap:.3g} of max |logit| (tol {CPU_RERUN_TOL}), "
+        f"tokens equal {equal}")
+    if gap > CPU_RERUN_TOL or not equal or launches != cfg.n_layers:
+        raise AssertionError("the CPU re-run disagrees with the card")
+    return {"logit_gap": gap, "tokens_equal": equal, "cpu_s": cpu_s,
+            "card_ms": card_ms, "launches": counts}
+
+
+def model_phases(torch, build, kernels, earlier_f_counts):
+    """Phases 11-14; adds kernel F's row to ``kernels`` (its launches on
+    the Study and control paths in ``earlier_f_counts``) and the model
+    paths' launch counts to every row."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    f_row = flash_phase(torch, build)
+    cfg = get_config(GRANITE)
+    params, init_ms = timed_once(torch, lambda: init_params(
+        torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE))
+    log(f"granite-3-8b: {cfg.param_count()} params (f32) drawn on the card in"
+        f" {init_ms:.0f} ms, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).to(DEVICE)
+    pre = prefill_phase(torch, build, cfg, params, tokens)
+    serve = serve_phase(torch, build, cfg, params, tokens, pre["flash"])
+    del params, pre["flash"]
+    torch.cuda.empty_cache()
+    rerun = cpu_rerun_phase(torch, build, cfg)
+    names = {"sliding_monitor": "monitor", "gpu_floor_scan": "gpu_floor",
+             "battery_scan": "battery", "escalation_scan": "escalation",
+             "sliding_bin_power_v2": "sliding", "flash_forward": "flash_fwd"}
+    f_row["launches"] = pre["launches"]["flash"]["flash_fwd"]
+    f_row["launches_by_path"] = dict(earlier_f_counts)
+    kernels.append(f_row)
+    for k in kernels:
+        nm = names[k["name"]]
+        k["launches_by_path"].update({
+            "prefill_flash": pre["launches"]["flash"][nm],
+            "prefill_chunked": pre["launches"]["chunked"][nm],
+            "serve_generate": serve["launches"][nm],
+            "cpu_rerun_card": rerun["launches"][nm]})
+    return {"prefill": pre["summary"], "serve": serve, "cpu_rerun": rerun}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -786,10 +1139,13 @@ def main() -> int:
     import_port()
     from repro_torch import api
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash import flash  # noqa: F401 (registers F)
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn {torch.backends.cudnn.allow_tf32}")
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -817,6 +1173,7 @@ def main() -> int:
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
     counts = build.launch_counts()
+    f_counts = {"study": counts["flash_fwd"]}
     launches = {"monitor": counts["monitor"], "gpu_floor": counts["gpu_floor"],
                 "battery": counts["battery"],
                 "escalation": counts["escalation"]}
@@ -875,6 +1232,7 @@ def main() -> int:
     from repro_torch import control
     w, dt = control_trace(control)
     canon = control_phase(torch, control, api, build, w, dt, "watch_trace")
+    f_counts["watch_trace"] = build.launch_counts()["flash_fwd"]
     wall, busy, top = profile_device(
         torch, lambda: run_watch(torch, control, api, w, dt, "cuda"), 10)
     log(f"[watch_trace] profiled run {wall:.3f} s, device busy {busy:.4f} s"
@@ -902,6 +1260,7 @@ def main() -> int:
     long_log, long_wall = run_watch(torch, control, api, w_long, dt_long,
                                     "cuda")
     long_counts = path_counts(build)
+    f_counts["watch_trace_600s"] = build.launch_counts()["flash_fwd"]
     report_loop("watch_trace 600 s", long_log, long_wall,
                 len(w_long) * dt_long, long_counts)
     if min(long_counts.values()) <= 0 or long_log.summary()[
@@ -928,7 +1287,8 @@ def main() -> int:
          "chunked_bitwise": True, **e_rows[0], "library_ms": None,
          "library_note": "no single PyTorch call computes every sample's "
                          "sliding windowed DFT bins",
-         "long_replay": e_rows[1]}
+         "long_replay": e_rows[1],
+         "launches_by_path": {"study": counts["sliding"]}}
     kernels.append(e)
     for k in kernels:
         nm = {"sliding_monitor": "monitor", "gpu_floor_scan": "gpu_floor",
@@ -946,6 +1306,19 @@ def main() -> int:
 
     # 10. the canonical loop on the CPU (the plain versions) against 7
     compare_cpu_loop(torch, control, api, w, dt, canon["cold_log"])
+    if any(f_counts.values()):
+        raise AssertionError(f"kernel F launched off the model path: "
+                             f"{f_counts}")
+
+    # 11-14. kernel F; granite-3-8b prefill on both routes, ServeEngine,
+    # and a cut-depth re-run on the CPU
+    t_model = time.perf_counter()
+    model = model_phases(torch, build, kernels, f_counts)
+    log("model: " + json.dumps(model))
+    peak = max(model["prefill"]["peak_gib"],
+               torch.cuda.max_memory_allocated() / 2**30)
+    log(f"phases 11-14: {time.perf_counter() - t_model:.1f} s; peak "
+        f"{peak:.2f} GiB allocated in phases 12-14")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

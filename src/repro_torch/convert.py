@@ -11,6 +11,10 @@ package is imported: the dicts are the interface.
 across: it takes the reference's ``SlidingCarry`` or ``MonitorCarry``
 (its arrays as numpy, or anything ``np.asarray`` reads) and returns the
 port's, so a stream started in the reference resumes in the port.
+
+``params_from_reference(tree)`` carries a model's params across: the
+reference's params pytree, its leaves as numpy arrays, becomes the
+port's dict of tensors with the same structure and values.
 """
 from __future__ import annotations
 
@@ -119,3 +123,32 @@ def from_reference_carry(carry, *, n_bins: int, device=None
         return MonitorCarry(sliding=_sliding_carry(carry.sliding, n_bins,
                                                    dev), esc=esc)
     return _sliding_carry(carry, n_bins, dev)
+
+
+def _leaf_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as JAX gives it
+        t = torch.from_numpy(np.array(a).view(np.uint16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def params_from_reference(tree, device=None):
+    """The port's model params from the reference's params pytree, its
+    leaves as numpy arrays (``jax.tree.map(np.asarray, params)``).  The
+    tree keeps its structure (dicts, the ``prefix`` list, the ``unit``
+    tuple with its stacked ``[n_repeats, ...]`` leaves, ``wq [d, H, D]``,
+    ``wo [H, D, d]``) and every value and dtype: a rename and a copy.
+    ``device=None`` means the card."""
+    dev = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        if isinstance(t, tuple):
+            return tuple(walk(v) for v in t)
+        return _leaf_tensor(t, dev)
+
+    return walk(tree)

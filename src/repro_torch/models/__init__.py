@@ -1,0 +1,8 @@
+"""The model zoo's dense GQA family (granite-3-8b, minitron-4b), ported
+from the reference's ``repro.models``."""
+from repro_torch.models.model import (Ctx, Model, forward, init_cache,
+                                      init_params, make_decode_step,
+                                      make_prefill)
+
+__all__ = ["Ctx", "Model", "forward", "init_cache", "init_params",
+           "make_decode_step", "make_prefill"]

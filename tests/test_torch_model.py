@@ -1,0 +1,198 @@
+"""The dense GQA model of the port against the reference on the CPU.
+
+``reduced(granite-3-8b)`` with 2 repeats, in f32 and with
+``compute_dtype="bfloat16"``; the reference's params (numpy) go through
+``convert.params_from_reference``.  The port's ``forward``, its prefill on
+both routes at S 2048 (which meets the reference's flash conditions with
+chunk 32), the caches and 4 decode steps are held against the reference's
+chunked-route prefill (the JAX flash route runs Pallas without
+``interpret`` and cannot run on the CPU) and ``make_decode_step``: f32
+within rel 1e-4 of max |reference|, bf16 within 2^-5 of it.  The
+reference's bf16 decode cannot run on the CPU either (XLA's CPU backend
+has no BF16 x BF16 = F32 dot, which its decode einsum asks for), so the
+port's bf16 decode steps are held, at 2^-5, to the reference's decode
+with f32 compute, started from the reference's bf16 prefill cache.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jcfgs  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro_torch import configs as tcfgs  # noqa: E402
+from repro_torch.convert import params_from_reference  # noqa: E402
+from repro_torch.kernels.flash import flash as port_flash  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+
+TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+B, S, N_DECODE = 2, 2048, 4
+
+
+def _cfgs(compute_dtype):
+    def cut(cfg):
+        return dataclasses.replace(cfg, n_repeats=2,
+                                   compute_dtype=compute_dtype)
+    return (cut(jcfgs.reduced(jcfgs.get_config("granite-3-8b"))),
+            cut(tcfgs.reduced(tcfgs.get_config("granite-3-8b"))))
+
+
+def _close(got, ref, tol):
+    got = got.float().numpy() if torch.is_tensor(got) else got
+    ref = np.asarray(jnp.asarray(ref).astype(jnp.float32))
+    gap = np.abs(got - ref).max()
+    assert gap <= tol * np.abs(ref).max(), (gap, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "minitron-4b"])
+def test_configs_are_the_references(arch):
+    ref, port = jcfgs.get_config(arch), tcfgs.get_config(arch)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.param_count() == ref.param_count()
+    assert dataclasses.asdict(tcfgs.reduced(port)) == dataclasses.asdict(
+        jcfgs.reduced(ref))
+    assert tcfgs.get_shape("prefill_32k") == tcfgs.ShapeConfig(
+        **dataclasses.asdict(jcfgs.get_shape("prefill_32k")))
+
+
+def test_unported_archs_raise():
+    for arch in jcfgs.ARCH_IDS:
+        if arch in ("granite-3-8b", "minitron-4b"):
+            continue
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tcfgs.get_config(arch)
+    assert set(tcfgs.ARCH_IDS) == set(jcfgs.ARCH_IDS)
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def setup(request):
+    jc, tc = _cfgs(request.param)
+    jparams = jmodel.Model(jc).init(jax.random.PRNGKey(0))
+    tparams = params_from_reference(jax.tree.map(np.asarray, jparams),
+                                    device="cpu")
+    tokens = np.random.default_rng(0).integers(
+        0, jc.vocab_size, (B, S + N_DECODE)).astype(np.int32)
+    return request.param, jc, tc, jparams, tparams, tokens
+
+
+def test_params_from_reference_copies_the_tree(setup):
+    _, _, _, jparams, tparams, _ = setup
+    jl = jax.tree_util.tree_leaves_with_path(jparams)
+    tl = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda t: t.numpy(), tparams))
+    assert [p for p, _ in jl] == [p for p, _ in tl]
+    for (_, a), (_, b) in zip(jl, tl):
+        assert a.shape == b.shape and np.array_equal(np.asarray(a), b)
+    assert tparams["unit"][0]["mix"]["wq"].shape == (2, 64, 4, 16)
+
+
+def test_forward_matches_reference(setup):
+    dtype, jc, tc, jparams, tparams, tokens = setup
+    tok = tokens[:, :64]
+    ref, _ = jmodel.forward(jparams, jc, {"tokens": jnp.asarray(tok)})
+    got, aux = tmodel.forward(tparams, tc, {"tokens": torch.from_numpy(tok)})
+    assert got.dtype == getattr(torch, dtype) and float(aux) == 0.0
+    _close(got, ref, TOL[dtype])
+
+
+def test_prefill_both_routes_and_decode_match_reference(setup):
+    dtype, jc, tc, jparams, tparams, tokens = setup
+    tol = TOL[dtype]
+    prompt = tokens[:, :S]
+    jcache = jmodel.init_cache(jc, B, S + N_DECODE, jnp.float32)
+    jlogits, jcache = jax.jit(jmodel.make_prefill(jc))(
+        jparams, {"tokens": jnp.asarray(prompt)}, jcache)
+    tcache0 = tmodel.init_cache(tc, B, S + N_DECODE, torch.float32, "cpu")
+    prefill = tmodel.make_prefill(tc)
+    routes = {}
+    for flash in (True, False):
+        before = port_flash.FLASH_KERNEL.launches
+        routes[flash] = prefill(tparams, {"tokens": torch.from_numpy(prompt)},
+                                tcache0, tmodel.Ctx(cfg=tc, flash=flash))
+        assert port_flash.FLASH_KERNEL.launches == before  # CPU: plain
+    assert not tcache0["unit"][0]["k"].any()  # the caller's cache is untouched
+    for flash, (logits, cache) in routes.items():
+        _close(logits, jlogits, tol)
+        for name in ("k", "v"):
+            _close(cache["unit"][0][name], jcache["unit"][0][name], tol)
+    # layer 0's k and v come before any attention: equal on both routes
+    for name in ("k", "v"):
+        assert torch.equal(routes[True][1]["unit"][0][name][0],
+                           routes[False][1]["unit"][0][name][0])
+
+    jdecode = jax.jit(jmodel.make_decode_step(
+        dataclasses.replace(jc, compute_dtype="float32")))
+    tdecode = tmodel.make_decode_step(tc)
+    tcache = routes[False][1]
+    for i in range(N_DECODE):
+        tok = tokens[:, S + i:S + i + 1]
+        jl, jcache = jdecode(jparams, jnp.asarray(tok), jcache,
+                             jnp.asarray(S + i, jnp.int32))
+        tl, tcache = tdecode(tparams, torch.from_numpy(tok), tcache, S + i)
+        _close(tl, jl, tol)
+    for name in ("k", "v"):
+        _close(tcache["unit"][0][name], jcache["unit"][0][name], tol)
+
+
+# (S, T, chunk, q_chunk, flash) -> the branch the reference's sdpa takes
+BRANCHES = [
+    ((64, 64, 16, 32, True), "flash"),
+    ((64, 64, 16, 32, False), "q_chunked"),
+    ((32, 32, 16, 32, True), "flash"),
+    ((32, 32, 16, 32, False), "chunked"),
+    ((16, 16, 16, 32, True), "dense"),
+    ((48, 48, 16, 32, True), "chunked"),
+    ((1, 64, 16, 32, True), "chunked"),
+    ((40, 40, 16, 32, True), "dense"),
+    ((64, 64, 64, 32, True), "dense"),
+    ((96, 96, 16, 32, False), "q_chunked"),
+]
+
+
+def _record(calls, name):
+    def fn(q, k, v, *args, **kw):
+        calls.append(name)
+        return q
+    return fn
+
+
+@pytest.mark.parametrize("case,branch", BRANCHES)
+def test_sdpa_takes_the_references_branch(monkeypatch, case, branch):
+    S, T, chunk, q_chunk, flash = case
+    import repro.kernels.flash.flash as jflash
+    jcalls, tcalls = [], []
+    for name in ("_dense_sdpa", "_chunked_sdpa", "_q_chunked_sdpa"):
+        monkeypatch.setattr(jattn, name, _record(jcalls, name[1:-5]))
+        monkeypatch.setattr(tattn, name, _record(tcalls, name[1:-5]))
+    monkeypatch.setattr(jflash, "flash_pallas", _record(jcalls, "flash"))
+    monkeypatch.setattr(port_flash, "flash_forward", _record(tcalls, "flash"))
+    q = np.zeros((1, S, 1, 2, 8), np.float32)
+    kv = np.zeros((1, T, 1, 8), np.float32)
+    jattn.sdpa(jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv),
+               pos_q=jnp.arange(S), chunk=chunk, q_chunk=q_chunk, flash=flash)
+    tattn.sdpa(torch.from_numpy(q), torch.from_numpy(kv),
+               torch.from_numpy(kv), pos_q=torch.arange(S), chunk=chunk,
+               q_chunk=q_chunk, flash=flash)
+    assert jcalls == tcalls == [branch]
+
+
+def test_unported_mixers_and_kv_repeat_raise():
+    _, tc = _cfgs("float32")
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        tattn._repeat_kv(torch.zeros(1, 2, 2, 4), 2, None)
+    with pytest.raises(NotImplementedError, match="'mla'"):
+        tmodel._apply_mixer(tcfgs.LayerSpec("mla", "dense"), {}, None, None)
+    with pytest.raises(NotImplementedError, match="'xattn'"):
+        tmodel._decode_mixer(tcfgs.LayerSpec("xattn", "dense"), {}, None,
+                             None, 0, None)
+    with pytest.raises(NotImplementedError, match="'mamba'"):
+        tmodel._apply_mixer(tcfgs.LayerSpec("mamba", "dense"), {}, None, None)
+    with pytest.raises(NotImplementedError, match="'moe'"):
+        tmodel._apply_ffn(tcfgs.LayerSpec("attn", "moe"), {}, None, None)

@@ -63,6 +63,45 @@ def test_study_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
     assert len(res) == 1
 
 
+def _model_entry(name, device):
+    """Call one model-zoo entry point at a tiny size on ``device``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_reference
+    from repro_torch.kernels.flash.ops import flash_sdpa
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+    cfg = reduced(get_config("granite-3-8b"))
+    if name == "init_params":
+        return init_params(0, cfg, device=device)
+    if name == "ServeEngine":
+        params = init_params(0, cfg, device="cpu")
+        return ServeEngine(cfg, params, max_seq=8, batch=1, device=device)
+    if name == "params_from_reference":
+        return params_from_reference({"w": np.ones((2, 3), np.float32)},
+                                     device=device)
+    q = torch.zeros((1, 4, 1, 2, 8), device=device)
+    kv = torch.zeros((1, 4, 1, 8), device=device)
+    return flash_sdpa(q, kv, kv)
+
+
+@pytest.mark.parametrize("name", ["init_params", "ServeEngine",
+                                  "params_from_reference", "flash_sdpa"])
+def test_model_entry_points_without_a_card_raise_unless_cpu_is_asked(
+        monkeypatch, name):
+    """``device=None`` means the card: without CUDA the entry points raise.
+    ``flash_sdpa`` takes its device from its tensors; on anything but a
+    CPU tensor it launches kernel F or raises (here: ``meta``), never the
+    plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if name == "flash_sdpa":
+        with pytest.raises(ValueError, match="no kernel for meta"):
+            _model_entry(name, "meta")
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            _model_entry(name, None)
+    assert _model_entry(name, "cpu") is not None
+
+
 def test_unported_options_raise():
     study = api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
                       wave_cfg=api.WaveformConfig(dt=0.01, steps=2))
