@@ -17,7 +17,14 @@ width (random f32 params from seed 0) prefilling 4 x 4096 tokens on the
 flash route (40 launches of F) and on the chunked route the reference
 serves on, the two compared; ``ServeEngine.generate`` of 32 greedy tokens
 against 32 tokens decoded from the flash route's cache; and the model cut
-to 2 layers in f32, run on the card and on the CPU.  It prints:
+to 2 layers in f32, run on the card and on the CPU.  Last (phase 15), the
+three kernels that only the reference's own entry points reach:
+``bin_power`` (kernel H) on the 600 s replay, on it cut to leave a
+2765-sample tail window and on the 48 s ramp, the v1 sliding layout
+(kernel I) on the 600 s trace's segments, and ``ballast_burn`` (kernel G)
+at 140 GFLOP, each held against its plain version and its float64 oracle
+(H no worse than twice the reference's own error there, I also against
+kernel E), with no earlier path launching any of the three.  It prints:
 
   * the card's name and power limit (``nvidia-smi``);
   * build times and ``ptxas`` register and spill lines;
@@ -34,6 +41,8 @@ to 2 layers in f32, run on the card and on the CPU.  It prints:
     ``F.scaled_dot_product_attention``'s time, prefill walls, tokens/s,
     peak memory, the routes' gaps, the device busy share of a profiled
     prefill, decode ms per token, and the CPU re-run's gaps;
+  * for kernels G, H and I: errors, ``ms``, ``plain_ms``, ``bound_ms``,
+    ``library_ms``, ``ptxas`` lines and launches on every path;
   * one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again,
     and, last, ``{"ok": true, "device": {...}}``.
 
@@ -606,6 +615,12 @@ def loop_invariants(tag, clog, counts):
 
 # kernels A, B, C, D and E by their launch-count names
 CONTROL_KERNELS = ("monitor", "gpu_floor", "battery", "escalation", "sliding")
+# each row of the kernels line (A-I) by its kernel's launch-count name
+COUNT_NAME = {"sliding_monitor": "monitor", "gpu_floor_scan": "gpu_floor",
+              "battery_scan": "battery", "escalation_scan": "escalation",
+              "sliding_bin_power_v2": "sliding", "flash_forward": "flash_fwd",
+              "ballast": "ballast", "goertzel_windows": "windows",
+              "sliding_goertzel_v1": "sliding_v1"}
 
 
 def path_counts(build):
@@ -1112,20 +1127,315 @@ def model_phases(torch, build, kernels, earlier_f_counts):
     del params, pre["flash"]
     torch.cuda.empty_cache()
     rerun = cpu_rerun_phase(torch, build, cfg)
-    names = {"sliding_monitor": "monitor", "gpu_floor_scan": "gpu_floor",
-             "battery_scan": "battery", "escalation_scan": "escalation",
-             "sliding_bin_power_v2": "sliding", "flash_forward": "flash_fwd"}
     f_row["launches"] = pre["launches"]["flash"]["flash_fwd"]
     f_row["launches_by_path"] = dict(earlier_f_counts)
     kernels.append(f_row)
+    paths = {"prefill_flash": pre["launches"]["flash"],
+             "prefill_chunked": pre["launches"]["chunked"],
+             "serve_generate": serve["launches"],
+             "cpu_rerun_card": rerun["launches"]}
     for k in kernels:
-        nm = names[k["name"]]
-        k["launches_by_path"].update({
-            "prefill_flash": pre["launches"]["flash"][nm],
-            "prefill_chunked": pre["launches"]["chunked"][nm],
-            "serve_generate": serve["launches"][nm],
-            "cpu_rerun_card": rerun["launches"][nm]})
-    return {"prefill": pre["summary"], "serve": serve, "cpu_rerun": rerun}
+        nm = COUNT_NAME[k["name"]]
+        k["launches_by_path"].update({p: c[nm] for p, c in paths.items()})
+    return {"prefill": pre["summary"], "serve": serve, "cpu_rerun": rerun,
+            "launches": paths}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: kernels G, H and I through the reference's own entry points
+# ---------------------------------------------------------------------------
+
+# the reference's own error on phase 15's traces: max |bin_power - the
+# float64 recurrence| over the amplitude scale, JAX on the CPU, printed by
+# `python tests/test_torch_bin_power.py` (whose test holds these digits to
+# it); only a limit here: the port may be at most twice it
+BIN_POWER_REF_ERR = {"600s": 3.161e-05, "600s_tail": 3.155e-05,
+                     "ramp48": 7.724e-06}
+BIN_POWER_TOL = 1e-5      # kernel H vs its plain version, of the scale
+BALLAST_GFLOPS = 140.0    # n_iter 1043 at the defaults m 1024, k = n 256
+BALLAST_RTOL = 1e-5       # kernel G vs its plain version, of max |plain|
+BALLAST_CHECK_ITERS = 32  # the dense-b and bf16 cases
+GOERTZEL_OPS = 3          # f32 operations per sample and bin, kernel H
+LATE_KERNELS = ("ballast", "windows", "sliding_v1")
+
+
+def ptxas_lines(kernel):
+    return [ln.strip() for ln in kernel.ptxas_log.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def bin_power_case(torch, name, x, dt, win, got, call):
+    """Kernel H at one trace: the launch of the path run against the plain
+    version on the same windows, and ``bin_power`` against the float64
+    recurrence, no worse than twice the reference's own error."""
+    import numpy as np
+    from repro_torch.core.spectrum import GRID_CRITICAL_HZ
+    from repro_torch.kernels.goertzel import ops, windows
+    from repro_torch.kernels.goertzel.ref import (bin_power_recurrence_ref,
+                                                  centred_windows)
+    wnd_t, coef, block_w, raw = call
+    plain = windows.goertzel_windows_plain(wnd_t, coef, block_w=block_w)
+    scale = wnd_t.abs().max().item()
+    err_w = (raw - plain).abs().max().item()
+    wnd, counts = centred_windows(x, win)
+    oracle = bin_power_recurrence_ref(
+        x, ops.goertzel_coef(GRID_CRITICAL_HZ, dt).numpy(), win)
+    oracle_err = float(np.abs(got.cpu().numpy() - oracle).max()
+                       / np.abs(wnd).max())
+    ref_err = BIN_POWER_REF_ERR[name]
+    log(f"bin_power {name} [n {len(x)}, win {win}, W {len(counts)}, tail "
+        f"{int(counts[-1])}, K {coef.shape[0]}]: kernel vs plain {err_w:.4g}"
+        f" W ({err_w / scale:.3g} of the scale {scale:.6g} W, tol "
+        f"{BIN_POWER_TOL}, bitwise {torch.equal(raw, plain)}); vs the "
+        f"float64 recurrence {oracle_err:.4g} of the scale (the reference's "
+        f"{ref_err:.4g}, limit {2 * ref_err:.4g})")
+    if err_w > BIN_POWER_TOL * scale:
+        raise AssertionError(f"kernel H disagrees with its plain version on "
+                             f"{name}")
+    if oracle_err > 2.0 * ref_err:
+        raise AssertionError(f"bin_power on {name} is more than twice the "
+                             "reference's error from the float64 oracle")
+    if got.shape != (len(counts), coef.shape[0]) or not torch.isfinite(
+            got).all():
+        raise AssertionError(f"bin_power on {name}: {tuple(got.shape)}")
+    return {"trace": name, "n": len(x), "win": win, "shape":
+            list(wnd_t.shape) + [coef.shape[0]], "max_abs_err": err_w,
+            "err_of_scale": err_w / scale, "bitwise": torch.equal(raw, plain),
+            "oracle_err": oracle_err}
+
+
+def goertzel_row(torch, cases, call, dt, path_launches):
+    """Kernel H's row: the 600 s trace's call timed beside its plain
+    version, its bound and one matmul with a cos/sin table."""
+    import numpy as np
+    from repro_torch.core.spectrum import GRID_CRITICAL_HZ
+    from repro_torch.kernels.goertzel import windows
+    wnd_t, coef, block_w, raw = call
+    W, win = wnd_t.shape
+    K = coef.shape[0]
+    ms = cuda_ms(torch, lambda: windows.goertzel_windows(
+        wnd_t, coef, block_w=block_w), 20)
+    _, plain_ms = timed_once(torch, lambda: windows.goertzel_windows_plain(
+        wnd_t, coef, block_w=block_w))
+    ang = (2 * np.pi * dt * np.arange(win)[:, None]
+           * np.asarray(GRID_CRITICAL_HZ)[None, :])
+    table = torch.as_tensor(np.concatenate([np.cos(ang), np.sin(ang)], 1),
+                            dtype=torch.float32, device=wnd_t.device)
+
+    def library():
+        m = torch.matmul(wnd_t, table)
+        return (2.0 / win) * torch.sqrt(m[:, :K] ** 2 + m[:, K:] ** 2)
+    library_ms = cuda_ms(torch, library, 20)
+    b_ms, b_by = bound(nbytes(wnd_t, coef, raw), GOERTZEL_OPS * W * win * K)
+    return {"name": "goertzel_windows", "route": "cuda",
+            "source": "src/repro_torch/kernels/goertzel/csrc/windows.cu",
+            "replaces": "src/repro/kernels/goertzel/goertzel.py:87",
+            "launches": path_launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tolerance": f"{BIN_POWER_TOL} x amplitude scale vs plain; vs "
+                         "the float64 recurrence at most 2 x the reference's "
+                         "CPU error (" + ", ".join(
+                             f"{k} {2 * v:.4g}" for k, v in
+                             BIN_POWER_REF_ERR.items()) + " of the scale, "
+                         "from tests/test_torch_bin_power.py)",
+            "shape": [W, win, K], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "library_note": "torch.matmul of the windows with a [win, 2K] "
+                            "cos/sin table, then the magnitude",
+            "cases": cases,
+            "ptxas": ptxas_lines(windows.WINDOWS_KERNEL)}
+
+
+def sliding_v1_row(torch, xseg, tabs, got, x, dt, path_launches):
+    """Kernel I against its plain version, kernel E on the same segments
+    (after the warm-up scale) and the float64 oracle, with its times."""
+    import numpy as np
+    from repro_torch.core.spectrum import GRID_CRITICAL_HZ
+    from repro_torch.core.telemetry import warmup_scale
+    from repro_torch.kernels.goertzel import ops, sliding, sliding_v1
+    from repro_torch.kernels.goertzel.ref import sliding_bin_power_ref
+    S, win = xseg.shape
+    K = tabs[0].shape[1]
+    n = len(x)
+    plain, plain_ms = timed_once(
+        torch, lambda: sliding_v1.sliding_goertzel_v1_plain(xseg, *tabs))
+    scale = xseg.abs().max().item()
+    err_w = (got - plain).abs().max().item()
+    cosp, sinp, rot = ops.device_tables(GRID_CRITICAL_HZ, dt, win, DEVICE)
+    zeros = torch.zeros((1, K, win), device=DEVICE)
+    e, _, _ = sliding.sliding_bin_power_v2(
+        xseg[None], cosp, sinp, rot,
+        torch.zeros(1, dtype=torch.int64, device=DEVICE), zeros, zeros)
+    scaled = got * warmup_scale(torch.arange(S * win, device=DEVICE),
+                                win).reshape(S, win, 1)
+    e_err = (scaled - e[0]).abs().max().item()
+    amps = scaled.reshape(-1, K)[:n].double().cpu().numpy()
+    oracle_err = float(np.abs(amps - sliding_bin_power_ref(
+        x, dt, GRID_CRITICAL_HZ, win)).max()) / scale
+    log(f"sliding_v1 [{S} x {win}, K={K}]: vs plain {err_w:.4g} W "
+        f"({err_w / scale:.3g} of the scale, tol {MONITOR_TOL}); warm-up "
+        f"scaled vs kernel E {e_err / scale:.3g} (tol {MONITOR_TOL}, bitwise "
+        f"{torch.equal(scaled, e[0])}); vs float64 oracle {oracle_err:.3g} "
+        f"(tol {ORACLE_TOL})")
+    if (err_w > MONITOR_TOL * scale or e_err > MONITOR_TOL * scale
+            or oracle_err > ORACLE_TOL):
+        raise AssertionError("kernel I disagrees with its plain version, "
+                             "kernel E or the float64 oracle")
+    ms = cuda_ms(torch, lambda: sliding_v1.sliding_goertzel_v1(xseg, *tabs),
+                 20)
+    b_ms, b_by = bound(nbytes(xseg, *tabs, got), SLIDING_OPS * S * win * K)
+    return {"name": "sliding_goertzel_v1", "route": "cuda",
+            "source": "src/repro_torch/kernels/goertzel/csrc/sliding_v1.cu",
+            "replaces": "src/repro/kernels/goertzel/goertzel.py:137",
+            "launches": path_launches, "max_abs_err": err_w,
+            "tolerance": f"{MONITOR_TOL} x amplitude scale",
+            "err_of_scale": err_w / scale, "kernel_e_err": e_err / scale,
+            "kernel_e_bitwise": torch.equal(scaled, e[0]),
+            "oracle_err": oracle_err, "shape": [S, win, K], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes every sample's "
+                            "sliding windowed DFT bins",
+            "ptxas": ptxas_lines(sliding_v1.SLIDING_V1_KERNEL)}
+
+
+def ballast_case(torch, a, b, n_iter, tag):
+    """Kernel G against its plain version (and, in f32, a float64 chain) on
+    one (a, b, n_iter): the relative errors of max |plain|."""
+    from repro_torch.kernels.ballast import ballast
+    from repro_torch.kernels.ballast.ref import ballast_ref
+    got = ballast.ballast(a, b, n_iter)
+    plain = ballast.ballast_plain(a, b, n_iter)
+    scale = plain.abs().max().item()
+    rel = (got - plain).abs().max().item() / scale
+    row = {"case": tag, "shape": list(a.shape) + [b.shape[1]],
+           "dtype": "/".join(str(t.dtype).split(".")[-1] for t in (a, b)),
+           "n_iter": n_iter,
+           "max_abs_err": (got - plain).abs().max().item(), "rel_err": rel,
+           "bitwise": torch.equal(got, plain)}
+    if a.dtype == torch.float32:
+        f64 = ballast_ref(a, b, n_iter, dtype=torch.float64)
+        row["f64_rel_err"] = (got.double() - f64).abs().max().item() / scale
+        row["plain_f64_rel_err"] = ((plain.double() - f64).abs().max().item()
+                                    / scale)
+    log(f"ballast {tag} {row['shape']} {row['dtype']} x{n_iter}: vs plain "
+        f"{rel:.3g} of max |plain| (tol {BALLAST_RTOL}, bitwise "
+        f"{row['bitwise']})" + (f"; vs float64 chain {row['f64_rel_err']:.3g}"
+                                f" (plain {row['plain_f64_rel_err']:.3g})"
+                                if "f64_rel_err" in row else ""))
+    if rel > BALLAST_RTOL or not torch.isfinite(got).all():
+        raise AssertionError(f"kernel G disagrees with its plain version "
+                             f"({tag})")
+    return row, got, plain
+
+
+def ballast_row(torch, gen_seed, checksum, path_launches):
+    """Kernel G: the burn's a and b drawn again from its seed, the dense and
+    bf16 cases, and its times against the bound and a matmul chain."""
+    import numpy as np
+    from repro_torch.kernels.ballast import ballast, ops
+    from repro_torch.kernels.ballast.ref import ballast_ref
+    m, k, n = 1024, 256, 256
+    n_iter = max(int(BALLAST_GFLOPS * 1e9 / (2.0 * m * k * n)), 1)
+    a, b = ops._tiles(torch.Generator(device=DEVICE).manual_seed(gen_seed),
+                      m, k, n, torch.float32, DEVICE)
+    burn, out, plain = ballast_case(torch, a, b, n_iter, "burn b = 0.999 I")
+    plain_sum = (torch.sum(plain) * 1e-9).item()
+    if (checksum != (torch.sum(out) * 1e-9).item()
+            or abs(checksum - plain_sum)
+            > BALLAST_RTOL * out.abs().sum().item() * 1e-9):
+        raise AssertionError("ballast_burn's checksum is not its kernel's, "
+                             "or disagrees with the plain version's")
+    rng = np.random.default_rng(15)
+    q, _ = np.linalg.qr(rng.standard_normal((k, n)))
+    dense = torch.as_tensor(0.999 * q, dtype=torch.float32, device=DEVICE)
+    cases = [burn,
+             ballast_case(torch, a, dense, BALLAST_CHECK_ITERS,
+                          "b = 0.999 Q")[0],
+             ballast_case(torch, a.bfloat16(), b.bfloat16(),
+                          BALLAST_CHECK_ITERS, "bf16 b = 0.999 I")[0],
+             ballast_case(torch, a.bfloat16(), dense.bfloat16(),
+                          BALLAST_CHECK_ITERS, "bf16 b = 0.999 Q")[0],
+             ballast_case(torch, a, dense.bfloat16(), BALLAST_CHECK_ITERS,
+                          "f32 a, bf16 b = 0.999 Q")[0]]
+    ms = cuda_ms(torch, lambda: ballast.ballast(a, b, n_iter), 3)
+    _, plain_ms = timed_once(torch, lambda: ballast.ballast_plain(a, b,
+                                                                  n_iter))
+    library_ms = cuda_ms(torch, lambda: ballast_ref(a, b, n_iter), 3)
+    flops = ops.ballast_flops(m, k, n, n_iter)
+    b_ms, b_by = bound(nbytes(a, b, out), flops)
+    log(f"ballast_burn(gflops={BALLAST_GFLOPS:g}): n_iter {n_iter}, "
+        f"{flops:.6g} FLOPs, checksum {checksum:.9g} (plain {plain_sum:.9g});"
+        f" kernel {ms:.4g} ms = {flops / ms * 1e-9:.2f} TFLOP/s, bound "
+        f"{b_ms:.4g} ms by {b_by}")
+    return {"name": "ballast", "route": "cuda",
+            "source": "src/repro_torch/kernels/ballast/csrc/ballast.cu",
+            "replaces": "src/repro/kernels/ballast/ballast.py:33",
+            "launches": path_launches, "max_abs_err": burn["max_abs_err"],
+            "tolerance": f"rel {BALLAST_RTOL} of max |plain|",
+            "shape": [m, k, n], "n_iter": n_iter, "flops": flops,
+            "checksum": checksum, "tflops": flops / ms * 1e-9, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms,
+            "library_note": "the n_iter-step loop of torch.matmul (TF32 off)"
+                            " and the decay on the same a, b",
+            "cases": cases, "ptxas": ptxas_lines(ballast.BALLAST_KERNEL)}
+
+
+def entry_point_phase(torch, build, w, dt, w_long, dt_long):
+    """Phase 15: ``bin_power`` (kernel H) on three traces, the v1 sliding
+    layout (kernel I) on the 600 s trace's segments and ``ballast_burn``
+    (kernel G), each once on the card with launch counts from 0; then
+    each kernel against its plain version and its oracles, and timed.
+    Returns the three rows of the kernels line and the path's counts."""
+    from repro_torch.core.spectrum import GRID_CRITICAL_HZ
+    from repro_torch.kernels.ballast import ops as bops
+    from repro_torch.kernels.goertzel import ops, sliding_v1
+    traces = {"600s": (w_long, dt_long, 4000),
+              "600s_tail": (w_long[:598765], dt_long, 4000),
+              "ramp48": (w, dt, 2000)}
+    calls = []
+    real = ops.goertzel_windows
+
+    def spy(windows, coef, *, block_w):
+        raw = real(windows, coef, block_w=block_w)
+        calls.append((windows, coef, block_w, raw))
+        return raw
+    x_long = torch.as_tensor(w_long, device=DEVICE)
+    xseg = ops.segments(ops.centre(x_long[None]), 4000)[0]
+    tabs = tuple(torch.as_tensor(t, device=DEVICE) for t in
+                 ops.phase_tables_v1(GRID_CRITICAL_HZ, dt_long, 4000))
+    seed = 15
+    build.reset_launch_counts()
+    ops.goertzel_windows = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        amps = {name: ops.bin_power(x, d, GRID_CRITICAL_HZ, win=win)
+                for name, (x, d, win) in traces.items()}
+        v1 = sliding_v1.sliding_goertzel_v1(xseg, *tabs)
+        checksum = bops.ballast_burn(
+            torch.Generator(device=DEVICE).manual_seed(seed),
+            gflops=BALLAST_GFLOPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.goertzel_windows = real
+    counts = build.launch_counts()
+    log(f"[entry points] 3 bin_power calls, the v1 layout and a "
+        f"{BALLAST_GFLOPS:g}-GFLOP burn: {wall:.3f} s; launches "
+        + json.dumps(counts))
+    want = {"windows": 3, "sliding_v1": 1, "ballast": 1}
+    if any(counts[k] != want.get(k, 0) for k in counts):
+        raise AssertionError(f"the entry points launched {counts}, not "
+                             f"{want}")
+    cases = [bin_power_case(torch, name, x, d, win, amps[name], call)
+             for (name, (x, d, win)), call in zip(traces.items(), calls)]
+    rows = [ballast_row(torch, seed, checksum.item(), counts["ballast"]),
+            goertzel_row(torch, cases, calls[0], dt_long, counts["windows"]),
+            sliding_v1_row(torch, xseg, tabs, v1, w_long, dt_long,
+                           counts["sliding_v1"])]
+    return rows, counts
 
 
 # ---------------------------------------------------------------------------
@@ -1139,7 +1449,10 @@ def main() -> int:
     import_port()
     from repro_torch import api
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash import flash  # noqa: F401 (registers F)
+    # the kernels that api does not import register here: F, G, H and I
+    from repro_torch.kernels.ballast import ballast  # noqa: F401
+    from repro_torch.kernels.flash import flash  # noqa: F401
+    from repro_torch.kernels.goertzel import sliding_v1, windows  # noqa: F401
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1153,7 +1466,7 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
     log(smi)
 
-    # 1. build every kernel, one nvcc per source, all started together
+    # 1. build all nine kernels, one nvcc per source, all started together
     secs = build.build_all()
     log("kernel build seconds: " + json.dumps(secs))
     for k in build.KERNELS:
@@ -1174,6 +1487,8 @@ def main() -> int:
         cold = time.perf_counter() - t0
     counts = build.launch_counts()
     f_counts = {"study": counts["flash_fwd"]}
+    # kernels G, H and I on each earlier path: launched on none of them
+    late = {"study": counts}
     launches = {"monitor": counts["monitor"], "gpu_floor": counts["gpu_floor"],
                 "battery": counts["battery"],
                 "escalation": counts["escalation"]}
@@ -1233,6 +1548,7 @@ def main() -> int:
     w, dt = control_trace(control)
     canon = control_phase(torch, control, api, build, w, dt, "watch_trace")
     f_counts["watch_trace"] = build.launch_counts()["flash_fwd"]
+    late["watch_trace"] = build.launch_counts()
     wall, busy, top = profile_device(
         torch, lambda: run_watch(torch, control, api, w, dt, "cuda"), 10)
     log(f"[watch_trace] profiled run {wall:.3f} s, device busy {busy:.4f} s"
@@ -1261,6 +1577,7 @@ def main() -> int:
                                     "cuda")
     long_counts = path_counts(build)
     f_counts["watch_trace_600s"] = build.launch_counts()["flash_fwd"]
+    late["watch_trace_600s"] = build.launch_counts()
     report_loop("watch_trace 600 s", long_log, long_wall,
                 len(w_long) * dt_long, long_counts)
     if min(long_counts.values()) <= 0 or long_log.summary()[
@@ -1291,9 +1608,7 @@ def main() -> int:
          "launches_by_path": {"study": counts["sliding"]}}
     kernels.append(e)
     for k in kernels:
-        nm = {"sliding_monitor": "monitor", "gpu_floor_scan": "gpu_floor",
-              "battery_scan": "battery", "escalation_scan": "escalation",
-              "sliding_bin_power_v2": "sliding"}[k["name"]]
+        nm = COUNT_NAME[k["name"]]
         k.setdefault("launches_by_path", {})
         k["launches_by_path"]["watch_trace"] = canon["counts"][nm]
         k["launches_by_path"]["watch_trace_600s"] = long_counts[nm]
@@ -1319,6 +1634,32 @@ def main() -> int:
                torch.cuda.max_memory_allocated() / 2**30)
     log(f"phases 11-14: {time.perf_counter() - t_model:.1f} s; peak "
         f"{peak:.2f} GiB allocated in phases 12-14")
+    late.update(model["launches"])
+
+    # 15. kernels G, H and I through the reference's own entry points:
+    # bin_power on three traces, the v1 sliding layout, ballast_burn
+    t15 = time.perf_counter()
+    late_rows, entry_counts = entry_point_phase(torch, build, w, dt, w_long,
+                                                dt_long)
+    for k in kernels:
+        k["launches_by_path"]["entry_points"] = entry_counts[
+            COUNT_NAME[k["name"]]]
+    for r in late_rows:
+        nm = COUNT_NAME[r["name"]]
+        r["launches_by_path"] = {p: c[nm] for p, c in late.items()}
+        r["launches_by_path"]["entry_points"] = entry_counts[nm]
+        log(f"{r['name']}: {r['ms']:.4g} ms (plain {r['plain_ms']:.4g} ms, "
+            f"bound {r['bound_ms']:.4g} ms by {r['bound_by']}, library "
+            f"{r['library_ms']}), launches "
+            + json.dumps(r["launches_by_path"]) + "; ptxas "
+            + " | ".join(r["ptxas"]))
+    off_path = {p: {nm: c[nm] for nm in LATE_KERNELS if c[nm]}
+                for p, c in late.items()}
+    if any(off_path.values()):
+        raise AssertionError(f"kernel G, H or I launched on an earlier path:"
+                             f" {off_path}")
+    kernels.extend(late_rows)
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,10 @@
-"""The sliding-Goertzel monitor: trace -> per-bin amplitudes, or straight
-to the worst bin and its escalation levels.
+"""The Goertzel monitors: trace -> per-bin amplitudes, over disjoint
+windows or every sample's sliding window, or straight to the worst bin and
+its escalation levels.
+
+``bin_power`` gives per-window bin amplitudes ``[ceil(n/win), K]`` on
+kernel H (``windows.goertzel_windows``); ``phase_tables_v1`` builds the
+``[win, K]`` tables of kernel I (``sliding_v1.sliding_goertzel_v1``).
 
 ``sliding_bin_power`` emits every per-sample per-bin amplitude ``[n, K]``
 on kernel E (``sliding.sliding_bin_power_v2``).  ``sliding_monitor_fused``
@@ -37,6 +42,7 @@ from repro_torch.core.telemetry import (escalation_init, escalation_scan,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.goertzel.monitor import sliding_monitor
 from repro_torch.kernels.goertzel.sliding import sliding_bin_power_v2
+from repro_torch.kernels.goertzel.windows import goertzel_windows
 
 #: ``n`` of an open-ended stream: no trailing pad to gate off
 NO_PAD = torch.iinfo(torch.int64).max
@@ -55,6 +61,15 @@ def phase_tables(freqs: Tuple[float, ...], dt: float, win: int
     rot = np.stack([np.cos(omega * win),
                     np.sin(omega * win)], axis=1).astype(np.float32)
     return cosp, sinp, rot
+
+
+@functools.lru_cache(maxsize=None)
+def phase_tables_v1(freqs: Tuple[float, ...], dt: float, win: int
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``phase_tables`` in the v1 (bin-minor) layout of kernel I:
+    ``cosp``/``sinp`` ``[win, K]`` and ``rot`` ``[2, K]``."""
+    return tuple(np.ascontiguousarray(t.T)
+                 for t in phase_tables(freqs, dt, win))
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,6 +105,60 @@ def segments(xc: torch.Tensor, win: int) -> torch.Tensor:
     B, n = xc.shape
     S = -(-n // win)
     return torch.nn.functional.pad(xc, (0, S * win - n)).reshape(B, S, win)
+
+
+# ---------------------------------------------------------------------------
+# per-window amplitudes (kernel H)
+# ---------------------------------------------------------------------------
+
+def goertzel_coef(freqs, dt: float) -> torch.Tensor:
+    """``2 cos(2 pi f dt)`` per bin, float32 ``[K]``, in the float32 steps
+    of the reference's compiled wrapper: XLA folds the two scalars first,
+    ``(f32(2 pi) f32(dt)) f``, then takes the cosine of that float32 angle
+    correctly rounded.  A coefficient one ulp off moves a low bin's
+    frequency by ulp / (2 sin w)."""
+    f = np.asarray(freqs, np.float32)
+    omega = (np.float32(2.0 * np.pi) * np.float32(dt)) * f
+    return torch.from_numpy(
+        (2.0 * np.cos(omega.astype(np.float64))).astype(np.float32))
+
+
+def bin_power(x, dt: float, freqs: Sequence[float], *, win: int,
+              block_w: int = 8, device=None) -> torch.Tensor:
+    """``x`` ``[n]`` power samples -> ``[ceil(n/win), K]`` bin amplitudes
+    over non-overlapping windows, on kernel H, on ``device`` (``None``:
+    the card; ``"cpu"`` runs the plain version).
+
+    The reference's contract: each window loses its own mean, taken over
+    its true sample count; the trailing partial window (``n % win``
+    samples, or all of a trace shorter than ``win``) is zero-padded after
+    that, its pad samples stay exactly 0, and its amplitudes are rescaled
+    by ``win / count``.  ``W`` is padded to a multiple of ``block_w`` for
+    the kernel and trimmed after.  The means and the subtraction are in
+    float64, rounded once to float32 (ROADMAP queue C).
+    """
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, device=dev).reshape(-1)
+    n = x.shape[0]
+    W = -(-n // win)
+    pad_n = W * win - n
+    counts = torch.full((W,), float(win), dtype=torch.float32, device=dev)
+    if pad_n:
+        counts[-1] = float(win - pad_n)
+    x64 = torch.nn.functional.pad(x.to(torch.float64), (0, pad_n))
+    windows = x64.reshape(W, win)
+    valid = (torch.arange(win, device=dev)[None, :]
+             < counts.to(torch.int64)[:, None])
+    means = (torch.where(valid, windows, 0.0).sum(1, keepdim=True)
+             / counts[:, None].to(torch.float64))
+    windows = torch.where(valid, windows - means, 0.0).to(torch.float32)
+    windows = torch.nn.functional.pad(windows, (0, 0, 0, (-W) % block_w))
+    out = goertzel_windows(windows, goertzel_coef(freqs, dt).to(dev),
+                           block_w=block_w)
+    # the kernel normalizes by 2/win; partial windows rescale to 2/count
+    # (a true division: ``float / tensor`` would multiply by a reciprocal)
+    scale = torch.div(torch.tensor(float(win), device=dev), counts)
+    return out[:W] * scale[:, None]
 
 
 # ---------------------------------------------------------------------------

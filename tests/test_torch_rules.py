@@ -41,11 +41,66 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def test_rules_cover_the_control_slice():
-    """The walk that the import rule reads reaches the control slice."""
+    """The walk that the import rule reads reaches the control slice and
+    the modules of kernels G, H and I."""
     files = _port_files()
     for module in ("control/loop.py", "kernels/goertzel/sliding.py",
-                   "device.py"):
+                   "device.py", "kernels/ballast/ballast.py",
+                   "kernels/ballast/ops.py", "kernels/goertzel/windows.py",
+                   "kernels/goertzel/sliding_v1.py"):
         assert ROOT / "src" / "repro_torch" / module in files
+
+
+def test_build_registers_all_nine_kernels():
+    """Once the API and the modules of F, G, H and I are imported (as
+    ``chip_smoke.py`` imports them), ``launch_counts`` names every kernel
+    A-I, each source once."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ballast import ballast  # noqa: F401
+    from repro_torch.kernels.flash import flash  # noqa: F401
+    from repro_torch.kernels.goertzel import sliding_v1, windows  # noqa: F401
+    counts = build.launch_counts()
+    assert set(counts) == {"monitor", "gpu_floor", "battery", "escalation",
+                           "sliding", "flash_fwd", "ballast", "windows",
+                           "sliding_v1"}
+    sources = [k.source for k in build.KERNELS]
+    assert len(sources) == len(set(sources)) == 9
+    assert all(p.exists() for p in sources)
+
+
+# kernels G, H and I and their entry points: reached only through their
+# own modules, as in the reference
+LATE_KERNEL_MODULES = ("repro_torch.kernels.ballast",
+                       "repro_torch.kernels.goertzel.windows",
+                       "repro_torch.kernels.goertzel.sliding_v1")
+LATE_KERNEL_NAMES = ("bin_power", "phase_tables_v1", "goertzel_coef",
+                     "goertzel_windows", "sliding_goertzel_v1",
+                     "ballast_burn", "ballast")
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from ((a.name, None) for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield from ((node.module, a.name) for a in node.names)
+
+
+@pytest.mark.parametrize("package", ["core", "control", "serve", "models"])
+def test_no_path_of_the_port_reaches_kernels_g_h_i(package):
+    """No Study, control, serving or model module imports kernel G, H or I
+    or their entry points: the reference's paths never call them."""
+    files = sorted((ROOT / "src" / "repro_torch" / package).rglob("*.py"))
+    assert files
+    bad = [(p.relative_to(ROOT).as_posix(), m, name)
+           for p in files for m, name in _imports(p)
+           if m.startswith(LATE_KERNEL_MODULES)
+           or (m.startswith("repro_torch.kernels") and name
+               in LATE_KERNEL_NAMES)
+           or (m == "repro_torch.kernels.goertzel" and name in (
+               "windows", "sliding_v1"))
+           or (m == "repro_torch.kernels" and name == "ballast")]
+    assert not bad, bad
 
 
 def test_study_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
