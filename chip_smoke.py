@@ -9,8 +9,11 @@ main paths give it, runs a full-size ``Study.run()`` on the card (counting
 every kernel's launches), re-runs a subset of it on the CPU, then closes
 the grid-interactive control loop (``control.watch_trace``) on the
 canonical 48 s ramp and on a 10-minute 1 kHz replay, holds kernel E and
-the monitor's chunked online path against their offline calls, and
-re-runs the canonical loop on the CPU (phases 1-10).  Then the model zoo
+the monitor's chunked online path against their offline calls, holds
+kernel C bit for bit against its plain version at the Study's, the
+canonical loop's, a 600 000-sample and a ragged [3 x 4099] shape and
+times its chain alone, and re-runs the canonical loop on the CPU (phases
+1-10).  Then the model zoo
 (phases 11-14): kernel F (flash attention) against its plain version and
 a float64 oracle at four shapes in bf16 and f32; granite-3-8b at full
 width (random f32 params from seed 0) prefilling 4 x 4096 tokens on the
@@ -27,7 +30,8 @@ at 140 GFLOP, each held against its plain version and its float64 oracle
 kernel E), with no earlier path launching any of the three.  It prints:
 
   * the card's name and power limit (``nvidia-smi``);
-  * build times and ``ptxas`` register and spill lines;
+  * build times and ``ptxas`` register and spill lines, and for kernels
+    F and C each function's registers, shared memory and spills;
   * per kernel: error against its plain version (and, for the monitor,
     the float64 oracle and chunked state-in/out calls), ``ms``,
     ``plain_ms``, ``bound_ms``/``bound_by`` and launches per Study;
@@ -36,9 +40,13 @@ kernel E), with no earlier path launching any of the three.  It prints:
   * per control-loop run: the action timeline, detection lead,
     counterfactual breach, warm dispatch latencies, loop wall,
     ``realtime_x``, per-tick step times, launches per run of every kernel,
-    and the device busy share of a profiled run;
-  * per model phase: kernel F's errors and times beside its bound and
-    ``F.scaled_dot_product_attention``'s time, prefill walls, tokens/s,
+    and the device busy share of a profiled run (the 600 s replay's wall
+    beside its wall on kernel C's first design);
+  * kernel C's chain alone: SM cycles and ns a step, and each shape's
+    floor (ns a step times its steps);
+  * per model phase: kernel F's errors, times and TFLOP/s beside its
+    bound and ``F.scaled_dot_product_attention``'s time, prefill walls,
+    tokens/s,
     peak memory, the routes' gaps, the device busy share of a profiled
     prefill, decode ms per token, and the CPU re-run's gaps;
   * for kernels G, H and I: errors, ``ms``, ``plain_ms``, ``bound_ms``,
@@ -69,7 +77,7 @@ PEAK_OPS_S = 67e12
 
 MONITOR_TOL = 1e-4        # of the row's amplitude scale max |x - mean|
 ORACLE_TOL = 1e-3         # of the amplitude scale, against float64
-SCAN_TOL = 1e-5           # of max |w|, kernels B and C
+SCAN_TOL = 1e-5           # of max |w|, kernel B (C is held bitwise)
 STUDY_RTOL = 1e-4         # CPU-vs-card metrics
 
 # the control loop (benchmarks/control_bench.py's configuration)
@@ -78,6 +86,7 @@ CONTROL_CHIPS = 512
 CONTROL_JOB_MW = 500.0
 CARRY_TICKS = (7, 250, 1999, 2000, 3, 1211, 777, 2000, 753)
 SLIDING_OPS = 20          # f32 operations per sample and bin, kernel E
+LONG_REPLAY_WAS_S = 13.306  # the 600 s replay's wall on kernel C's first design
 
 # the model zoo (phases 11-14): granite-3-8b at full width
 PREFILL_B, PREFILL_S = 4, 4096
@@ -354,7 +363,8 @@ def check_monitor(torch, cap, launches, freqs):
 def kernel_vs_plain(torch, name, args, kw, repeat=10):
     """A kernel against its plain version on the arguments of one of its
     calls: ``(shape, max_abs_err, ok, ms, plain_ms, bound_ms,
-    bound_by)``.  Escalation must be exact; the others within their
+    bound_by)``.  Escalation and the battery scan must be exact (C with
+    ``torch.equal`` on all three outputs); the others within their
     tolerance of the input's max |x| (a monitor's classes may differ
     only within it of a threshold)."""
     from repro_torch.core import telemetry
@@ -390,6 +400,10 @@ def kernel_vs_plain(torch, name, args, kw, repeat=10):
                 | ((ref_t[0] - args[5][:, None, None]).abs() <= tol * scale))
         off_band = int(((got_t[1] != ref_t[1]) & ~near).sum())
         ok = err <= tol * scale and off_band == 0
+    elif name == "battery":
+        # bitwise: the kernel takes the plain version's f32 steps in order
+        err = max((g - r).abs().max().item() for g, r in zip(got_t, ref_t))
+        ok = all(torch.equal(g, r) for g, r in zip(got_t, ref_t))
     elif name == "sliding":
         # amplitudes within tol of the scale; the state out holds prefix
         # sums, up to win times larger
@@ -423,6 +437,7 @@ def check_scan(torch, cap, launches, name):
     (B, n), err, ok, ms, plain_ms, b_ms, b_by = kernel_vs_plain(
         torch, name, args, kw, repeat=3)
     tol = ("exact" if name == "escalation" else
+           "bitwise (torch.equal)" if name == "battery" else
            f"{SCAN_TOL} x max|w| = {SCAN_TOL * args[0].abs().max().item():.4g}"
            " W")
     log(f"{name} [{B} rows x {n}]: max |kernel - plain| {err:.4g} (tol "
@@ -765,6 +780,85 @@ def check_chunked(torch, w, dt, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# kernel C at the replay's and a ragged shape, and its chain's floor
+# ---------------------------------------------------------------------------
+
+def battery_chain(torch, w, params, dt, ieee=False, reps=200):
+    """The chain alone (``battery_step_cycles`` in ``battery.cu``): lane 0
+    steps over 512 samples already in shared memory, ``reps`` times, with
+    the kernel's divisions (or, with ``ieee``, the IEEE division
+    throughout).  Returns (SM cycles per step, ns per step by CUDA
+    events)."""
+    import ctypes
+    from repro_torch.core.smoothing import battery
+    from repro_torch.kernels.build import ptr, stream_of
+    fn = ctypes.CDLL(str(battery.BATTERY_KERNEL.library_path())
+                     ).battery_step_cycles
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cycles = torch.zeros(1, dtype=torch.int64, device=w.device)
+    sink = torch.zeros(1, device=w.device)
+
+    def run():
+        err = fn(ptr(w), ptr(params), float(dt), w.shape[-1], reps,
+                 int(ieee), ptr(cycles), ptr(sink), stream_of(w))
+        if err:
+            raise RuntimeError(f"battery_step_cycles: CUDA error {err}")
+    ms = cuda_ms(torch, run, 3)
+    steps = reps * min(w.shape[-1], 512)
+    return cycles.item() / steps, ms / steps * 1e6
+
+
+def battery_phase(torch, canon_call, w_long, dt_long):
+    """Kernel C bitwise against its plain version on one 600 000-sample
+    row (the 600 s replay's trace) and on a ragged [3 x 4099] cut of it,
+    both with the canonical loop's battery parameters (the grid target
+    starting at each row's mean, as ``RackBattery.apply_batch`` sets it);
+    the 600 000-sample row's plain version runs on the CPU (600 000 steps
+    of a Python loop: the card's launches would take longer).  Then the
+    chain's own cycles per step, from which each shape's floor follows."""
+    from repro_torch.core.smoothing import battery
+    _, args, _ = canon_call
+    params0 = args[1]
+    x = torch.as_tensor(w_long, device=DEVICE)
+    cases = {"600000": x[None].contiguous(),
+             "3x4099": torch.stack([x[i * 4099:(i + 1) * 4099]
+                                    for i in range(3)])}
+    out = {}
+    for tag, w in cases.items():
+        p = params0[:w.shape[0]].clone()
+        p[:, 7] = w.double().mean(1).float()
+        got = battery.battery_scan(w, p, dt_long)
+        torch.cuda.synchronize()
+        on_cpu = w.shape[-1] > 100_000
+        dev_args = (w.cpu(), p.cpu()) if on_cpu else (w, p)
+        ref, plain_ms = timed_once(
+            torch, lambda: battery.battery_scan_plain(*dev_args, dt_long))
+        equal = all(torch.equal(g.cpu(), r.cpu()) for g, r in zip(got, ref))
+        ms = cuda_ms(torch, lambda: battery.battery_scan(w, p, dt_long), 3)
+        log(f"battery [{w.shape[0]} x {w.shape[1]}]: bitwise {equal} "
+            f"against the plain version ({'CPU' if on_cpu else 'card'}, "
+            f"{plain_ms:.0f} ms); {ms:.4g} ms")
+        if not equal:
+            raise AssertionError(f"kernel C differs from its plain version "
+                                 f"at [{w.shape[0]} x {w.shape[1]}]")
+        out[tag] = {"shape": list(w.shape), "bitwise": True, "ms": ms,
+                    "plain_ms": plain_ms,
+                    "plain_device": "cpu" if on_cpu else "cuda"}
+    p1 = params0[:1].contiguous()
+    cyc, ns = battery_chain(torch, cases["600000"], p1, dt_long)
+    cyc_ieee, ns_ieee = battery_chain(torch, cases["600000"], p1, dt_long,
+                                      ieee=True)
+    log(f"battery chain alone: {cyc:.1f} SM cycles a step, {ns:.2f} ns a "
+        f"step ({cyc / ns:.3f} GHz while it ran); with the IEEE division "
+        f"throughout {cyc_ieee:.1f} cycles, {ns_ieee:.2f} ns")
+    return out, cyc, ns, {"cycles_per_step": cyc_ieee,
+                          "ns_per_step": ns_ieee}
+
+
+# ---------------------------------------------------------------------------
 # the canonical loop on the CPU against the card
 # ---------------------------------------------------------------------------
 
@@ -856,7 +950,9 @@ def flash_case(torch, gen, shape, Dv, causal, dtype):
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     t_bytes = nbytes(q, k, v, got) / PEAK_BYTES_S * 1e3
     t_ops = pairs * 2 * (D + Dv) / PEAK_FLOPS[dtype] * 1e3
+    tflops = pairs * 2 * (D + Dv) / ms / 1e9
     row = {"shape": [B, S, KV, G, D, Dv], "dtype": dtype, "causal": causal,
+           "tflops": tflops, "smem_dynamic": flash_smem(D, Dv, dtype),
            "max_abs_err": err, "rel_err": err / scale, "tolerance": tol_plain,
            "oracle_rel_err": err_oracle / scale,
            "oracle_tolerance": tol_oracle, "ms": ms, "plain_ms": plain_ms,
@@ -865,13 +961,26 @@ def flash_case(torch, gen, shape, Dv, causal, dtype):
     log(f"flash {dtype} {'causal' if causal else 'full'} q {list(shape)} Dv "
         f"{Dv}: vs plain {err / scale:.3g} of max |plain| (tol "
         f"{tol_plain:.3g}), vs float64 oracle {err_oracle / scale:.3g} (tol "
-        f"{tol_oracle:.3g}); {ms:.4g} ms (plain {plain_ms:.4g}, sdpa "
+        f"{tol_oracle:.3g}); {ms:.4g} ms, {tflops:.1f} TFLOP/s on 2 (D + Dv) "
+        f"a pair (plain {plain_ms:.4g}, sdpa "
         f"{library_ms:.4g}, bound {row['bound_ms']:.4g} by "
         f"{row['bound_by']})")
     if err > tol_plain * scale or err_oracle > tol_oracle * scale:
         raise AssertionError("kernel F disagrees with its plain version or "
                              "the float64 oracle")
     return row
+
+
+def flash_smem(D, Dv, dtype):
+    """The dynamic shared memory kernel F requests at head dims D, Dv
+    (``flash_fwd_smem_bytes``; ptxas reports static memory only)."""
+    import ctypes
+    from repro_torch.kernels.flash import flash
+    fn = ctypes.CDLL(str(flash.FLASH_KERNEL.library_path())
+                     ).flash_fwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(D, Dv, int(dtype == "bfloat16"))
 
 
 def flash_phase(torch, build):
@@ -882,9 +991,11 @@ def flash_phase(torch, build):
     rows = [flash_case(torch, gen, shape, Dv, causal, dtype)
             for shape, Dv, causal in FLASH_SHAPES
             for dtype in ("bfloat16", "float32")]
-    ptxas = [ln.strip() for ln in flash.FLASH_KERNEL.ptxas_log.splitlines()
-             if "Function properties" in ln or "registers" in ln
-             or "spill" in ln]
+    ptxas = ptxas_summary(flash.FLASH_KERNEL)
+    log("flash_fwd ptxas: " + json.dumps(ptxas))
+    # the bf16 kernel's tensor-core products and TMA copies in its SASS
+    sass = sass_counts(flash.FLASH_KERNEL, ("HGMMA", "UTMALDG", "SYNCS"))
+    log("flash_fwd SASS opcodes (cuobjdump): " + json.dumps(sass))
     path = rows[0]
     return {"name": "flash_forward", "route": "cuda",
             "source": "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
@@ -897,7 +1008,7 @@ def flash_phase(torch, build):
             "bound_by": path["bound_by"], "library_ms": path["library_ms"],
             "library_note": "F.scaled_dot_product_attention(is_causal, "
                             "enable_gqa) on the same q, k, v",
-            "cases": rows, "ptxas": ptxas}
+            "cases": rows, "ptxas": ptxas, "sass": sass}
 
 
 def tree_to(tree, device):
@@ -1162,6 +1273,55 @@ LATE_KERNELS = ("ballast", "windows", "sliding_v1")
 def ptxas_lines(kernel):
     return [ln.strip() for ln in kernel.ptxas_log.splitlines()
             if "registers" in ln or "spill" in ln]
+
+
+def ptxas_summary(kernel):
+    """Per function of ``kernel``'s library, from ``ptxas -v``: registers,
+    static shared memory and spill bytes, as {mangled name: {...}}."""
+    import re
+    out, name = {}, None
+    for ln in kernel.ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "smem_static": 0,
+                         "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[name]["smem_static"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def sass_counts(kernel, opcodes):
+    """How many of each SASS opcode the kernel's library holds, from
+    ``cuobjdump -sass`` (the CUDA toolkit's; None where it is missing)."""
+    import shutil
+    from repro_torch.kernels.build import nvcc_path
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(kernel.library_path())],
+                         capture_output=True, text=True, timeout=300).stdout
+    return sass_opcode_counts(out, opcodes)
+
+
+def sass_opcode_counts(sass, opcodes):
+    """Count each opcode's instructions in ``cuobjdump -sass`` text (the
+    opcode without its modifiers, after an optional predicate)."""
+    import re
+    ops = re.findall(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                     sass)
+    return {op: sum(o == op for o in ops) for op in opcodes}
 
 
 def bin_power_case(torch, name, x, dt, win, got, call):
@@ -1580,6 +1740,9 @@ def main() -> int:
     late["watch_trace_600s"] = build.launch_counts()
     report_loop("watch_trace 600 s", long_log, long_wall,
                 len(w_long) * dt_long, long_counts)
+    log(f"[watch_trace 600 s] loop wall {long_wall:.3f} s; "
+        f"{LONG_REPLAY_WAS_S} s on the same card type before kernel C's "
+        "redesign (PERF.md section 5)")
     if min(long_counts.values()) <= 0 or long_log.summary()[
             "n_dispatches"] < 1:
         raise AssertionError("the long replay launched no kernel of the path "
@@ -1596,6 +1759,8 @@ def main() -> int:
     e_rows = [check_sliding(torch, w, dt), check_sliding(torch, w_long,
                                                           dt_long)]
     check_chunked(torch, w, dt)
+    c_extra, c_cycles, c_ns, c_ieee = battery_phase(
+        torch, canon["capture"].args["battery"], w_long, dt_long)
     e = {"name": "sliding_bin_power_v2", "route": "cuda",
          "source": "src/repro_torch/kernels/goertzel/csrc/sliding.cu",
          "replaces": "src/repro/kernels/goertzel/goertzel.py:250",
@@ -1614,6 +1779,22 @@ def main() -> int:
         k["launches_by_path"]["watch_trace_600s"] = long_counts[nm]
         if nm in path_rows:
             k["watch_trace_call"] = path_rows[nm]
+    from repro_torch.core.smoothing.battery import BATTERY_KERNEL
+    c_row = next(k for k in kernels if k["name"] == "battery_scan")
+    c_shapes = {"study": c_row["shape"],
+                "watch_trace": c_row["watch_trace_call"]["shape"],
+                **{t: r["shape"] for t, r in c_extra.items()}}
+    c_row.update({
+        "bitwise_shapes": c_shapes, "more_shapes": c_extra,
+        "chain_cycles_per_step": c_cycles, "chain_ns_per_step": c_ns,
+        "chain_clock_ghz": c_cycles / c_ns, "chain_ieee_division": c_ieee,
+        # the chain's floor: its own time a step times the row's steps
+        "chain_floor_ms": {t: c_ns * sh[1] / 1e6
+                           for t, sh in c_shapes.items()},
+        "ptxas": ptxas_summary(BATTERY_KERNEL)})
+    log(f"battery_scan chain floor (ms): "
+        + json.dumps(c_row["chain_floor_ms"]) + "; ptxas "
+        + json.dumps(c_row["ptxas"]))
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4g} ms (plain {k['plain_ms']:.4g} ms, "
             f"bound {k['bound_ms']:.4g} ms by {k['bound_by']}), launches "

@@ -1,46 +1,49 @@
-// Flash-attention forward: kernel F of the port.
+// Flash-attention forward: kernel F of the port, in two instantiations.
 //
 // Replaces the reference's Pallas kernel flash_pallas
 // (src/repro/kernels/flash/flash.py:64, body _flash_kernel at :26).  Same
 // operands and output: q [B, S, KV, G, D], k [B, T, KV, D], v [B, T, KV, Dv]
 // (bf16 or f32, row-major, contiguous) -> o [B, S, KV, G, Dv] in q's dtype.
-// The arithmetic is the reference's: q is widened to f32 and scaled by
-// D^-1/2 before QK^T, products and sums are f32, a causal launch masks
-// pos_q < pos_k with a score of NEG = -1e30 (positions from 0 on both
-// sides), and each query row keeps the online softmax's running max m, sum
-// l and accumulator acc,
+// A causal launch masks pos_q < pos_k with a score of NEG = -1e30
+// (positions from 0 on both sides), and each query row keeps the online
+// softmax's running max m, sum l and accumulator acc,
 //   m' = max(m, max_t s),  alpha = exp(m - m'),  e = exp(s - m'),
 //   l' = l alpha + sum_t e,  acc' = acc alpha + e V,
-// and writes acc / max(l, 1e-30).  P V stays in f32, as in the reference.
+// and writes acc / max(l, 1e-30).
 //
-// Design.  A query "row" is one (position, group head) pair: the G heads
-// that share a kv head are G consecutive rows, as the reference's
-// q.reshape(qb * G, D).  One block of 256 threads takes 64 consecutive rows
-// of one (batch, kv head) and walks k, v in tiles of 32 positions; the q
-// tile (pre-scaled, f32) stays in shared memory for the whole walk, and each
-// k, v tile is staged there in f32.  Thread (ty, tx) of a 16 x 16 grid owns
-// rows 4ty..4ty+3: it computes their scores against kv columns tx and tx+16
-// of the tile, so a row's max and sum are a reduction over the 16 lanes of
-// one half warp (shuffles), and it keeps the same rows' accumulators for
-// output columns 4tx + 64j + (0..3), read from v as float4.  The scores
-// e go through shared memory between the two products.  A causal launch
-// stops after the tile that holds its last row's position: a tile beyond it
-// is all masked, and in the reference's masked pass over it alpha =
-// exp(0) = 1 and e = 0, so skipping it changes no bit.  Blocks run the
-// heaviest (last) row blocks of each head first.  Columns past T (a T that
-// is not a multiple of 32) score -inf and weigh 0.
+// bf16 runs on the tensor cores: wgmma with TMA copies of k and v, in
+// flash_wgmma.cuh (its own note says how).  f32 runs the kernel below on the
+// CUDA cores, which keeps the reference's f32 arithmetic exactly as the
+// plain version does it (TF32 on the tensor cores would not hold 1e-5).
 //
-// Bound on this card: operations.  At the prefill shape (B 4, S = T 4096,
-// KV 8, G 4, D 128, causal) the work is 2 B H S^2 D = 5.5e11 operations
-// against 335 MB of q, k, v and o.  This kernel does all of it in f32 on
-// the CUDA cores (67 TFLOP/s), not on the tensor cores (989 TFLOP/s bf16):
-// the simple first version; mma/wgmma, TMA and warp specialisation are
-// later work.  Per 4 columns of D a thread reads 4 + 2 float4 from shared
-// memory for 32 FMAs, and per 4 kv positions 4 + 4 NJ float4 for 64 NJ
-// FMAs (NJ = Dv / 64).
+// The f32 kernel.  q is widened to f32 and scaled by D^-1/2 before QK^T,
+// and products and sums are f32 FMAs.  A query "row" is one (position,
+// group head) pair: the G heads that share a kv head are G consecutive
+// rows, as the reference's q.reshape(qb * G, D).  One block of 256 threads
+// takes 64 consecutive rows of one (batch, kv head) and walks k, v in tiles
+// of 32 positions; the q tile (pre-scaled) stays in shared memory for the
+// whole walk, and each k, v tile is staged there.  Thread (ty, tx) of a
+// 16 x 16 grid owns rows 4ty..4ty+3: it computes their scores against kv
+// columns tx and tx+16 of the tile, so a row's max and sum are a reduction
+// over the 16 lanes of one half warp (shuffles), and it keeps the same
+// rows' accumulators for output columns 4tx + 64j + (0..3), read from v as
+// float4.  The scores e go through shared memory between the two products.
+// A causal launch stops after the tile that holds its last row's position:
+// a tile beyond it is all masked, and in the reference's masked pass over
+// it alpha = exp(0) = 1 and e = 0, so skipping it changes no bit.  Blocks
+// run the heaviest (last) row blocks of each head first.  Columns past T
+// (a T that is not a multiple of 32) score -inf and weigh 0.
+//
+// Bound on this card: operations, 2 (D + Dv) per (query row, key) pair at
+// 67 TFLOP/s f32 on the CUDA cores.  Per 4 columns of D a thread reads
+// 4 + 2 float4 from shared memory for 32 FMAs, and per 4 kv positions
+// 4 + 4 NJ float4 for 64 NJ FMAs (NJ = Dv / 64): shared-memory bandwidth
+// sets the pace before the FMA units do.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -49,15 +52,6 @@ constexpr int kTile = 32;       // kv positions per tile
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kPS = kTile + 4;  // row stride of the score tile
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
@@ -78,10 +72,10 @@ __host__ __device__ inline int smem_floats(int D, int NJ) {
   return kRows * D + kTile * (D + 4) + kTile * 64 * NJ + kRows * kPS;
 }
 
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int Tn,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S, int Tn,
                  int KV, int G, int D, int Dv, int causal, float scale,
                  int row_blocks) {
   extern __shared__ float4 smem4[];
@@ -99,8 +93,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long row0 = (long long)rb * kRows;
   const long long head_stride = (long long)KV * D;  // between positions in k
   const long long vhead_stride = (long long)KV * Dv;
-  const T* kb = k + (long long)b * Tn * head_stride + (long long)h * D;
-  const T* vb = v + (long long)b * Tn * vhead_stride + (long long)h * Dv;
+  const float* kb = k + (long long)b * Tn * head_stride + (long long)h * D;
+  const float* vb = v + (long long)b * Tn * vhead_stride + (long long)h * Dv;
 
   // the q tile, widened and scaled (the reference's q2 = q * scale)
   for (int i = tid; i < kRows * D; i += kThreads) {
@@ -109,8 +103,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float x = 0.f;
     if (f < rows) {
       const long long s = f / G, g = f - s * G;
-      x = widen(q[(((long long)b * S + s) * KV + h) * G * D + g * D + d]) *
-          scale;
+      x = q[(((long long)b * S + s) * KV + h) * G * D + g * D + d] * scale;
     }
     qs[i] = x;
   }
@@ -142,12 +135,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kTile * D; i += kThreads) {
       const int t = i / D, d = i - t * D;
       ks[t * DP + d] =
-          t0 + t < Tn ? widen(kb[(long long)(t0 + t) * head_stride + d]) : 0.f;
+          t0 + t < Tn ? kb[(long long)(t0 + t) * head_stride + d] : 0.f;
     }
     for (int i = tid; i < kTile * DVP; i += kThreads) {
       const int t = i / DVP, c = i - t * DVP;
       vs[i] = (t0 + t < Tn && c < Dv)
-                  ? widen(vb[(long long)(t0 + t) * vhead_stride + c])
+                  ? vb[(long long)(t0 + t) * vhead_stride + c]
                   : 0.f;
     }
     __syncthreads();
@@ -231,45 +224,45 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long f = row0 + ty * 4 + i;
     if (f >= rows) continue;
     const long long s = f / G, g = f - s * G;
-    T* orow = o + (((long long)b * S + s) * KV + h) * G * Dv + g * Dv;
+    float* orow = o + (((long long)b * S + s) * KV + h) * G * Dv + g * Dv;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 64 * j + 4 * tx + e;
-        if (c < Dv) put(orow + c, acc[i][j][e] / denom);
+        if (c < Dv) orow[c] = acc[i][j][e] / denom;
       }
   }
 }
 
-template <typename T, int NJ>
+template <int NJ>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int Tn, int KV, int G, int D, int Dv, int causal,
            float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)smem_floats(D, NJ);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long row_blocks = ((long long)S * G + kRows - 1) / kRows;
   const long long blocks = row_blocks * B * KV;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_fwd_kernel<T, NJ><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, Tn, KV, G, D, Dv,
+  flash_fwd_kernel<NJ><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, Tn, KV,
+      G, D, Dv,
       causal, scale, (int)row_blocks);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B,
              int S, int Tn, int KV, int G, int D, int Dv, int causal,
              float scale, cudaStream_t stream) {
   switch ((Dv + 63) / 64) {
-    case 1: return launch<T, 1>(q, k, v, o, B, S, Tn, KV, G, D, Dv, causal, scale, stream);
-    case 2: return launch<T, 2>(q, k, v, o, B, S, Tn, KV, G, D, Dv, causal, scale, stream);
-    case 3: return launch<T, 3>(q, k, v, o, B, S, Tn, KV, G, D, Dv, causal, scale, stream);
-    case 4: return launch<T, 4>(q, k, v, o, B, S, Tn, KV, G, D, Dv, causal, scale, stream);
+    case 1: return launch<1>(q, k, v, o, B, S, Tn, KV, G, D, Dv, causal, scale, stream);
+    case 2: return launch<2>(q, k, v, o, B, S, Tn, KV, G, D, Dv, causal, scale, stream);
+    case 3: return launch<3>(q, k, v, o, B, S, Tn, KV, G, D, Dv, causal, scale, stream);
+    case 4: return launch<4>(q, k, v, o, B, S, Tn, KV, G, D, Dv, causal, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -277,7 +270,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q, k, v, o as above; is_bf16 selects bf16 (1) or f32 (0) for all four.
-// Takes D and Dv that are multiples of 4, up to 256 each.
+// f32 takes D and Dv that are multiples of 4 up to 256, bf16 multiples of
+// 8 (the wrapper pads a bf16 D or Dv of 4 mod 8 with a zero column).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, int B, int S, int T, int KV, int G,
                                 int D, int Dv, int causal, float scale,
@@ -286,8 +280,18 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
       D % 4 || D > 256 || Dv <= 0 || Dv % 4 || Dv > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, S, T, KV, G, D, Dv,
-                                           causal, scale, st)
-                 : dispatch<float>(q, k, v, o, B, S, T, KV, G, D, Dv, causal,
-                                   scale, st);
+  return is_bf16 ? flash_wgmma::dispatch(q, k, v, o, B, S, T, KV, G, D, Dv,
+                                         causal, scale, st)
+                 : dispatch_f32(q, k, v, o, B, S, T, KV, G, D, Dv, causal,
+                                scale, st);
+}
+
+// the dynamic shared memory a launch at head dims D, Dv requests (bf16
+// after the wrapper's padding to multiples of 8); 0 for a D or Dv the
+// kernel refuses
+extern "C" int flash_fwd_smem_bytes(int D, int Dv, int is_bf16) {
+  if (D <= 0 || D > 256 || Dv <= 0 || Dv > 256) return 0;
+  if (!is_bf16) return (int)(sizeof(float) * smem_floats(D, (Dv + 63) / 64));
+  const int dc = (D + 63) / 64, vc = (Dv + 63) / 64;
+  return flash_wgmma::smem_bytes(dc, vc, flash_wgmma::tile_positions(dc, vc));
 }

@@ -20,6 +20,12 @@ softmax in torch ops (q blocks of ``q_block``, kv chunks of
 in tiles of its own and stops at the diagonal in a causal launch, so it
 does not use ``q_block`` and ``kv_chunk`` beyond the reference's
 divisibility checks.
+
+The kernel has two instantiations.  f32 keeps the arithmetic above on the
+CUDA cores.  bf16 runs on Hopper's tensor cores (``csrc/flash_wgmma.cuh``),
+as the reference's dots ran on the TPU's: QK^T of the bf16 q and k with f32
+sums, the scale applied to the f32 scores, and P V with P as two bf16
+terms (hi and lo) against bf16 v with f32 sums.
 """
 from __future__ import annotations
 
@@ -108,9 +114,27 @@ def flash_forward(q, k, v, *, q_block: int = 2048, kv_chunk: int = 1024,
         raise ValueError(f"flash_forward: no kernel for {q.device}")
     B, S, KV, G, D = q.shape
     T, Dv = k.shape[1], v.shape[-1]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty((B, S, KV, G, Dv), dtype=q.dtype, device=q.device)
-    FLASH_KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(out), B, S, T, KV, G, D,
-                        Dv, int(causal), D ** -0.5,
-                        int(q.dtype == torch.bfloat16), stream_of(q))
-    return out
+    scale = D ** -0.5
+    bf16 = q.dtype == torch.bfloat16
+    q, k, v = (_kernel_operand(t, bf16) for t in (q, k, v))
+    Dk, Dvk = q.shape[-1], v.shape[-1]
+    out = torch.empty((B, S, KV, G, Dvk), dtype=q.dtype, device=q.device)
+    FLASH_KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(out), B, S, T, KV, G, Dk,
+                        Dvk, int(causal), scale, int(bf16), stream_of(q))
+    return out if Dvk == Dv else out[..., :Dv].contiguous()
+
+
+def _kernel_operand(t, bf16: bool):
+    """``t`` as the kernel reads it: contiguous, and for bf16 (whose rows the
+    TMA and 16-byte loads move) on a 16-byte boundary with a last dim that
+    is a multiple of 8, zero-padded where it is 4 mod 8.  The zero columns
+    add nothing to q k^T, and a zero column of v gives an output column the
+    wrapper drops."""
+    t = t.contiguous()
+    if not bf16:
+        return t
+    if t.shape[-1] % 8:
+        t = torch.nn.functional.pad(t, (0, 8 - t.shape[-1] % 8))
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t
