@@ -12,8 +12,13 @@ canonical 48 s ramp and on a 10-minute 1 kHz replay, holds kernel E and
 the monitor's chunked online path against their offline calls, holds
 kernel C bit for bit against its plain version at the Study's, the
 canonical loop's, a 600 000-sample and a ragged [3 x 4099] shape and
-times its chain alone, and re-runs the canonical loop on the CPU (phases
-1-10).  Then the model zoo
+times its chain alone, times kernels A and D on the device alone at the
+Study's and a tick's shapes, holds A bit for bit against kernel E on the
+same operands (the witness: A's worst, peaks and state out from E's
+amplitudes and state), times D's chain alone, holds D exactly at its
+int32 range rule's edge and in chunks, holds A at four geometries no
+path reaches (4-byte copies, rounds, several bins a block), and re-runs
+the canonical loop on the CPU (phases 1-10).  Then the model zoo
 (phases 11-14): kernel F (flash attention) against its plain version and
 a float64 oracle at four shapes in bf16 and f32; granite-3-8b at full
 width (random f32 params from seed 0) prefilling 4 x 4096 tokens on the
@@ -44,6 +49,10 @@ kernel E), with no earlier path launching any of the three.  It prints:
     beside its wall on kernel C's first design);
   * kernel C's chain alone: SM cycles and ns a step, and each shape's
     floor (ns a step times its steps);
+  * kernels A and D at the Study's and a tick's shapes: CUDA-event ms
+    around the wrapper and device-only ms from the profiler's kernel
+    durations; A against E bit for bit; D's chain alone (int32 and
+    int64) and each shape's chain floor;
   * per model phase: kernel F's errors, times and TFLOP/s beside its
     bound and ``F.scaled_dot_product_attention``'s time, prefill walls,
     tokens/s,
@@ -57,6 +66,13 @@ kernel E), with no earlier path launching any of the three.  It prints:
 Every phase raises on failure, so the script exits non-zero and prints
 no result line.  It needs one card and exits non-zero without one, or
 when ``src/repro_torch`` is not beside it.
+
+    python3 chip_smoke.py --ad
+
+measures only what kernels A and D change, to compare two trees on one
+card: the warm Study, the canonical loop and the 600 s replay with their
+device busy shares, and A and D alone at both shapes (run this script
+from the root of each tree; it prints one ``{"ad": ...}`` line).
 """
 from __future__ import annotations
 
@@ -458,6 +474,336 @@ def check_scan(torch, cap, launches, name):
 
 
 # ---------------------------------------------------------------------------
+# kernels A and D: device time, the A-vs-E witness, D's chain alone
+# ---------------------------------------------------------------------------
+
+# each kernel's function name as the profiler reports it (a substring)
+DEVICE_NAME = {"monitor": "monitor_kernel", "escalation": "escalation_kernel"}
+ESC_EDGE_N = 3000         # samples of the int32 range rule's edge rows
+
+
+def event_device_us(e):
+    """An averaged profiler event's device time in microseconds (the
+    attribute's name changed across PyTorch versions)."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(e, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def kernel_device_ms(events, name):
+    """Device ms per launch of the kernels whose profiler key contains
+    ``name``, over ``events`` (``key_averages()``): their summed device
+    time over their summed count.  None if no such kernel ran."""
+    hits = [e for e in events if name in e.key and event_device_us(e) > 0]
+    count = sum(e.count for e in hits)
+    if not count:
+        return None
+    return sum(event_device_us(e) for e in hits) / count / 1e3
+
+
+def device_ms(torch, fn, name, repeat=20):
+    """``fn()`` ``repeat`` times under ``torch.profiler`` after a warm-up:
+    the device-only ms per launch of the kernel named ``name``, from the
+    profiler's kernel durations (the host's time to issue the call is not
+    in it).  The card's tracing has dropped every launch of kernel A (a
+    cluster launch) from some profiles on some machines, and never one of
+    D; so a profile that records none is taken again, then with device
+    activity alone, and if all three record none the time is not measured
+    (None): a measurement, not a gate."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for activities in (both, both, [ProfilerActivity.CUDA]):
+        with profile(activities=activities) as prof:
+            for _ in range(repeat):
+                fn()
+            torch.cuda.synchronize()
+        got = kernel_device_ms(prof.key_averages(), name)
+        if got is not None:
+            return got
+        log(f"the profiler recorded no launch of {name}; profiling again")
+    log(f"{name}: device time not measured (the profiler recorded no "
+        f"launch in three profiles)")
+    return None
+
+
+def chain_step(cycles, ms, steps):
+    """(SM cycles a step, ns a step) of a chain probe that took ``cycles``
+    SM cycles and ``ms`` by CUDA events over ``steps`` dependent steps."""
+    return cycles / steps, ms / steps * 1e6
+
+
+def chain_floor_ms(ns_per_step, shapes):
+    """Each shape's chain floor: ns a step times a row's steps (its last
+    dimension), in ms."""
+    return {tag: ns_per_step * shape[-1] / 1e6 for tag, shape in
+            shapes.items()}
+
+
+def witness_compare(torch, a_out, e_out, n, seg0):
+    """Kernel A's outputs against kernel E's on the same operands, reduced
+    the way A reduces them: A's worst against the amax over bins of E's
+    amplitudes, A's peaks against E's amplitudes masked to live samples
+    (``win - 1 <= idx < n``) with the amax per segment, and A's state out
+    against E's.  Returns {output: max |A - E|} and whether all are equal
+    bit for bit."""
+    worst, _, peaks, nre, nim = a_out
+    amps, ere, eim = e_out
+    B, S, win = worst.shape
+    pos = torch.arange(win, device=worst.device)
+    idx = ((seg0[:, None] + torch.arange(S, device=worst.device))[..., None]
+           * win + pos)                                   # [B, S, win]
+    live = (idx >= win - 1) & (idx < n[:, None, None])
+    pairs = {"worst": (worst, amps.amax(-1)),
+             "peaks": (peaks, torch.where(live[..., None], amps, 0.0)
+                       .amax(2)),
+             "nre": (nre, ere), "nim": (nim, eim)}
+    gaps = {k: (a - e).abs().max().item() for k, (a, e) in pairs.items()}
+    equal = all(torch.equal(a, e) for a, e in pairs.values())
+    return gaps, equal
+
+
+def monitor_witness(torch, args):
+    """Kernel A against kernel E on A's operands (``args`` of one
+    ``sliding_monitor`` call): ``witness_compare``'s gaps and verdict."""
+    from repro_torch.kernels.goertzel import monitor, sliding
+    xseg, cosp, sinp, rot, thr, rel, n, seg0, re0, im0 = args
+    a_out = monitor.sliding_monitor(*args)
+    e_out = sliding.sliding_bin_power_v2(xseg, cosp, sinp, rot, seg0, re0,
+                                         im0)
+    torch.cuda.synchronize()
+    return witness_compare(torch, a_out, e_out, n, seg0)
+
+
+def escalation_chain(torch, cls, kw, wide=False, reps=200):
+    """D's chain alone (``escalation_step_cycles`` in ``escalation.cu``):
+    lane 0 steps over the first 1024 classes of ``cls``, already in shared
+    memory, ``reps`` times, in int32 (or, with ``wide``, int64).  Returns
+    (SM cycles a step, ns a step by CUDA events)."""
+    import ctypes
+    from repro_torch.core import telemetry
+    from repro_torch.kernels.build import ptr, stream_of
+    fn = ctypes.CDLL(str(telemetry.ESCALATION_KERNEL.library_path())
+                     ).escalation_step_cycles
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int] + [ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    cycles = torch.zeros(1, dtype=torch.int64, device=cls.device)
+    sink = torch.zeros(1, dtype=torch.int64, device=cls.device)
+    n = cls.shape[-1]
+
+    def run():
+        err = fn(ptr(cls), n, reps, int(wide), kw["sustain_n"], kw["cool_n"],
+                 kw.get("max_level", 3), ptr(cycles), ptr(sink),
+                 stream_of(cls))
+        if err:
+            raise RuntimeError(f"escalation_step_cycles: CUDA error {err}")
+    ms = cuda_ms(torch, run, 3)
+    return chain_step(cycles.item(), ms, reps * min(n, 1024))
+
+
+def escalation_edges(torch, kw):
+    """D's int32 range rule at its edge: all-hit rows whose ``above``
+    starts one more than n short of 2^31, and n short, so the second runs
+    in int64 (``telemetry.escalation_fits_int32``), never escalating
+    (``max_level`` 0), with the path's other settings; each row exact
+    against the plain version.  Returns the rule's verdicts per row."""
+    from repro_torch.core import telemetry
+    n = ESC_EDGE_N
+    cls = torch.full((2, n), telemetry.CLS_HIT, dtype=torch.int8,
+                     device="cuda")
+    carry = telemetry.escalation_init(2, "cuda")
+    carry[0, 1] = 2 ** 31 - 1 - n
+    carry[1, 1] = 2 ** 31 - n
+    edge = dict(kw, max_level=0)
+    fits = telemetry.escalation_fits_int32(carry, n, **edge).tolist()
+    got = telemetry.escalation_scan(cls, 5, carry, **edge)
+    ref = telemetry.escalation_scan_plain(cls.cpu(), 5, carry.cpu(), **edge)
+    equal = all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+    tops = got[0][:, 1].tolist()
+    log(f"escalation int32 range rule at its edge (above0 + n = 2^31 - 1, "
+        f"2^31; fits int32 {fits}): exact {equal}, above out {tops}")
+    if not equal or tops != [2 ** 31 - 1, 2 ** 31] or fits != [True, False]:
+        raise AssertionError("kernel D is not exact at the int32 range "
+                             "rule's edge")
+    return fits
+
+
+def escalation_chunked(torch, args, kw):
+    """D in three chunks that pass the carry on against one call, exactly."""
+    from repro_torch.core import telemetry
+    cls, idx0, carry = args
+    n = cls.shape[1]
+    whole = telemetry.escalation_scan(cls, idx0, carry, **kw)
+    cuts = [0, n // 3, n // 3 + 17, n]
+    parts, c = [], carry
+    for lo, hi in zip(cuts, cuts[1:]):
+        c, lv = telemetry.escalation_scan(cls[:, lo:hi].contiguous(),
+                                          idx0 + lo, c, **kw)
+        parts.append(lv)
+    return (torch.equal(torch.cat(parts, 1), whole[1])
+            and torch.equal(c, whole[0]))
+
+
+def ad_measure(torch, study_calls, tick_calls):
+    """Kernels A and D at the Study's and a control tick's shapes: CUDA-
+    event ms around the wrapper and device-only ms per launch, the
+    A-vs-E witness at both A shapes, and D's chain probe where the
+    library has one.  ``*_calls`` map "monitor"/"escalation" to a captured
+    ``(rows, args, kw)``."""
+    from repro_torch.core import telemetry
+    from repro_torch.kernels.goertzel import monitor
+    fns = {"monitor": monitor.sliding_monitor,
+           "escalation": telemetry.escalation_scan}
+    ops_per = {"monitor": 21, "escalation": 14}   # as kernel_vs_plain
+    out = {}
+    for tag, calls in (("study", study_calls), ("tick", tick_calls)):
+        for nm, fn in fns.items():
+            _, args, kw = calls[nm]
+            run = (lambda fn=fn, a=args, k=kw: fn(*a, **k))
+            ev = cuda_ms(torch, run, 20)
+            dev = device_ms(torch, run, DEVICE_NAME[nm])
+            outs = run()
+            x = args[0]
+            per = x.numel() * (args[1].shape[0] if nm == "monitor" else 1)
+            b_ms, b_by = bound(
+                nbytes(*(a for a in args if isinstance(a, torch.Tensor)))
+                + nbytes(*outs), ops_per[nm] * per)
+            row = {"shape": list(x.shape), "event_ms": ev,
+                   "device_ms": dev, "bound_ms": b_ms, "bound_by": b_by}
+            if nm == "monitor":
+                row["shape"].append(args[1].shape[0])
+                gaps, equal = monitor_witness(torch, args)
+                row["witness_vs_E"] = {"bitwise": equal, "max_abs": gaps}
+            out[f"{nm}_{tag}"] = row
+            dev_s = "not measured" if dev is None else f"{dev:.4g} ms"
+            log(f"{nm} at {row['shape']} ({tag}): {ev:.4g} ms by CUDA "
+                f"events around the wrapper, {dev_s} on the device, "
+                f"bound {b_ms:.4g} ms by {b_by}"
+                + (f"; vs kernel E bitwise {row['witness_vs_E']['bitwise']}"
+                   f" (max |A - E| {row['witness_vs_E']['max_abs']})"
+                   if nm == "monitor" else ""))
+    import ctypes
+    lib = ctypes.CDLL(str(telemetry.ESCALATION_KERNEL.library_path()))
+    if hasattr(lib, "escalation_step_cycles"):
+        _, args, kw = study_calls["escalation"]
+        cyc, ns = escalation_chain(torch, args[0][:1].contiguous(), kw)
+        cyc64, ns64 = escalation_chain(torch, args[0][:1].contiguous(), kw,
+                                       wide=True)
+        shapes = {t: out[f"escalation_{t}"]["shape"] for t in ("study",
+                                                               "tick")}
+        out["escalation_chain"] = {
+            "cycles_per_step": cyc, "ns_per_step": ns,
+            "int64_cycles_per_step": cyc64, "int64_ns_per_step": ns64,
+            "floor_ms": chain_floor_ms(ns, shapes)}
+        log(f"escalation chain alone: {cyc:.1f} SM cycles a step, {ns:.3f} "
+            f"ns a step (int64: {cyc64:.1f}, {ns64:.3f}); floors (ms) "
+            + json.dumps(out["escalation_chain"]["floor_ms"]))
+    return out
+
+
+# kernel A's geometries that no path here reaches: [B, S, win, K] with win
+# not a multiple of 4 (4-byte copies), win past one round of shared memory,
+# K past one cluster (several bins a block), and both at once
+MONITOR_VARIANTS = ((2, 3, 1001, 3), (1, 3, 12000, 4), (2, 2, 600, 11),
+                    (1, 3, 20000, 10))
+
+
+def monitor_variants(torch, seed=21, dev="cuda"):
+    """Kernel A at ``MONITOR_VARIANTS`` on seeded operands (a seeded prefix
+    state in, row 0 in its warm-up): within ``MONITOR_TOL`` of its plain
+    version with no class mismatch off the threshold band, equal to
+    kernel E by the witness, and two chunked calls that pass the state on
+    equal to one call, bit for bit.  Returns one summary per shape."""
+    import numpy as np
+    from repro_torch.kernels.goertzel import monitor, ops
+    out = []
+    for B, S, win, K in MONITOR_VARIANTS:
+        rng = np.random.default_rng(seed + win + K)
+        xseg = torch.as_tensor(rng.standard_normal((B, S, win)).astype(
+            np.float32) * 1e3, device=dev)
+        freqs = tuple(0.05 + 0.37 * i for i in range(K))
+        cosp, sinp, rot = (torch.as_tensor(t, device=dev) for t in
+                           ops.phase_tables(freqs, DT, win))
+        re0, im0 = (torch.as_tensor(rng.standard_normal((B, K, win)).astype(
+            np.float32), device=dev) for _ in range(2))
+        seg0 = torch.as_tensor(rng.integers(0, 3, B), device=dev)
+        seg0[0] = 0
+        n = seg0 * win + S * win - win // 3
+        thr = torch.full((B,), 2e3, device=dev)
+        args = (xseg, cosp, sinp, rot, thr, thr * 0.6, n, seg0, re0, im0)
+        got = monitor.sliding_monitor(*args)
+        ref = monitor.sliding_monitor_plain(*args)
+        scale = xseg.abs().max().item()
+        err = (got[0] - ref[0]).abs().max().item() / scale
+        near = (((ref[0] - thr[:, None, None]).abs() <= MONITOR_TOL * scale)
+                | ((ref[0] - 0.6 * thr[:, None, None]).abs()
+                   <= MONITOR_TOL * scale))
+        off_band = int(((got[1] != ref[1]) & ~near).sum())
+        gaps, equal = monitor_witness(torch, args)
+        part1 = monitor.sliding_monitor(xseg[:, :1].contiguous(), cosp, sinp,
+                                        rot, thr, thr * 0.6, n, seg0, re0,
+                                        im0)
+        part2 = monitor.sliding_monitor(xseg[:, 1:].contiguous(), cosp, sinp,
+                                        rot, thr, thr * 0.6, n, seg0 + 1,
+                                        part1[3], part1[4])
+        chunked = all(torch.equal(torch.cat([part1[i], part2[i]], 1), got[i])
+                      for i in range(3)) and torch.equal(part2[3], got[3])
+        log(f"monitor [{B} x {S} x {win}, K={K}]: {err:.3g} of the scale "
+            f"from the plain version, class mismatches off the band "
+            f"{off_band}; vs kernel E bitwise {equal}; chunked bitwise "
+            f"{chunked}")
+        if err > MONITOR_TOL or off_band or not equal or not chunked:
+            raise AssertionError(f"kernel A fails at [{B} x {S} x {win}, "
+                                 f"K={K}]: {gaps}")
+        out.append({"shape": [B, S, win, K], "err_of_scale": err,
+                    "witness_bitwise": equal, "chunked_bitwise": chunked})
+    return out
+
+
+def ad_gates(torch, study_calls, ad):
+    """A equal to E bit for bit by the witness at both shapes; D exact at
+    the int32 rule's edge and in chunks at the Study's shape."""
+    for tag in ("study", "tick"):
+        w = ad[f"monitor_{tag}"]["witness_vs_E"]
+        if not w["bitwise"]:
+            raise AssertionError(f"kernel A differs from kernel E at the "
+                                 f"{tag} shape: {w['max_abs']}")
+    _, args, kw = study_calls["escalation"]
+    ad["escalation_int32_edge"] = escalation_edges(torch, kw)
+    chunked = escalation_chunked(torch, args, kw)
+    log(f"escalation [{args[0].shape[0]} x {args[0].shape[1]}] in 3 chunks "
+        f"that carry the state on vs one call: exact {chunked}")
+    if not chunked:
+        raise AssertionError("chunked escalation calls differ from one call")
+    ad["escalation_chunked_exact"] = chunked
+
+
+def ad_rows(kernels, ad):
+    """A's and D's rows of the kernels line: both shapes with their event
+    and device ms, the witness, D's chain floor."""
+    for name, nm in (("sliding_monitor", "monitor"),
+                     ("escalation_scan", "escalation")):
+        row = next(k for k in kernels if k["name"] == name)
+        row["shapes"] = {t: ad[f"{nm}_{t}"] for t in ("study", "tick")}
+        row["device_ms"] = ad[f"{nm}_study"]["device_ms"]
+    next(k for k in kernels if k["name"] == "sliding_monitor")[
+        "other_geometries"] = ad["monitor_variants"]
+    d = next(k for k in kernels if k["name"] == "escalation_scan")
+    chain = ad["escalation_chain"]
+    d.update({"chain_cycles_per_step": chain["cycles_per_step"],
+              "chain_ns_per_step": chain["ns_per_step"],
+              "chain_int64_cycles_per_step": chain["int64_cycles_per_step"],
+              "chain_floor_ms": chain["floor_ms"],
+              "int32_edge_fits": ad["escalation_int32_edge"],
+              "chunked_exact": ad["escalation_chunked_exact"]})
+
+
+# ---------------------------------------------------------------------------
 # the Study, profiled, and its CPU subset
 # ---------------------------------------------------------------------------
 
@@ -668,7 +1014,8 @@ def control_phase(torch, control, api, build, w, dt, tag):
     if ([(r.tick, r.action) for r in cold_log.records]
             != [(r.tick, r.action) for r in warm_log.records]):
         raise AssertionError(f"[{tag}] cold and warm timelines differ")
-    return {"cold_log": cold_log, "counts": counts, "capture": cap}
+    return {"cold_log": cold_log, "counts": counts, "capture": cap,
+            "wall": warm}
 
 
 # ---------------------------------------------------------------------------
@@ -1600,6 +1947,49 @@ def entry_point_phase(torch, build, w, dt, w_long, dt_long):
 
 # ---------------------------------------------------------------------------
 
+def ad_main(torch) -> int:
+    """``--ad``: the walls that kernels A and D sit on, and the two kernels
+    alone, for comparing two trees on one card (run the script of the
+    newer tree from the root of each): the warm Study, the canonical loop
+    and the 600 s replay with their device busy shares (no gate beyond
+    the loop's invariants), then ``ad_measure`` at the Study's and a
+    tick's shapes.  Prints one ``{"ad": ...}`` JSON line."""
+    from repro_torch import api, control
+    from repro_torch.kernels import build
+    t_start = time.perf_counter()
+    out = {"device": torch.cuda.get_device_name(0), "smi": nvidia_smi_line(),
+           "tree": HERE, "build_s": build.build_all()}
+    study = build_study(api)
+    cap = Capture(torch)
+    with cap:
+        study.run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    study.run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    wall, busy, _ = profile_device(torch, study.run)
+    out["study"] = {"warm_s": warm, "profiled_s": wall, "busy_s": busy,
+                    "busy_share": busy / wall}
+    w, dt = control_trace(control)
+    canon = control_phase(torch, control, api, build, w, dt, "watch_trace")
+    wall, busy, _ = profile_device(
+        torch, lambda: run_watch(torch, control, api, w, dt, "cuda"))
+    out["loop"] = {"warm_s": canon["wall"], "profiled_s": wall,
+                   "busy_s": busy, "busy_share": busy / wall}
+    w_long, dt_long = control_trace(control, long=True)
+    _, long_wall = run_watch(torch, control, api, w_long, dt_long, "cuda")
+    wall, busy, _ = profile_device(
+        torch, lambda: run_watch(torch, control, api, w_long, dt_long,
+                                 "cuda"))
+    out["replay_600s"] = {"wall_s": long_wall, "profiled_s": wall,
+                          "busy_s": busy, "busy_share": busy / wall}
+    out.update(ad_measure(torch, cap.args, canon["capture"].args))
+    out["total_s"] = time.perf_counter() - t_start
+    print(json.dumps({"ad": out}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1607,6 +1997,8 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import_port()
+    if sys.argv[1:] == ["--ad"]:
+        return ad_main(torch)
     from repro_torch import api
     from repro_torch.kernels import build
     # the kernels that api does not import register here: F, G, H and I
@@ -1761,6 +2153,11 @@ def main() -> int:
     check_chunked(torch, w, dt)
     c_extra, c_cycles, c_ns, c_ieee = battery_phase(
         torch, canon["capture"].args["battery"], w_long, dt_long)
+    # kernels A and D at the Study's and a tick's shapes: device time, A
+    # against E, D's chain alone, its int32 edge and chunked carry
+    ad = ad_measure(torch, cap.args, canon["capture"].args)
+    ad_gates(torch, cap.args, ad)
+    ad["monitor_variants"] = monitor_variants(torch)
     e = {"name": "sliding_bin_power_v2", "route": "cuda",
          "source": "src/repro_torch/kernels/goertzel/csrc/sliding.cu",
          "replaces": "src/repro/kernels/goertzel/goertzel.py:250",
@@ -1779,6 +2176,7 @@ def main() -> int:
         k["launches_by_path"]["watch_trace_600s"] = long_counts[nm]
         if nm in path_rows:
             k["watch_trace_call"] = path_rows[nm]
+    ad_rows(kernels, ad)
     from repro_torch.core.smoothing.battery import BATTERY_KERNEL
     c_row = next(k for k in kernels if k["name"] == "battery_scan")
     c_shapes = {"study": c_row["shape"],

@@ -5,9 +5,11 @@ machine of the telemetry backstop (paper Sec. IV-A/E).
 ``escalation_class_step`` is one transition of the threshold-with-
 hysteresis machine on a class; ``escalation_scan`` folds the machine over
 a batch of class streams ``[B, n]``.  On a CUDA tensor the fold runs as
-kernel D (``kernels/scans/csrc/escalation.cu``, one thread per row); on a
-CPU tensor it runs ``escalation_scan_plain``, a Python loop over samples
-of ``escalation_class_step``.
+kernel D (``kernels/scans/csrc/escalation.cu``, one warp per row, the
+stream staged through shared memory, the counters in int32 where
+``escalation_fits_int32`` holds and in int64 elsewhere); on a CPU tensor
+it runs ``escalation_scan_plain``, a Python loop over samples of
+``escalation_class_step``.
 
 The carry is an int64 ``[B, 4]`` tensor ``(level, above, below,
 detect)``; sample indices are int64, so ``detect`` is exact at any trace
@@ -105,6 +107,25 @@ def escalation_step(carry, amp, idx, *, threshold, win: int, n,
     carry = escalation_class_step(carry, cls, idx, sustain_n=sustain_n,
                                   cool_n=cool_n, max_level=max_level)
     return carry, carry[0]
+
+
+def escalation_fits_int32(carry: torch.Tensor, n: int, *, sustain_n: int,
+                          cool_n: int, max_level: int) -> torch.Tensor:
+    """Kernel D's range rule, per row of ``carry`` ``[B, 4]``: whether
+    ``n`` steps from that carry keep ``level``, ``above`` and ``below`` in
+    int32.  ``level`` stays within ``[min(level0, 0), max(level0,
+    max_level)]``, and ``above`` and ``below`` grow by at most one a
+    sample, so the rule is: ``level0``, ``max_level``, ``sustain_n`` and
+    ``cool_n`` fit int32, and ``above0 + n`` and ``below0 + n`` stay below
+    2^31 (with ``above0``, ``below0 >= -2^31``).  Rows where it fails run
+    the kernel's int64 instantiation; the kernel checks the same rule."""
+    lo, hi = -2 ** 31, 2 ** 31 - 1
+    if not all(lo <= v <= hi for v in (sustain_n, cool_n, max_level)):
+        return torch.zeros(carry.shape[0], dtype=torch.bool,
+                           device=carry.device)
+    level, above, below = carry[:, 0], carry[:, 1], carry[:, 2]
+    return ((level >= lo) & (level <= hi) & (above >= lo) & (below >= lo)
+            & (above <= hi - n) & (below <= hi - n))
 
 
 def _idx0_rows(idx0: Union[int, torch.Tensor], rows: int, device

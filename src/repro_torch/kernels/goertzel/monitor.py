@@ -28,8 +28,11 @@ Outputs: ``worst`` ``[B, S, win]`` f32, ``cls`` ``[B, S, win]`` int8,
 ``peaks`` ``[B, S, K]`` f32, ``nre``/``nim`` ``[B, K, win]`` f32.
 
 On a CUDA tensor ``sliding_monitor`` launches the CUDA kernel
-(``csrc/monitor.cu``); on a CPU tensor it runs ``sliding_monitor_plain``,
-which walks the segments in order with ``torch.cumsum``.
+(``csrc/monitor.cu``: one thread-block cluster per (row, segment), one
+block per bin, the segment staged in shared memory, the worst over bins
+reduced through the cluster's shared memory); on a CPU tensor it runs
+``sliding_monitor_plain``, which walks the segments in order with
+``torch.cumsum``.
 """
 from __future__ import annotations
 

@@ -162,3 +162,49 @@ def test_phase_tables_match_reference():
     np.testing.assert_array_equal(c, cj[:k])
     np.testing.assert_array_equal(s, sj[:k])
     np.testing.assert_array_equal(r, rj[:k])
+
+
+def _witness_operands(seed, B, n, win, K):
+    """Seeded operands of one monitor call on [B, n] traces cut into
+    win-sample segments (the last zero-tailed when n % win != 0), with a
+    seeded prefix state in."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((B, n)).astype(np.float32) * 1e3)
+    xseg = tops.segments(x, win)
+    freqs = FREQS[:K]
+    cosp, sinp, rot = (torch.as_tensor(t)
+                       for t in tops.phase_tables(freqs, DT, win))
+    re0 = torch.as_tensor(rng.standard_normal((B, K, win)).astype(np.float32))
+    im0 = torch.as_tensor(rng.standard_normal((B, K, win)).astype(np.float32))
+    seg0 = torch.as_tensor(rng.integers(0, 3, B))
+    seg0[0] = 0                          # row 0 starts in its warm-up
+    n_live = seg0 * win + n
+    return xseg, cosp, sinp, rot, seg0, n_live, re0, im0
+
+
+@pytest.mark.parametrize("B,n,win,K", [(1, 400, 400, 4), (2, 1000, 300, 3),
+                                       (3, 2501, 512, 4), (1, 77, 128, 2)])
+def test_plain_monitor_equals_plain_sliding_reduced_like_the_witness(
+        B, n, win, K):
+    """Kernel A's plain version against kernel E's, reduced the way
+    chip_smoke.py's witness reduces E: A's worst is the amax over bins of
+    E's amplitudes, A's peaks the amax per segment of E's amplitudes
+    masked to live samples, A's state out E's; bit for bit (the two plain
+    versions take the same operations)."""
+    from repro_torch.kernels.goertzel import sliding as tsl
+    xseg, cosp, sinp, rot, seg0, n_live, re0, im0 = _witness_operands(
+        n + win, B, n, win, K)
+    thr = torch.full((B,), 2e3)
+    worst, _, peaks, nre, nim = tmon.sliding_monitor(
+        xseg, cosp, sinp, rot, thr, thr * 0.5, n_live, seg0, re0, im0)
+    amps, ere, eim = tsl.sliding_bin_power_v2(xseg, cosp, sinp, rot, seg0,
+                                              re0, im0)
+    S = xseg.shape[1]
+    idx = ((seg0[:, None] + torch.arange(S))[..., None] * win
+           + torch.arange(win))
+    live = (idx >= win - 1) & (idx < n_live[:, None, None])
+    assert torch.equal(worst, amps.amax(-1))
+    assert torch.equal(peaks, torch.where(live[..., None], amps, 0.0)
+                       .amax(2))
+    assert torch.equal(nre, ere) and torch.equal(nim, eim)
+    assert (~live).any()      # the zero tail and the warm-up are masked

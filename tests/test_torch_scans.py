@@ -144,6 +144,71 @@ def test_escalation_chunks_carry_exactly():
     assert torch.equal(c2, c_all)
 
 
+def _machine_ints(cls, carry, idx0, sustain_n, cool_n, max_level):
+    """The escalation machine on Python ints (no width): the int64
+    semantics the port's plain version must keep at any carry."""
+    level, above, below, detect = carry
+    levels = []
+    for i, k in enumerate(cls):
+        hit, clear, on = k == 2, k == 0, k != 3
+        above = above + 1 if hit else (0 if on else above)
+        below = below + 1 if clear else (0 if on else below)
+        esc = hit and above >= sustain_n and level < max_level
+        if esc and detect < 0:
+            detect = idx0 + i
+        if esc:
+            level, above = level + 1, 0
+        if clear and below >= cool_n and level > 0:
+            level, below = level - 1, 0
+        levels.append(level)
+    return [level, above, below, detect], levels
+
+
+EDGE = 2 ** 31
+
+
+@pytest.mark.parametrize("field,start,fits", [
+    (1, EDGE - 1 - 40, True), (1, EDGE - 40, False),
+    (2, EDGE - 1 - 40, True), (2, EDGE - 40, False),
+    (1, -EDGE, True), (1, -EDGE - 1, False),
+    (0, EDGE - 1, True), (0, EDGE, False)])
+def test_escalation_int32_rule_at_its_edge(field, start, fits):
+    """Kernel D's range rule (``escalation_fits_int32``) where a counter's
+    carry-in plus n reaches 2^31 - 1 (fits) and 2^31 (does not), or a
+    carry-in leaves int32; the plain version exact against the machine on
+    Python ints there.  Runs of hits then clears (max_level 0: no
+    escalation resets ``above``) drive ``above`` and ``below`` to their
+    carry-in plus their run."""
+    n = 40
+    cls = [2] * n if field == 1 else [0] * n
+    carry = [0, 0, 0, -1]
+    carry[field] = start
+    kw = dict(sustain_n=3, cool_n=5, max_level=0)
+    rule = ttel.escalation_fits_int32(torch.tensor([carry]), n, **kw)
+    assert rule.tolist() == [fits]
+    got_c, got_l = ttel.escalation_scan_plain(
+        torch.tensor([cls], dtype=torch.int8), 9, torch.tensor([carry]), **kw)
+    want_c, want_l = _machine_ints(cls, carry, 9, **kw)
+    assert got_c[0].tolist() == want_c
+    assert got_l[0].tolist() == [v & 0xff if v & 0x80 == 0 else
+                                 (v & 0xff) - 256 for v in want_l]
+    if field in (1, 2) and start > 0:
+        assert want_c[field] == start + n          # the counter's top
+
+
+@pytest.mark.parametrize("kw", [dict(sustain_n=EDGE, cool_n=5, max_level=3),
+                                dict(sustain_n=3, cool_n=-EDGE - 1,
+                                     max_level=3),
+                                dict(sustain_n=3, cool_n=5, max_level=EDGE)])
+def test_escalation_int32_rule_needs_the_settings_in_int32(kw):
+    carry = ttel.escalation_init(2)
+    assert ttel.escalation_fits_int32(carry, 10, **kw).tolist() == [False,
+                                                                    False]
+    kw_ok = dict(sustain_n=EDGE - 1, cool_n=-EDGE, max_level=3)
+    assert ttel.escalation_fits_int32(carry, 10, **kw_ok).tolist() == [True,
+                                                                       True]
+
+
 hypothesis = pytest.importorskip("hypothesis")
 st = hypothesis.strategies
 
