@@ -17,8 +17,11 @@ Study's and a tick's shapes, holds A bit for bit against kernel E on the
 same operands (the witness: A's worst, peaks and state out from E's
 amplitudes and state), times D's chain alone, holds D exactly at its
 int32 range rule's edge and in chunks, holds A at four geometries no
-path reaches (4-byte copies, rounds, several bins a block), and re-runs
-the canonical loop on the CPU (phases 1-10).  Then the model zoo
+path reaches (4-byte copies, rounds, several bins a block), holds kernel
+B bit for bit at the Study's, the loop's and the replay's shapes (every
+replay call, captured from a run of its own) and on two seeded rows,
+times it there and in its worst case (no segment merges) and its chain
+alone, and re-runs the canonical loop on the CPU (phases 1-10).  Then the model zoo
 (phases 11-14): kernel F (flash attention) against its plain version and
 a float64 oracle at four shapes in bf16 and f32; granite-3-8b at full
 width (random f32 params from seed 0) prefilling 4 x 4096 tokens on the
@@ -32,7 +35,9 @@ three kernels that only the reference's own entry points reach:
 (kernel I) on the 600 s trace's segments, and ``ballast_burn`` (kernel G)
 at 140 GFLOP, each held against its plain version and its float64 oracle
 (H no worse than twice the reference's own error there, I also against
-kernel E), with no earlier path launching any of the three.  It prints:
+kernel E; G also on five more cases and one shape for each of its two
+routes, the burn timed on both), with no earlier path launching any of
+the three.  It prints:
 
   * the card's name and power limit (``nvidia-smi``);
   * build times and ``ptxas`` register and spill lines, and for kernels
@@ -53,13 +58,19 @@ kernel E), with no earlier path launching any of the three.  It prints:
     around the wrapper and device-only ms from the profiler's kernel
     durations; A against E bit for bit; D's chain alone (int32 and
     int64) and each shape's chain floor;
+  * kernel B at its three paths' shapes, the seeded rows and its worst
+    case: event and device ms, how its segments' walks merge, its chain
+    alone and each shape's serial and segmented floors;
   * per model phase: kernel F's errors, times and TFLOP/s beside its
     bound and ``F.scaled_dot_product_attention``'s time, prefill walls,
     tokens/s,
     peak memory, the routes' gaps, the device busy share of a profiled
     prefill, decode ms per token, and the CPU re-run's gaps;
   * for kernels G, H and I: errors, ``ms``, ``plain_ms``, ``bound_ms``,
-    ``library_ms``, ``ptxas`` lines and launches on every path;
+    ``library_ms``, ``ptxas`` lines and launches on every path; for G
+    each case's route, ms and TFLOP/s, the burn's device ms on both
+    routes, and each cluster geometry's shared memory and resident
+    clusters;
   * one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again,
     and, last, ``{"ok": true, "device": {...}}``.
 
@@ -69,10 +80,13 @@ when ``src/repro_torch`` is not beside it.
 
     python3 chip_smoke.py --ad
 
-measures only what kernels A and D change, to compare two trees on one
-card: the warm Study, the canonical loop and the 600 s replay with their
-device busy shares, and A and D alone at both shapes (run this script
-from the root of each tree; it prints one ``{"ad": ...}`` line).
+measures only what kernels A, B, D and G change, to compare two trees on
+one card: the warm Study, the canonical loop and the 600 s replay with
+their device busy shares (and B's device time in the replay), A and D
+alone at both shapes, B at its three paths' shapes with its chain where
+the library has a probe, and G at phase 15's burn on each of its routes
+(run this script from the root of each tree; it prints one
+``{"ad": ...}`` line).
 """
 from __future__ import annotations
 
@@ -93,7 +107,6 @@ PEAK_OPS_S = 67e12
 
 MONITOR_TOL = 1e-4        # of the row's amplitude scale max |x - mean|
 ORACLE_TOL = 1e-3         # of the amplitude scale, against float64
-SCAN_TOL = 1e-5           # of max |w|, kernel B (C is held bitwise)
 STUDY_RTOL = 1e-4         # CPU-vs-card metrics
 
 # the control loop (benchmarks/control_bench.py's configuration)
@@ -379,8 +392,8 @@ def check_monitor(torch, cap, launches, freqs):
 def kernel_vs_plain(torch, name, args, kw, repeat=10):
     """A kernel against its plain version on the arguments of one of its
     calls: ``(shape, max_abs_err, ok, ms, plain_ms, bound_ms,
-    bound_by)``.  Escalation and the battery scan must be exact (C with
-    ``torch.equal`` on all three outputs); the others within their
+    bound_by)``.  Escalation and the two smoothing scans must be exact (B
+    and C with ``torch.equal`` on every output); the others within their
     tolerance of the input's max |x| (a monitor's classes may differ
     only within it of a threshold)."""
     from repro_torch.core import telemetry
@@ -393,9 +406,9 @@ def kernel_vs_plain(torch, name, args, kw, repeat=10):
                     sliding.sliding_bin_power_v2_plain, SLIDING_OPS,
                     MONITOR_TOL),
         "gpu_floor": (gpu_floor.gpu_floor_scan,
-                      gpu_floor.gpu_floor_scan_plain, 11, SCAN_TOL),
+                      gpu_floor.gpu_floor_scan_plain, 11, 0.0),
         "battery": (battery.battery_scan, battery.battery_scan_plain, 32,
-                    SCAN_TOL),
+                    0.0),
         "escalation": (telemetry.escalation_scan,
                        telemetry.escalation_scan_plain, 14, 0.0),
     }[name]
@@ -416,8 +429,10 @@ def kernel_vs_plain(torch, name, args, kw, repeat=10):
                 | ((ref_t[0] - args[5][:, None, None]).abs() <= tol * scale))
         off_band = int(((got_t[1] != ref_t[1]) & ~near).sum())
         ok = err <= tol * scale and off_band == 0
-    elif name == "battery":
+    elif name in ("battery", "gpu_floor"):
         # bitwise: the kernel takes the plain version's f32 steps in order
+        # (B's target and counter are exact, and its segments' walks meet
+        # the true one only where they agree bit for bit)
         err = max((g - r).abs().max().item() for g, r in zip(got_t, ref_t))
         ok = all(torch.equal(g, r) for g, r in zip(got_t, ref_t))
     elif name == "sliding":
@@ -452,10 +467,7 @@ def check_scan(torch, cap, launches, name):
                        "escalation_scan")}[name]
     (B, n), err, ok, ms, plain_ms, b_ms, b_by = kernel_vs_plain(
         torch, name, args, kw, repeat=3)
-    tol = ("exact" if name == "escalation" else
-           "bitwise (torch.equal)" if name == "battery" else
-           f"{SCAN_TOL} x max|w| = {SCAN_TOL * args[0].abs().max().item():.4g}"
-           " W")
+    tol = "exact" if name == "escalation" else "bitwise (torch.equal)"
     log(f"{name} [{B} rows x {n}]: max |kernel - plain| {err:.4g} (tol "
         f"{tol})")
     if not ok:
@@ -478,7 +490,8 @@ def check_scan(torch, cap, launches, name):
 # ---------------------------------------------------------------------------
 
 # each kernel's function name as the profiler reports it (a substring)
-DEVICE_NAME = {"monitor": "monitor_kernel", "escalation": "escalation_kernel"}
+DEVICE_NAME = {"monitor": "monitor_kernel", "escalation": "escalation_kernel",
+               "gpu_floor": "gpu_floor_kernel", "ballast": "ballast"}
 ESC_EDGE_N = 3000         # samples of the int32 range rule's edge rows
 
 
@@ -492,15 +505,20 @@ def event_device_us(e):
     return 0.0
 
 
+def kernel_device_total(events, name):
+    """(device ms in all, launches) of the kernels whose profiler key
+    contains ``name``, over ``events`` (``key_averages()``)."""
+    hits = [e for e in events if name in e.key and event_device_us(e) > 0]
+    return (sum(event_device_us(e) for e in hits) / 1e3,
+            sum(e.count for e in hits))
+
+
 def kernel_device_ms(events, name):
     """Device ms per launch of the kernels whose profiler key contains
     ``name``, over ``events`` (``key_averages()``): their summed device
     time over their summed count.  None if no such kernel ran."""
-    hits = [e for e in events if name in e.key and event_device_us(e) > 0]
-    count = sum(e.count for e in hits)
-    if not count:
-        return None
-    return sum(event_device_us(e) for e in hits) / count / 1e3
+    total, count = kernel_device_total(events, name)
+    return total / count if count else None
 
 
 def device_ms(torch, fn, name, repeat=20):
@@ -804,14 +822,340 @@ def ad_rows(kernels, ad):
 
 
 # ---------------------------------------------------------------------------
+# kernels B and G: each path's shapes, B's chain and merges, G's routes
+# ---------------------------------------------------------------------------
+
+FLOOR_OPS = 11            # f32 operations per sample, kernel B
+FLOOR_SEG = 64            # samples a lane walks in a tile (gpu_floor.cu kSeg)
+FLOOR_LANES = 32          # segments a tile: one warp's lanes
+FLOOR_REPS = 200          # passes of B's chain probe
+IDLE_STUCK = 2 ** 24      # where the f32 idle counter stops counting
+BALLAST_SEED = 15         # phase 15's burn
+BALLAST_SHAPE = (1024, 256, 256)
+
+
+def floor_calls_in(torch, control, api, w, dt, device="cuda"):
+    """Kernel B's calls in one ``watch_trace`` run of ``w`` on ``device``:
+    a clone of each call's ``(w, params)``, in order."""
+    from repro_torch.core.smoothing import gpu_floor
+    real = gpu_floor.gpu_floor_scan
+    calls = []
+
+    def spy(w_, params):
+        calls.append((w_.clone(), params.clone()))
+        return real(w_, params)
+    gpu_floor.gpu_floor_scan = spy
+    try:
+        run_watch(torch, control, api, w, dt, device)
+    finally:
+        gpu_floor.gpu_floor_scan = real
+    return calls
+
+
+def shape_counts(calls):
+    """{"B x n": calls of that shape}, in order of first call."""
+    out = {}
+    for w, _ in calls:
+        key = " x ".join(str(d) for d in w.shape)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def floor_targets(torch, w, params):
+    """Kernel B's targets t for ``w`` ``[B, n]``, every sample at once, as
+    the kernel takes them off the chain: the f32 idle counter in closed
+    form, min(i - last_active(i), 2^24) with last_active -1 before the
+    first active sample, then the floor and the cap."""
+    mpf, thresh, _, _, stop_n, cap = (c[:, None] for c in params.unbind(-1))
+    idx = torch.arange(w.shape[1], device=w.device)
+    last = torch.where(w > thresh, idx, -1).cummax(dim=1).values
+    idle = (idx - last).clamp(max=IDLE_STUCK).to(torch.float32)
+    floor = torch.where(idle <= stop_n, mpf, torch.zeros_like(mpf))
+    return torch.minimum(torch.maximum(w, floor), cap)
+
+
+def merge_profile(torch, w, params, out, seg=FLOOR_SEG):
+    """How kernel B's speculative walks meet the true one: each segment of
+    ``seg`` samples (a lane's share of a tile) walked from its own first
+    target, against ``out``, the true outputs.  A segment merges at the
+    first step where the two agree bit for bit (from there on they
+    agree).  Returns the segment count, how many merge at step 0, the
+    latest merge among those that do, and how many do not merge within
+    their segment (each of those costs the kernel further rounds)."""
+    import torch.nn.functional as F
+    ru, rd = params[:, 2:3, None], params[:, 3:4, None]
+    B, n = w.shape
+    S = -(-n // seg)
+    pad = S * seg - n
+    t = F.pad(floor_targets(torch, w, params), (0, pad)).reshape(B, S, seg)
+    true = F.pad(out, (0, pad)).reshape(B, S, seg).view(torch.int32)
+    live = (torch.arange(S * seg, device=w.device) < n).reshape(1, S, seg)
+    o = t[:, :, :1]
+    first = torch.full((B, S, 1), seg, dtype=torch.int64, device=w.device)
+    for m in range(seg):
+        o = torch.minimum(torch.maximum(t[:, :, m:m + 1], o - rd), o + ru)
+        meet = (o.view(torch.int32) == true[:, :, m:m + 1]) & live[:, :, m:m + 1]
+        first = torch.where(meet & (first == seg), m, first)
+    merged = first < seg
+    return {"segments": B * S, "merged_at_0": int((first == 0).sum()),
+            "longest_merge": int(first[merged].max()) if merged.any() else None,
+            "unmerged": int((~merged).sum())}
+
+
+def floor_floors(ns_step, n, merges, seg=FLOOR_SEG, lanes=FLOOR_LANES):
+    """Kernel B's chain floors for a row of ``n`` samples at ``ns_step``
+    ns a step, in ms: serial, n steps; segmented, each tile's lane walks
+    its ``seg`` samples and then, in the first round, to its latest merge
+    (``merges`` from ``merge_profile``).  None for the segmented floor if a
+    segment did not merge: then rounds follow, up to one a segment."""
+    serial = ns_step * n / 1e6
+    if merges["unmerged"] or merges["longest_merge"] is None:
+        return serial, None
+    tiles = -(-n // (seg * lanes))
+    return serial, ns_step * tiles * (seg + merges["longest_merge"] + 1) / 1e6
+
+
+def floor_chain(torch, w, params, reps=FLOOR_REPS):
+    """B's chain alone (``gpu_floor_step_cycles`` in ``gpu_floor.cu``): lane
+    0 walks o over the targets of the first 2048 samples of row 0 (cut to
+    a multiple of 4), already in shared memory, ``reps`` times, as the
+    kernel's walks do.  Returns (SM cycles a step, ns a step by CUDA
+    events)."""
+    import ctypes
+    from repro_torch.core.smoothing import gpu_floor
+    from repro_torch.kernels.build import ptr, stream_of
+    fn = ctypes.CDLL(str(gpu_floor.GPU_FLOOR_KERNEL.library_path())
+                     ).gpu_floor_step_cycles
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cycles = torch.zeros(1, dtype=torch.int64, device=w.device)
+    sink = torch.zeros(1, device=w.device)
+    n = w.shape[-1]
+
+    def run():
+        err = fn(ptr(w), ptr(params), n, reps, ptr(cycles), ptr(sink),
+                 stream_of(w))
+        if err:
+            raise RuntimeError(f"gpu_floor_step_cycles: CUDA error {err}")
+    ms = cuda_ms(torch, run, 3)
+    return chain_step(cycles.item(), ms,
+                      reps * (min(n, FLOOR_SEG * FLOOR_LANES) // 4 * 4))
+
+
+def floor_plain(torch, w, params, on_cpu):
+    """B's plain version on ``w`` (on the CPU if ``on_cpu``), back on
+    ``w``'s device, and its ms."""
+    from repro_torch.core.smoothing import gpu_floor
+    if not on_cpu:
+        ref, ms = timed_once(
+            torch, lambda: gpu_floor.gpu_floor_scan_plain(w, params))
+        return ref, ms
+    t0 = time.perf_counter()
+    ref = gpu_floor.gpu_floor_scan_plain(w.cpu(), params.cpu())
+    return ref.to(w.device), (time.perf_counter() - t0) * 1e3
+
+
+def floor_case(torch, w, params, tag, reps=20):
+    """Kernel B at one call: event and device ms, its bound, and how its
+    segments merge, against its own outputs (the gates that hold those
+    equal to the plain version's are elsewhere)."""
+    from repro_torch.core.smoothing import gpu_floor
+    run = (lambda: gpu_floor.gpu_floor_scan(w, params))
+    got = run()
+    row = {"shape": list(w.shape),
+           "merges": merge_profile(torch, w, params, got),
+           "event_ms": cuda_ms(torch, run, reps),
+           "device_ms": device_ms(torch, run, DEVICE_NAME["gpu_floor"],
+                                  repeat=reps)}
+    row["bound_ms"], row["bound_by"] = bound(nbytes(w, params, got),
+                                             FLOOR_OPS * w.numel())
+    dev = row["device_ms"]
+    log(f"gpu_floor {tag} {row['shape']}: {row['event_ms']:.4g} ms by CUDA "
+        f"events, " + ("device not measured" if dev is None else
+                       f"{dev:.4g} ms on the device")
+        + f", bound {row['bound_ms']:.4g} ms by {row['bound_by']}; merges "
+        + json.dumps(row["merges"]))
+    return row
+
+
+def floor_rows(torch, kind, n, seed):
+    """Seeded rows no path gives kernel B.  "no_merge": a square wave
+    between 200 and 1400 W against ramps of 3 mW a step, so no walk
+    reaches its target and no segment's walks meet.  "edges": samples on
+    the threshold exactly (not active), a fractional stop delay, a cap
+    below the floor and ramps of 0: each output is the row's first sample
+    and each speculative walk holds its first target."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    i = np.arange(n)
+    if kind == "no_merge":
+        w = np.where((i // 997) % 2 == 0, 1400.0, 200.0) + rng.uniform(
+            -5.0, 5.0, n)
+        params = [700.0, 350.0, 0.003, 0.003, 20.5, 1500.0]
+    else:
+        w = rng.choice(np.array([100.0, 350.0, 600.0, 900.0]), n)
+        w[::7] = 350.0
+        params = [700.0, 350.0, 0.0, 0.0, 12.75, 650.0]
+    return (torch.as_tensor(w.astype(np.float32), device=DEVICE)[None],
+            torch.tensor([params], dtype=torch.float32, device=DEVICE))
+
+
+def floor_measure(torch, study_call, loop_call, replay_calls,
+                  replay_plain=False):
+    """Kernel B at the Study's, the canonical loop's and the 600 s
+    replay's shapes: event and device ms, bound and merges, and with
+    ``replay_plain`` every replay call bitwise against the plain version
+    (their rows stacked, padded at the end, in one call on the CPU); then
+    its chain probe, where the library has one, and each shape's floors."""
+    import ctypes
+    import torch.nn.functional as F
+    from repro_torch.core.smoothing import gpu_floor
+    longest = max(replay_calls, key=lambda c: c[0].numel())
+    out = {"study": floor_case(torch, *study_call, "study"),
+           "loop": floor_case(torch, *loop_call, "loop"),
+           "replay": floor_case(torch, *longest, "replay, longest call")}
+    rep = {"calls": len(replay_calls), "shapes": shape_counts(replay_calls)}
+    if replay_plain:
+        # every row of every call, padded at the end to the longest: the
+        # plain version's outputs on a row's samples do not depend on
+        # what follows them
+        n = max(w.shape[1] for w, _ in replay_calls)
+        stack = torch.cat([F.pad(w, (0, n - w.shape[1]))
+                           for w, _ in replay_calls])
+        params = torch.cat([p for _, p in replay_calls])
+        ref, plain_ms = floor_plain(torch, stack, params, on_cpu=True)
+        equal, r0 = True, 0
+        for w, p in replay_calls:
+            got = gpu_floor.gpu_floor_scan(w, p)
+            equal = equal and torch.equal(
+                got, ref[r0:r0 + w.shape[0], :w.shape[1]])
+            r0 += w.shape[0]
+        rep.update({"bitwise": equal, "plain_ms_stacked_cpu": plain_ms,
+                    "stacked_rows": r0})
+        log(f"gpu_floor replay: {len(replay_calls)} calls "
+            + json.dumps(rep["shapes"]) + f"; every call bitwise {equal} "
+            f"against the plain version ({r0} rows stacked on the CPU, "
+            f"{plain_ms:.0f} ms)")
+    out["replay_calls"] = rep
+    lib = ctypes.CDLL(str(gpu_floor.GPU_FLOOR_KERNEL.library_path()))
+    if hasattr(lib, "gpu_floor_step_cycles"):
+        w, p = study_call
+        cyc, ns = floor_chain(torch, w[:1].contiguous(), p[:1].contiguous())
+        floors = {}
+        for tag in ("study", "loop", "replay"):
+            serial, seg = floor_floors(ns, out[tag]["shape"][1],
+                                       out[tag]["merges"])
+            floors[tag] = {"serial_ms": serial, "segmented_ms": seg}
+        out["chain"] = {"cycles_per_step": cyc, "ns_per_step": ns,
+                        "floor_ms": floors}
+        log(f"gpu_floor chain alone: {cyc:.1f} SM cycles a step, {ns:.3f} "
+            f"ns a step; floors (ms) " + json.dumps(floors))
+    return out
+
+
+FLOOR_ROW_N = 6151        # the seeded rows' length: a tile and a ragged one
+
+
+def floor_seeded(torch):
+    """Kernel B on the two seeded rows of ``floor_rows`` (one call, [2 x
+    6151]: 16-byte copies do not apply, and the last tile is ragged),
+    bitwise against the plain version on the CPU; then the worst case
+    timed at the Study's shape, every row the no-merge row."""
+    from repro_torch.core.smoothing import gpu_floor
+    rows = [floor_rows(torch, kind, FLOOR_ROW_N, 22)
+            for kind in ("no_merge", "edges")]
+    w = torch.cat([r[0] for r in rows])
+    p = torch.cat([r[1] for r in rows])
+    got = gpu_floor.gpu_floor_scan(w, p)
+    ref, _ = floor_plain(torch, w, p, on_cpu=True)
+    out = {"shape": list(w.shape), "bitwise": torch.equal(got, ref),
+           "merges": {kind: merge_profile(torch, w[i:i + 1], p[i:i + 1],
+                                          ref[i:i + 1])
+                      for i, kind in enumerate(("no_merge", "edges"))}}
+    log(f"gpu_floor seeded rows [2 x {FLOOR_ROW_N}] (no merge; ties, "
+        f"fractional stop delay, cap < floor, ramps 0): bitwise "
+        f"{out['bitwise']} against the plain version; merges "
+        + json.dumps(out["merges"]))
+    if not out["bitwise"]:
+        raise AssertionError("kernel B differs from its plain version on "
+                             "the seeded rows")
+    wn, pn = floor_rows(torch, "no_merge", 90000, 23)
+    out["worst_case"] = floor_case(torch, wn.repeat(192, 1).contiguous(),
+                                   pn.repeat(192, 1).contiguous(),
+                                   "worst case (no segment merges)")
+    return out
+
+
+def floor_row(kernels, b_extra, replay_launches):
+    """B's row of the kernels line: its three paths' shapes with their
+    event and device ms and merges, the replay's calls, the seeded rows,
+    the worst case, its chain and floors, and its registers."""
+    from repro_torch.core.smoothing.gpu_floor import GPU_FLOOR_KERNEL
+    row = next(k for k in kernels if k["name"] == "gpu_floor_scan")
+    row.update({
+        "device_ms": b_extra["study"]["device_ms"],
+        "shapes": {t: b_extra[t] for t in ("study", "loop", "replay")},
+        "replay_calls": dict(b_extra["replay_calls"],
+                             launches=replay_launches),
+        "seeded_rows": b_extra["seeded"],
+        "chain_cycles_per_step": b_extra["chain"]["cycles_per_step"],
+        "chain_ns_per_step": b_extra["chain"]["ns_per_step"],
+        "chain_floor_ms": b_extra["chain"]["floor_ms"],
+        "ptxas": ptxas_summary(GPU_FLOOR_KERNEL)})
+    row["limited_by"] = ("the chain of o: rounds of a tile's segments until "
+                         "their walks meet")
+
+
+def ballast_timing(torch, a, b, n_iter, route=None):
+    """Kernel G on ``(a, b, n_iter)``: event and device ms and TFLOP/s,
+    through ``ballast`` or, with ``route``, that route's launch."""
+    from repro_torch.kernels.ballast import ballast, ops
+    run = ((lambda: ballast.ballast(a, b, n_iter)) if route is None else
+           (lambda: ballast.launch_route(a, b, n_iter, 0.999, route)))
+    ev = cuda_ms(torch, run, 3)
+    dev = device_ms(torch, run, DEVICE_NAME["ballast"])
+    flops = ops.ballast_flops(a.shape[0], a.shape[1], b.shape[1], n_iter)
+    return {"shape": list(a.shape) + [b.shape[1]], "n_iter": n_iter,
+            "route": route or (ballast.ballast_route(b.shape[1])
+                               if hasattr(ballast, "ballast_route")
+                               else "stream"),
+            "event_ms": ev, "device_ms": dev,
+            "tflops": flops / (dev or ev) * 1e-9}
+
+
+def ballast_measure(torch):
+    """Kernel G at phase 15's burn, timed alone (and, where the library
+    has two routes, its streaming route at the same shape)."""
+    from repro_torch.kernels.ballast import ballast, ops
+    m, k, n = BALLAST_SHAPE
+    n_iter = max(int(BALLAST_GFLOPS * 1e9 / (2.0 * m * k * n)), 1)
+    a, b = ops._tiles(torch.Generator(device=DEVICE).manual_seed(
+        BALLAST_SEED), m, k, n, torch.float32, DEVICE)
+    out = {"burn": ballast_timing(torch, a, b, n_iter)}
+    if hasattr(ballast, "launch_route"):
+        out["burn_stream"] = ballast_timing(torch, a, b, n_iter, "stream")
+    for tag, r in out.items():
+        dev = r["device_ms"]
+        log(f"ballast {tag} {r['shape']} x{n_iter} ({r['route']} route): "
+            f"{r['event_ms']:.4g} ms by CUDA events, "
+            + ("device not measured" if dev is None else
+               f"{dev:.4g} ms on the device")
+            + f", {r['tflops']:.2f} TFLOP/s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the Study, profiled, and its CPU subset
 # ---------------------------------------------------------------------------
 
-def profile_device(torch, run, top_n=12):
+def profile_device(torch, run, top_n=12, totals=None):
     """Run ``run()`` once under ``torch.profiler``: its wall time, the
     device busy time inside it, and the ``top_n`` device operations as
     ``(ms, calls, name)``.  Busy over this same run's traced wall is the
-    device busy share."""
+    device busy share.  ``totals``, a dict of kernel names, gets each
+    name's ``kernel_device_total`` in this run."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -834,6 +1178,8 @@ def profile_device(torch, run, top_n=12):
         return 0.0
 
     events = [e for e in events if dev_us(e) > 0]
+    for name in totals or {}:
+        totals[name] = kernel_device_total(events, name)
     busy = sum(dev_us(e) for e in events) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:top_n]
     return wall, busy, [(dev_us(e) / 1e3, e.count, e.key) for e in top]
@@ -1014,8 +1360,8 @@ def control_phase(torch, control, api, build, w, dt, tag):
     if ([(r.tick, r.action) for r in cold_log.records]
             != [(r.tick, r.action) for r in warm_log.records]):
         raise AssertionError(f"[{tag}] cold and warm timelines differ")
-    return {"cold_log": cold_log, "counts": counts, "capture": cap,
-            "wall": warm}
+    return {"cold_log": cold_log, "warm_log": warm_log, "counts": counts,
+            "capture": cap, "wall": warm}
 
 
 # ---------------------------------------------------------------------------
@@ -1808,41 +2154,79 @@ def sliding_v1_row(torch, xseg, tabs, got, x, dt, path_launches):
 
 def ballast_case(torch, a, b, n_iter, tag):
     """Kernel G against its plain version (and, in f32, a float64 chain) on
-    one (a, b, n_iter): the relative errors of max |plain|."""
-    from repro_torch.kernels.ballast import ballast
+    one (a, b, n_iter): the relative errors of max |plain|, its route, ms
+    and TFLOP/s."""
+    from repro_torch.kernels.ballast import ballast, ops
     from repro_torch.kernels.ballast.ref import ballast_ref
     got = ballast.ballast(a, b, n_iter)
     plain = ballast.ballast_plain(a, b, n_iter)
     scale = plain.abs().max().item()
     rel = (got - plain).abs().max().item() / scale
-    row = {"case": tag, "shape": list(a.shape) + [b.shape[1]],
+    ms = cuda_ms(torch, lambda: ballast.ballast(a, b, n_iter), 3)
+    M, N = a.shape[0], b.shape[1]
+    row = {"case": tag, "shape": list(a.shape) + [N],
            "dtype": "/".join(str(t.dtype).split(".")[-1] for t in (a, b)),
-           "n_iter": n_iter,
+           "n_iter": n_iter, "route": ballast.ballast_route(N),
            "max_abs_err": (got - plain).abs().max().item(), "rel_err": rel,
-           "bitwise": torch.equal(got, plain)}
+           "bitwise": torch.equal(got, plain), "ms": ms,
+           "tflops": ops.ballast_flops(M, a.shape[1], N, n_iter) / ms * 1e-9}
     if a.dtype == torch.float32:
         f64 = ballast_ref(a, b, n_iter, dtype=torch.float64)
         row["f64_rel_err"] = (got.double() - f64).abs().max().item() / scale
         row["plain_f64_rel_err"] = ((plain.double() - f64).abs().max().item()
                                     / scale)
-    log(f"ballast {tag} {row['shape']} {row['dtype']} x{n_iter}: vs plain "
-        f"{rel:.3g} of max |plain| (tol {BALLAST_RTOL}, bitwise "
-        f"{row['bitwise']})" + (f"; vs float64 chain {row['f64_rel_err']:.3g}"
-                                f" (plain {row['plain_f64_rel_err']:.3g})"
-                                if "f64_rel_err" in row else ""))
+    log(f"ballast {tag} {row['shape']} {row['dtype']} x{n_iter} (route "
+        f"{row['route']}): vs plain {rel:.3g} of max |plain| (tol "
+        f"{BALLAST_RTOL}, bitwise {row['bitwise']}); {ms:.4g} ms, "
+        f"{row['tflops']:.2f} TFLOP/s"
+        + (f"; vs float64 chain {row['f64_rel_err']:.3g} (plain "
+           f"{row['plain_f64_rel_err']:.3g})" if "f64_rel_err" in row else ""))
     if rel > BALLAST_RTOL or not torch.isfinite(got).all():
         raise AssertionError(f"kernel G disagrees with its plain version "
                              f"({tag})")
     return row, got, plain
 
 
+# one shape a route beside the burn's N = 256 (route "cluster"): [M x N]
+# by [N x N], b = 0.999 Q
+BALLAST_ROUTE_SHAPES = ((1024, 128), (512, 384))
+
+
+def dense_multiplier(torch, N, seed):
+    """0.999 Q for a random orthogonal Q [N x N] (numpy, seeded), f32 on the
+    card."""
+    import numpy as np
+    q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((N, N)))
+    return torch.as_tensor(0.999 * q, dtype=torch.float32, device=DEVICE)
+
+
+def ballast_geometry(torch):
+    """Kernel G's routes as built: for each cluster geometry (N, c) its
+    dynamic shared memory a block and how many clusters the card holds
+    at once; and each function's registers from ``ptxas``."""
+    import ctypes
+    from repro_torch.kernels.ballast import ballast
+    lib = ctypes.CDLL(str(ballast.BALLAST_KERNEL.library_path()))
+    lib.ballast_cluster_smem.restype = ctypes.c_longlong
+    lib.ballast_cluster_occupancy.restype = ctypes.c_int
+    geo = {f"N={n}, c={c}": {"smem_bytes": lib.ballast_cluster_smem(n, c),
+                             "active_clusters":
+                                 lib.ballast_cluster_occupancy(n, c)}
+           for n, c in sorted(ballast.CLUSTER_SIZE.items())}
+    regs = {name: v["registers"] for name, v in
+            ptxas_summary(ballast.BALLAST_KERNEL).items()}
+    return {"cluster": geo, "registers": regs}
+
+
 def ballast_row(torch, gen_seed, checksum, path_launches):
     """Kernel G: the burn's a and b drawn again from its seed, the dense and
-    bf16 cases, and its times against the bound and a matmul chain."""
+    bf16 cases, one shape a route, the burn on the streaming route against
+    the cluster route, and its times against the bound and a matmul
+    chain."""
     import numpy as np
     from repro_torch.kernels.ballast import ballast, ops
     from repro_torch.kernels.ballast.ref import ballast_ref
-    m, k, n = 1024, 256, 256
+    m, k, n = BALLAST_SHAPE
     n_iter = max(int(BALLAST_GFLOPS * 1e9 / (2.0 * m * k * n)), 1)
     a, b = ops._tiles(torch.Generator(device=DEVICE).manual_seed(gen_seed),
                       m, k, n, torch.float32, DEVICE)
@@ -1853,9 +2237,7 @@ def ballast_row(torch, gen_seed, checksum, path_launches):
             > BALLAST_RTOL * out.abs().sum().item() * 1e-9):
         raise AssertionError("ballast_burn's checksum is not its kernel's, "
                              "or disagrees with the plain version's")
-    rng = np.random.default_rng(15)
-    q, _ = np.linalg.qr(rng.standard_normal((k, n)))
-    dense = torch.as_tensor(0.999 * q, dtype=torch.float32, device=DEVICE)
+    dense = dense_multiplier(torch, k, 15)
     cases = [burn,
              ballast_case(torch, a, dense, BALLAST_CHECK_ITERS,
                           "b = 0.999 Q")[0],
@@ -1865,16 +2247,46 @@ def ballast_row(torch, gen_seed, checksum, path_launches):
                           BALLAST_CHECK_ITERS, "bf16 b = 0.999 Q")[0],
              ballast_case(torch, a, dense.bfloat16(), BALLAST_CHECK_ITERS,
                           "f32 a, bf16 b = 0.999 Q")[0]]
+    rng = np.random.default_rng(16)
+    for M, N in BALLAST_ROUTE_SHAPES:
+        a_n = torch.as_tensor((rng.standard_normal((M, N)) / np.sqrt(N))
+                              .astype(np.float32), device=DEVICE)
+        cases.append(ballast_case(torch, a_n, dense_multiplier(torch, N, N),
+                                  BALLAST_CHECK_ITERS,
+                                  f"route {ballast.ballast_route(N)}, "
+                                  f"b = 0.999 Q")[0])
+    routes = {c["route"] for c in cases}
+    if routes != {"cluster", "stream"}:
+        raise AssertionError(f"kernel G's cases ran the routes {routes}")
+    # the burn on the streaming route, against the cluster route's output
+    stream = ballast.launch_route(a, b, n_iter, 0.999, "stream")
+    stream_rel = (stream - plain).abs().max().item() / plain.abs().max().item()
+    stream_equal = torch.equal(stream, out)
+    log(f"ballast burn on route stream: vs plain {stream_rel:.3g} of max "
+        f"|plain| (tol {BALLAST_RTOL}); bitwise equal to route cluster "
+        f"{stream_equal}")
+    if stream_rel > BALLAST_RTOL:
+        raise AssertionError("kernel G's streaming route disagrees with its "
+                             "plain version on the burn")
+    timing = {"cluster": ballast_timing(torch, a, b, n_iter),
+              "stream": ballast_timing(torch, a, b, n_iter, "stream")}
     ms = cuda_ms(torch, lambda: ballast.ballast(a, b, n_iter), 3)
     _, plain_ms = timed_once(torch, lambda: ballast.ballast_plain(a, b,
                                                                   n_iter))
     library_ms = cuda_ms(torch, lambda: ballast_ref(a, b, n_iter), 3)
     flops = ops.ballast_flops(m, k, n, n_iter)
     b_ms, b_by = bound(nbytes(a, b, out), flops)
+    geometry = ballast_geometry(torch)
     log(f"ballast_burn(gflops={BALLAST_GFLOPS:g}): n_iter {n_iter}, "
         f"{flops:.6g} FLOPs, checksum {checksum:.9g} (plain {plain_sum:.9g});"
-        f" kernel {ms:.4g} ms = {flops / ms * 1e-9:.2f} TFLOP/s, bound "
-        f"{b_ms:.4g} ms by {b_by}")
+        f" kernel {ms:.4g} ms = {flops / ms * 1e-9:.2f} TFLOP/s (device "
+        f"{timing['cluster']['device_ms']} ms; route stream "
+        f"{timing['stream']['device_ms']} ms), bound {b_ms:.4g} ms by "
+        f"{b_by}; geometry " + json.dumps(geometry))
+    for t in timing.values():
+        log(f"ballast burn, route {t['route']}: {t['event_ms']:.4g} ms by "
+            f"CUDA events, {t['device_ms']} ms on the device, "
+            f"{t['tflops']:.2f} TFLOP/s")
     return {"name": "ballast", "route": "cuda",
             "source": "src/repro_torch/kernels/ballast/csrc/ballast.cu",
             "replaces": "src/repro/kernels/ballast/ballast.py:33",
@@ -1882,11 +2294,16 @@ def ballast_row(torch, gen_seed, checksum, path_launches):
             "tolerance": f"rel {BALLAST_RTOL} of max |plain|",
             "shape": [m, k, n], "n_iter": n_iter, "flops": flops,
             "checksum": checksum, "tflops": flops / ms * 1e-9, "ms": ms,
+            "device_ms": timing["cluster"]["device_ms"],
+            "kernel_route": burn["route"], "routes": timing,
+            "stream_route_on_burn": {"rel_err": stream_rel,
+                                     "bitwise_vs_cluster": stream_equal},
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms,
             "library_note": "the n_iter-step loop of torch.matmul (TF32 off)"
                             " and the decay on the same a, b",
-            "cases": cases, "ptxas": ptxas_lines(ballast.BALLAST_KERNEL)}
+            "cases": cases, "geometry": geometry,
+            "ptxas": ptxas_lines(ballast.BALLAST_KERNEL)}
 
 
 def entry_point_phase(torch, build, w, dt, w_long, dt_long):
@@ -1947,15 +2364,30 @@ def entry_point_phase(torch, build, w, dt, w_long, dt_long):
 
 # ---------------------------------------------------------------------------
 
+def loop_summary(clog):
+    """A control run's dispatch latencies (p50 and max, ms) and detection
+    lead (s)."""
+    lats = clog.dispatch_latencies()
+    return {"dispatches": len(lats),
+            "dispatch_p50_ms": pctl(lats, 50) * 1e3 if lats else None,
+            "dispatch_max_ms": max(lats) * 1e3 if lats else None,
+            "detection_lead_s": clog.summary()["detection_lead_s"]}
+
+
 def ad_main(torch) -> int:
-    """``--ad``: the walls that kernels A and D sit on, and the two kernels
-    alone, for comparing two trees on one card (run the script of the
-    newer tree from the root of each): the warm Study, the canonical loop
-    and the 600 s replay with their device busy shares (no gate beyond
-    the loop's invariants), then ``ad_measure`` at the Study's and a
-    tick's shapes.  Prints one ``{"ad": ...}`` JSON line."""
+    """``--ad``: the walls that kernels A, B, D and G sit on, and the four
+    kernels alone, for comparing two trees on one card (run the script of
+    the newer tree from the root of each): the warm Study, the canonical
+    loop and the 600 s replay with their device busy shares, the two
+    loops' dispatch latencies and detection leads, and B's device time in
+    the replay (no gate beyond the loop's invariants), then
+    ``ad_measure`` at the Study's and a tick's shapes, ``floor_measure``
+    at B's three paths' shapes (bitwise against the plain version at the
+    Study's and the loop's) and ``ballast_measure`` at phase 15's burn.
+    Prints one ``{"ad": ...}`` JSON line."""
     from repro_torch import api, control
     from repro_torch.kernels import build
+    from repro_torch.kernels.ballast import ballast  # noqa: F401
     t_start = time.perf_counter()
     out = {"device": torch.cuda.get_device_name(0), "smi": nvidia_smi_line(),
            "tree": HERE, "build_s": build.build_all()}
@@ -1976,15 +2408,29 @@ def ad_main(torch) -> int:
     wall, busy, _ = profile_device(
         torch, lambda: run_watch(torch, control, api, w, dt, "cuda"))
     out["loop"] = {"warm_s": canon["wall"], "profiled_s": wall,
-                   "busy_s": busy, "busy_share": busy / wall}
+                   "busy_s": busy, "busy_share": busy / wall,
+                   **loop_summary(canon["warm_log"])}
     w_long, dt_long = control_trace(control, long=True)
-    _, long_wall = run_watch(torch, control, api, w_long, dt_long, "cuda")
+    long_log, long_wall = run_watch(torch, control, api, w_long, dt_long,
+                                    "cuda")
+    totals = {DEVICE_NAME["gpu_floor"]: None}
     wall, busy, _ = profile_device(
         torch, lambda: run_watch(torch, control, api, w_long, dt_long,
-                                 "cuda"))
+                                 "cuda"), totals=totals)
+    b_ms, b_n = totals[DEVICE_NAME["gpu_floor"]]
     out["replay_600s"] = {"wall_s": long_wall, "profiled_s": wall,
-                          "busy_s": busy, "busy_share": busy / wall}
+                          "busy_s": busy, "busy_share": busy / wall,
+                          "gpu_floor_device_ms": b_ms,
+                          "gpu_floor_launches": b_n, **loop_summary(long_log)}
+    log(f"[watch_trace 600 s] kernel B: {b_n} launches, {b_ms:.4g} ms on "
+        f"the device in all, of {busy * 1e3:.4g} ms busy")
     out.update(ad_measure(torch, cap.args, canon["capture"].args))
+    replay_calls = floor_calls_in(torch, control, api, w_long, dt_long)
+    _, study_b, _ = cap.args["gpu_floor"]
+    _, loop_b, _ = canon["capture"].args["gpu_floor"]
+    out["gpu_floor"] = floor_measure(torch, study_b, loop_b, replay_calls,
+                                     replay_plain=False)
+    out["ballast"] = ballast_measure(torch)
     out["total_s"] = time.perf_counter() - t_start
     print(json.dumps({"ad": out}), flush=True)
     return 0
@@ -2153,6 +2599,17 @@ def main() -> int:
     check_chunked(torch, w, dt)
     c_extra, c_cycles, c_ns, c_ieee = battery_phase(
         torch, canon["capture"].args["battery"], w_long, dt_long)
+    # kernel B at its three paths' shapes (the replay's calls captured
+    # from a run of their own, every one bitwise against the plain
+    # version), on two seeded rows, in its worst case, and its chain alone
+    b_extra = floor_measure(
+        torch, cap.args["gpu_floor"][1], canon["capture"].args["gpu_floor"][1],
+        floor_calls_in(torch, control, api, w_long, dt_long),
+        replay_plain=True)
+    if not b_extra["replay_calls"]["bitwise"]:
+        raise AssertionError("kernel B differs from its plain version on "
+                             "the 600 s replay's calls")
+    b_extra["seeded"] = floor_seeded(torch)
     # kernels A and D at the Study's and a tick's shapes: device time, A
     # against E, D's chain alone, its int32 edge and chunked carry
     ad = ad_measure(torch, cap.args, canon["capture"].args)
@@ -2177,6 +2634,7 @@ def main() -> int:
         if nm in path_rows:
             k["watch_trace_call"] = path_rows[nm]
     ad_rows(kernels, ad)
+    floor_row(kernels, b_extra, long_counts["gpu_floor"])
     from repro_torch.core.smoothing.battery import BATTERY_KERNEL
     c_row = next(k for k in kernels if k["name"] == "battery_scan")
     c_shapes = {"study": c_row["shape"],

@@ -13,7 +13,10 @@ held against the JAX reference on the same numpy inputs.
 (c) ``ballast_burn``'s ``n_iter``, FLOP count and checksum against the
     reference's on the reference's own ``_tiles(PRNGKey(0))`` arrays;
 (d) the same generator seed gives the same checksum, and without a card
-    the entry point raises unless ``device="cpu"`` is asked for.
+    the entry point raises unless ``device="cpu"`` is asked for;
+(e) the kernel's own summation order (both routes: one FFMA a product, k
+    ascending) emulated on the CPU against the plain version, and the
+    wrapper's choice of route by width, with the limits it raises at.
 """
 import math
 
@@ -180,3 +183,77 @@ def test_ballast_burn_without_a_card_raises_unless_cpu_is_asked(
         tops.ballast_burn(torch.Generator(), gflops=0.02)
     assert torch.isfinite(tops.ballast_burn(torch.Generator(), gflops=0.02,
                                             device="cpu"))
+
+
+def _fma_chain(a, b, n_iter, decay=0.999):
+    """Kernel G's summation order on the CPU: every output is
+    acc = fma(C[r, k], B[k, j], acc) for k ascending from 0, then
+    acc * decay, in float32 (the fused multiply-add emulated in float64:
+    the product of two float32s is exact there, and the sum is rounded to
+    float64 then float32)."""
+    c = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32).astype(np.float64)
+    for _ in range(n_iter):
+        acc = np.zeros((c.shape[0], b.shape[1]), np.float32)
+        for k in range(b.shape[0]):
+            acc = (acc.astype(np.float64)
+                   + c[:, k:k + 1].astype(np.float64) * b[k:k + 1]
+                   ).astype(np.float32)
+        c = (acc * np.float32(decay)).astype(np.float32)
+    return c
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_kernel_summation_order_matches_plain(dense):
+    """Both of kernel G's routes sum each output's products in one order,
+    one FFMA a product, k ascending; that order, at [64 x 64] . [64 x 64]
+    for 32 steps, stays within rel 1e-5 of max |plain| of the plain
+    version's matmul chain (which sums in its own order)."""
+    _, _, ta, tb_ = _operands(64, 64, 64, "float32", seed=9, dense=dense)
+    got = _fma_chain(ta.numpy(), tb_.numpy(), 32)
+    plain = tb.ballast_plain(ta, tb_, 32).numpy()
+    assert np.abs(got - plain).max() <= 1e-5 * np.abs(plain).max()
+
+
+def test_ballast_route_by_width_and_the_kernels_limits():
+    """The wrapper's routes: "cluster" where b's column slices fit a
+    cluster's shared memory, "stream" for every other N the kernel takes,
+    N = 1024 included; it raises where the kernel raised before: N past
+    1024, or not a multiple of 4."""
+    assert tb.ballast_route(256) == "cluster"
+    assert {tb.ballast_route(n) for n in tb.CLUSTER_SIZE} == {"cluster"}
+    for n in (4, 100, 192, 384, 512, 1020, 1024):
+        assert tb.ballast_route(n) == "stream"
+    for n in (1028, 2048, 130, 1022):
+        with pytest.raises(ValueError, match="N <= 1024 and a multiple of 4"):
+            tb.ballast_route(n)
+    # on the CPU the wrapper still takes N = 1024 (its plain version)
+    a = torch.zeros((256, 1024))
+    got = tb.ballast(a, torch.eye(1024) * 0.999, 1)
+    assert got.shape == (256, 1024)
+
+
+@pytest.mark.parametrize("n,route,cluster", [(256, "cluster", 2),
+                                             (128, "cluster", 2),
+                                             (64, "cluster", 1),
+                                             (384, "stream", 0),
+                                             (1024, "stream", 0)])
+def test_launch_route_hands_the_kernel_its_route(monkeypatch, n, route,
+                                                 cluster):
+    """``launch_route`` passes the route's cluster size (0 for "stream")
+    and the operands' shapes and types to the C entry point."""
+    seen = []
+    monkeypatch.setattr(tb.BALLAST_KERNEL, "launch",
+                        lambda *args: seen.append(args))
+    monkeypatch.setattr(tb, "stream_of", lambda t: None)
+    a = torch.zeros((96, n), dtype=torch.bfloat16)
+    b = torch.zeros((n, n))
+    out = tb.launch_route(a, b, 7, 0.999, tb.ballast_route(n))
+    assert out.shape == (96, n) and out.dtype == torch.float32
+    (args,) = seen
+    M, N, n_iter, decay, a_bf16, b_bf16, c = args[3:10]
+    assert (M, N, n_iter, a_bf16, b_bf16, c) == (96, n, 7, 1, 0, cluster)
+    assert abs(decay - 0.999) < 1e-12
+    assert tb.ballast_route(n) == route
+    with pytest.raises(ValueError, match="no route"):
+        tb.launch_route(a, b, 7, 0.999, "tensor-cores")

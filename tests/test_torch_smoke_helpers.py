@@ -175,3 +175,163 @@ def test_device_ms_profiles_again_then_reports_not_measured(
     assert len(calls) == 1 + 20 * len(profiles)
     if len(profiles) == 3:
         assert profiles[2].activities == [torch.profiler.ProfilerActivity.CUDA]
+
+
+def test_kernel_device_total_sums_time_and_launches():
+    events = [
+        _Event("(anonymous namespace)::gpu_floor_kernel(float const*)",
+               600.0, 30),
+        _Event("void (anonymous namespace)::ballast_cluster_kernel<256, 2>",
+               900.0, 3),
+        _Event("ballast_kernel<float, float>", 300.0, 1),
+        _Event("gpu_floor_kernel_idle", 0.0, 2)]
+    assert chip_smoke.kernel_device_total(events, "gpu_floor_kernel") == (
+        0.6, 30)
+    assert chip_smoke.kernel_device_total(events, "ballast") == (1.2, 4)
+    assert chip_smoke.kernel_device_total(events, "sliding") == (0.0, 0)
+
+
+def test_shape_counts_keeps_first_call_order():
+    import torch
+    calls = [(torch.zeros(24, 8), None), (torch.zeros(1, 5), None),
+             (torch.zeros(24, 8), None)]
+    assert chip_smoke.shape_counts(calls) == {"24 x 8": 2, "1 x 5": 1}
+
+
+def _floor_params(rows, params):
+    import torch
+    return torch.tensor([params] * rows, dtype=torch.float32)
+
+
+def test_floor_targets_equal_the_plain_loops_targets():
+    """The closed-form counter's targets against the f32 recurrence of the
+    plain step, on samples with ties at the threshold and a fractional
+    stop delay."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(4)
+    w = torch.as_tensor(rng.choice(np.float32([0, 100, 350, 351, 900]),
+                                   (3, 700)))
+    p = _floor_params(3, [700.0, 350.0, 5.0, 3.0, 12.5, 800.0])
+    got = chip_smoke.floor_targets(torch, w, p)
+    idle = torch.zeros(3)
+    for i in range(w.shape[1]):
+        v = w[:, i]
+        idle = torch.where(v > 350.0, torch.zeros(3), idle + 1.0)
+        floor = torch.where(idle <= 12.5, torch.full((3,), 700.0),
+                            torch.zeros(3))
+        want = torch.minimum(torch.maximum(v, floor), torch.tensor(800.0))
+        assert torch.equal(got[:, i], want)
+
+
+def test_merge_profile_counts_meets_and_misses():
+    """A constant row at its own target merges every segment at its first
+    step; a row whose ramps never reach the target (ramps of 0) merges
+    none but the first segment, whose own first target is its true
+    start."""
+    import torch
+    from repro_torch.core.smoothing.gpu_floor import gpu_floor_scan_plain
+    w = torch.full((2, 300), 500.0)
+    p = _floor_params(2, [0.0, 350.0, 5.0, 3.0, 10.0, 900.0])
+    out = gpu_floor_scan_plain(w, p)
+    assert chip_smoke.merge_profile(torch, w, p, out) == {
+        "segments": 10, "merged_at_0": 10, "longest_merge": 0,
+        "unmerged": 0}
+    w = torch.arange(300, dtype=torch.float32)[None] * 3.0
+    p = _floor_params(1, [0.0, 1e9, 0.0, 0.0, 0.0, 1e9])
+    out = gpu_floor_scan_plain(w, p)
+    got = chip_smoke.merge_profile(torch, w, p, out)
+    assert got == {"segments": 5, "merged_at_0": 1, "longest_merge": 0,
+                   "unmerged": 4}
+
+
+def test_merge_profile_finds_a_late_merge():
+    """Ramps of 1 W a step from 0 to a target of 10: a speculative walk
+    started at the target meets the true one 9 steps in."""
+    import torch
+    from repro_torch.core.smoothing.gpu_floor import gpu_floor_scan_plain
+    w = torch.cat([torch.zeros(64), torch.full((64,), 10.0)])[None]
+    p = _floor_params(1, [0.0, 1e9, 1.0, 1.0, 0.0, 1e9])
+    out = gpu_floor_scan_plain(w, p)
+    got = chip_smoke.merge_profile(torch, w, p, out)
+    assert got == {"segments": 2, "merged_at_0": 1, "longest_merge": 9,
+                   "unmerged": 0}
+
+
+def test_floor_floors_arithmetic():
+    merges = {"segments": 10, "merged_at_0": 9, "longest_merge": 7,
+              "unmerged": 0}
+    serial, seg = chip_smoke.floor_floors(10.0, 90000, merges)
+    assert serial == 0.9
+    assert seg == 10.0 * 44 * (64 + 8) / 1e6
+    assert chip_smoke.floor_floors(10.0, 4000, dict(merges, unmerged=1)) == (
+        0.04, None)
+
+
+@pytest.mark.parametrize("kind", ["no_merge", "edges"])
+def test_floor_rows_are_seeded_and_do_what_they_say(monkeypatch, kind):
+    import torch
+    from repro_torch.core.smoothing.gpu_floor import gpu_floor_scan_plain
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    w, p = chip_smoke.floor_rows(torch, kind, 3000, 22)
+    w2, p2 = chip_smoke.floor_rows(torch, kind, 3000, 22)
+    assert torch.equal(w, w2) and torch.equal(p, p2)
+    assert w.shape == (1, 3000) and p.shape == (1, 6)
+    out = gpu_floor_scan_plain(w, p)
+    merges = chip_smoke.merge_profile(torch, w, p, out)
+    assert merges["unmerged"] >= merges["segments"] - 1
+    if kind == "edges":
+        assert (w == 350.0).sum() >= 3000 // 7       # ties at the threshold
+        assert float(p[0, 4]) % 1 and float(p[0, 5]) < float(p[0, 0])
+        assert torch.equal(out, torch.full_like(out, float(w[0, 0])))
+
+
+def test_floor_plain_runs_where_asked():
+    import torch
+    w = torch.rand(2, 50) * 1000
+    p = _floor_params(2, [700.0, 350.0, 5.0, 3.0, 10.0, 900.0])
+    ref, ms = chip_smoke.floor_plain(torch, w, p, on_cpu=True)
+    from repro_torch.core.smoothing.gpu_floor import gpu_floor_scan_plain
+    assert torch.equal(ref, gpu_floor_scan_plain(w, p)) and ms >= 0
+
+
+def test_floor_calls_in_captures_the_canonical_loops_calls():
+    """The canonical 48 s loop on the CPU: kernel B's four design calls,
+    [24 x 4000] each, cloned as they were made."""
+    import torch
+    from repro_torch import api, control
+    w, dt = chip_smoke.control_trace(control)
+    calls = chip_smoke.floor_calls_in(torch, control, api, w, dt,
+                                      device="cpu")
+    assert chip_smoke.shape_counts(calls) == {"24 x 4000": 4}
+    assert all(p.shape == (24, 6) and p.dtype == torch.float32
+               for _, p in calls)
+
+
+def test_dense_multiplier_is_orthogonal_times_0999(monkeypatch):
+    import torch
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    b = chip_smoke.dense_multiplier(torch, 64, 3)
+    eye = (b.double().T @ b.double()) / 0.999 ** 2
+    assert torch.allclose(eye, torch.eye(64, dtype=torch.float64),
+                          atol=1e-5)
+    assert torch.equal(b, chip_smoke.dense_multiplier(torch, 64, 3))
+
+
+def test_loop_summary_reads_dispatches_and_lead():
+    class Log:
+        def __init__(self, lats, lead):
+            self.lats, self.lead = lats, lead
+
+        def dispatch_latencies(self):
+            return self.lats
+
+        def summary(self):
+            return {"detection_lead_s": self.lead}
+
+    got = chip_smoke.loop_summary(Log([0.004, 0.002, 0.010], 24.0))
+    assert got == {"dispatches": 3, "dispatch_p50_ms": 4.0,
+                   "dispatch_max_ms": 10.0, "detection_lead_s": 24.0}
+    assert chip_smoke.loop_summary(Log([], None)) == {
+        "dispatches": 0, "dispatch_p50_ms": None, "dispatch_max_ms": None,
+        "detection_lead_s": None}
