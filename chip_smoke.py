@@ -21,7 +21,9 @@ path reaches (4-byte copies, rounds, several bins a block), holds kernel
 B bit for bit at the Study's, the loop's and the replay's shapes (every
 replay call, captured from a run of its own) and on two seeded rows,
 times it there and in its worst case (no segment merges) and its chain
-alone, and re-runs the canonical loop on the CPU (phases 1-10).  Then the model zoo
+alone, times kernels E, I and H on the device alone at each of their
+shapes (E at A's shapes against A), and re-runs the canonical loop on
+the CPU (phases 1-10).  Then the model zoo
 (phases 11-14): kernel F (flash attention) against its plain version and
 a float64 oracle at four shapes in bf16 and f32; granite-3-8b at full
 width (random f32 params from seed 0) prefilling 4 x 4096 tokens on the
@@ -35,9 +37,9 @@ three kernels that only the reference's own entry points reach:
 (kernel I) on the 600 s trace's segments, and ``ballast_burn`` (kernel G)
 at 140 GFLOP, each held against its plain version and its float64 oracle
 (H no worse than twice the reference's own error there, I also against
-kernel E; G also on five more cases and one shape for each of its two
-routes, the burn timed on both), with no earlier path launching any of
-the three.  It prints:
+kernel E bit for bit after the warm-up scale; G also on five more cases
+and one shape for each of its two routes, the burn timed on both), with
+no earlier path launching any of the three.  It prints:
 
   * the card's name and power limit (``nvidia-smi``);
   * build times and ``ptxas`` register and spill lines, and for kernels
@@ -61,6 +63,8 @@ the three.  It prints:
   * kernel B at its three paths' shapes, the seeded rows and its worst
     case: event and device ms, how its segments' walks merge, its chain
     alone and each shape's serial and segmented floors;
+  * kernels E, I and H at each of their shapes: event and device ms, the
+    bound and, for E and I, the geometry (``sliding.sliding_route``);
   * per model phase: kernel F's errors, times and TFLOP/s beside its
     bound and ``F.scaled_dot_product_attention``'s time, prefill walls,
     tokens/s,
@@ -80,13 +84,15 @@ when ``src/repro_torch`` is not beside it.
 
     python3 chip_smoke.py --ad
 
-measures only what kernels A, B, D and G change, to compare two trees on
-one card: the warm Study, the canonical loop and the 600 s replay with
-their device busy shares (and B's device time in the replay), A and D
-alone at both shapes, B at its three paths' shapes with its chain where
-the library has a probe, and G at phase 15's burn on each of its routes
-(run this script from the root of each tree; it prints one
-``{"ad": ...}`` line).
+measures only what kernels A, B, D, E, G and I change, to compare two
+trees on one card: the warm Study, the canonical loop and the 600 s
+replay with their device busy shares (and B's device time in the
+replay), A and D alone at both shapes, B at its three paths' shapes with
+its chain where the library has a probe, G at phase 15's burn on each of
+its routes, E at the loop's, the replay's and A's shapes (A against E
+there), I at phase 15's shape (against E) and H at phase 15's three
+shapes, with event and device ms (run this script from the root of each
+tree; it prints one ``{"ad": ...}`` line).
 """
 from __future__ import annotations
 
@@ -530,6 +536,30 @@ def device_ms(torch, fn, name, repeat=20):
     D; so a profile that records none is taken again, then with device
     activity alone, and if all three record none the time is not measured
     (None): a measurement, not a gate."""
+    return profiled(torch, fn, lambda ev: kernel_device_ms(ev, name), name,
+                    repeat)
+
+
+def call_device_ms(torch, fn, what, repeat=20):
+    """As ``device_ms``, for every kernel that ``fn()`` launches once a
+    call: the sum over those kernels of each one's device-only ms per
+    recorded launch (a wrapper that launches two kernels a call is charged
+    both; a launch the profiler dropped changes no mean)."""
+    def per_call(events):
+        # device-side events only, where the profiler marks them: a host
+        # op's device time would count its kernels twice
+        hits = [e for e in events if str(getattr(
+            e, "device_type", "CUDA")).endswith("CUDA")
+            and event_device_us(e) > 0 and e.count]
+        return (sum(event_device_us(e) / e.count for e in hits) / 1e3
+                if hits else None)
+    return profiled(torch, fn, per_call, what, repeat)
+
+
+def profiled(torch, fn, read, what, repeat):
+    """``read(key_averages())`` of a profile of ``repeat`` calls of ``fn``
+    after a warm-up; taken again, and then with device activity alone,
+    while it reads None (``device_ms``)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -539,11 +569,11 @@ def device_ms(torch, fn, name, repeat=20):
             for _ in range(repeat):
                 fn()
             torch.cuda.synchronize()
-        got = kernel_device_ms(prof.key_averages(), name)
+        got = read(prof.key_averages())
         if got is not None:
             return got
-        log(f"the profiler recorded no launch of {name}; profiling again")
-    log(f"{name}: device time not measured (the profiler recorded no "
+        log(f"the profiler recorded no launch of {what}; profiling again")
+    log(f"{what}: device time not measured (the profiler recorded no "
         f"launch in three profiles)")
     return None
 
@@ -731,29 +761,38 @@ MONITOR_VARIANTS = ((2, 3, 1001, 3), (1, 3, 12000, 4), (2, 2, 600, 11),
                     (1, 3, 20000, 10))
 
 
+def variant_operands(torch, B, S, win, K, seed=21, dev="cuda"):
+    """Kernel A's seeded operands at one ``MONITOR_VARIANTS`` shape (a
+    seeded prefix state in, row 0 in its warm-up), as the arguments of
+    one ``sliding_monitor`` call."""
+    import numpy as np
+    from repro_torch.kernels.goertzel import ops
+    rng = np.random.default_rng(seed + win + K)
+    xseg = torch.as_tensor(rng.standard_normal((B, S, win)).astype(
+        np.float32) * 1e3, device=dev)
+    freqs = tuple(0.05 + 0.37 * i for i in range(K))
+    cosp, sinp, rot = (torch.as_tensor(t, device=dev) for t in
+                       ops.phase_tables(freqs, DT, win))
+    re0, im0 = (torch.as_tensor(rng.standard_normal((B, K, win)).astype(
+        np.float32), device=dev) for _ in range(2))
+    seg0 = torch.as_tensor(rng.integers(0, 3, B), device=dev)
+    seg0[0] = 0
+    n = seg0 * win + S * win - win // 3
+    thr = torch.full((B,), 2e3, device=dev)
+    return (xseg, cosp, sinp, rot, thr, thr * 0.6, n, seg0, re0, im0)
+
+
 def monitor_variants(torch, seed=21, dev="cuda"):
-    """Kernel A at ``MONITOR_VARIANTS`` on seeded operands (a seeded prefix
-    state in, row 0 in its warm-up): within ``MONITOR_TOL`` of its plain
+    """Kernel A at ``MONITOR_VARIANTS`` on seeded operands
+    (``variant_operands``): within ``MONITOR_TOL`` of its plain
     version with no class mismatch off the threshold band, equal to
     kernel E by the witness, and two chunked calls that pass the state on
     equal to one call, bit for bit.  Returns one summary per shape."""
-    import numpy as np
-    from repro_torch.kernels.goertzel import monitor, ops
+    from repro_torch.kernels.goertzel import monitor
     out = []
     for B, S, win, K in MONITOR_VARIANTS:
-        rng = np.random.default_rng(seed + win + K)
-        xseg = torch.as_tensor(rng.standard_normal((B, S, win)).astype(
-            np.float32) * 1e3, device=dev)
-        freqs = tuple(0.05 + 0.37 * i for i in range(K))
-        cosp, sinp, rot = (torch.as_tensor(t, device=dev) for t in
-                           ops.phase_tables(freqs, DT, win))
-        re0, im0 = (torch.as_tensor(rng.standard_normal((B, K, win)).astype(
-            np.float32), device=dev) for _ in range(2))
-        seg0 = torch.as_tensor(rng.integers(0, 3, B), device=dev)
-        seg0[0] = 0
-        n = seg0 * win + S * win - win // 3
-        thr = torch.full((B,), 2e3, device=dev)
-        args = (xseg, cosp, sinp, rot, thr, thr * 0.6, n, seg0, re0, im0)
+        args = variant_operands(torch, B, S, win, K, seed, dev)
+        xseg, cosp, sinp, rot, thr, _, n, seg0, re0, im0 = args
         got = monitor.sliding_monitor(*args)
         ref = monitor.sliding_monitor_plain(*args)
         scale = xseg.abs().max().item()
@@ -819,6 +858,101 @@ def ad_rows(kernels, ad):
               "chain_floor_ms": chain["floor_ms"],
               "int32_edge_fits": ad["escalation_int32_edge"],
               "chunked_exact": ad["escalation_chunked_exact"]})
+
+
+# ---------------------------------------------------------------------------
+# kernels E, I and H alone: each path's shapes, E and I against A and E
+# ---------------------------------------------------------------------------
+
+def e_operands(monitor_args):
+    """Kernel E's operands from kernel A's (one ``sliding_monitor`` call)."""
+    xseg, cosp, sinp, rot, _, _, _, seg0, re0, im0 = monitor_args
+    return (xseg, cosp, sinp, rot, seg0, re0, im0)
+
+
+def sliding_geometry(win, K):
+    """The tree's geometry for kernels E and I at ``win`` and ``K``
+    (``sliding.sliding_route``) as a dict, or None in a tree without it."""
+    from repro_torch.kernels.goertzel import sliding
+    route = getattr(sliding, "sliding_route", None)
+    return None if route is None else route(win, K)._asdict()
+
+
+def timed_call(torch, fn, tensors, nops, what):
+    """CUDA-event ms of ``fn()`` around the wrapper, device-only ms per call
+    of every kernel it launches, and the bound of its work (``tensors``:
+    its operands and outputs, each counted once)."""
+    b_ms, b_by = bound(nbytes(*tensors), nops)
+    return {"event_ms": cuda_ms(torch, fn, 20),
+            "device_ms": call_device_ms(torch, fn, what),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def sliding_measure(torch, study_monitor_args, w, dt, w_long, dt_long):
+    """Kernel E at the canonical loop's and the 600 s replay's
+    counterfactual shapes, at A's Study shape and at the four
+    ``MONITOR_VARIANTS`` (there against A by the witness); kernel I at
+    phase 15's shape, warm-up scaled against E; kernel H at phase 15's
+    three shapes.  Each: event ms, device ms and bound, with the tree's
+    geometry.  A measurement; the gates are elsewhere."""
+    from repro_torch.core.telemetry import warmup_scale
+    from repro_torch.kernels.goertzel import sliding, sliding_v1, windows
+    e_shapes = {"loop": (sliding_args(torch, w, dt), None),
+                "replay": (sliding_args(torch, w_long, dt_long), None),
+                "study": (e_operands(study_monitor_args),
+                          study_monitor_args)}
+    for B, S, win, K in MONITOR_VARIANTS:
+        a = variant_operands(torch, B, S, win, K)
+        e_shapes[f"{B}x{S}x{win}_K{K}"] = (e_operands(a), a)
+    out = {"E": {}, "H": {}}
+    for tag, (args, a_args) in e_shapes.items():
+        B, S, win = args[0].shape
+        K = args[1].shape[0]
+        outs = sliding.sliding_bin_power_v2(*args)
+        row = {"shape": [B, S, win, K], **timed_call(
+            torch, lambda a=args: sliding.sliding_bin_power_v2(*a),
+            (*args, *outs), SLIDING_OPS * B * S * win * K, "kernel E"),
+            "geometry": sliding_geometry(win, K)}
+        if a_args is not None:
+            gaps, equal = monitor_witness(torch, a_args)
+            row["witness_vs_A"] = {"bitwise": equal, "max_abs": gaps}
+        out["E"][tag] = row
+        log(f"sliding (E) {tag} {row['shape']}: {row['event_ms']:.4g} ms by "
+            f"events, {row['device_ms']} ms on the device, bound "
+            f"{row['bound_ms']:.4g} ms; geometry {row['geometry']}"
+            + (f"; A vs E bitwise {row['witness_vs_A']['bitwise']}"
+               if a_args is not None else ""))
+    xseg, tabs = v1_operands(torch, w_long, dt_long)
+    S, win = xseg.shape
+    K = tabs[0].shape[1]
+    got = sliding_v1.sliding_goertzel_v1(xseg, *tabs)
+    e = sliding.sliding_bin_power_v2(*e_shapes["replay"][0])[0][0]
+    scaled = got * warmup_scale(torch.arange(S * win, device=DEVICE),
+                                win).reshape(S, win, 1)
+    out["I"] = {"shape": [S, win, K], **timed_call(
+        torch, lambda: sliding_v1.sliding_goertzel_v1(xseg, *tabs),
+        (xseg, *tabs, got), SLIDING_OPS * S * win * K, "kernel I"),
+        "geometry": sliding_geometry(win, K),
+        "scaled_vs_E_bitwise": torch.equal(scaled, e),
+        "scaled_vs_E_max_abs": (scaled - e).abs().max().item()}
+    log(f"sliding_v1 (I) {out['I']['shape']}: {out['I']['event_ms']:.4g} ms "
+        f"by events, {out['I']['device_ms']} ms on the device; warm-up "
+        f"scaled vs E bitwise {out['I']['scaled_vs_E_bitwise']} (max abs "
+        f"{out['I']['scaled_vs_E_max_abs']:.4g})")
+    _, calls = bin_power_calls(phase15_traces(w, dt, w_long, dt_long))
+    for name, (wnd, coef, block_w, raw) in zip(("600s", "600s_tail",
+                                                "ramp48"), calls):
+        W, n = wnd.shape
+        row = {"shape": [W, n, coef.shape[0]], **timed_call(
+            torch, lambda a=(wnd, coef, block_w): windows.goertzel_windows(
+                a[0], a[1], block_w=a[2]),
+            (wnd, coef, raw), GOERTZEL_OPS * W * n * coef.shape[0],
+            "kernel H")}
+        out["H"][name] = row
+        log(f"goertzel_windows (H) {name} {row['shape']}: "
+            f"{row['event_ms']:.4g} ms by events, {row['device_ms']} ms on "
+            f"the device, bound {row['bound_ms']:.4g} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1378,23 +1512,33 @@ def uneven_ticks(n):
     return sizes
 
 
+def sliding_args(torch, w, dt, device="cuda"):
+    """Kernel E's operands over a whole trace, as the loop's
+    counterfactual call builds them: the float64-centred trace in 4 s
+    segments, the grid-critical bins, zero state in from segment 0."""
+    from repro_torch.core.spectrum import GRID_CRITICAL_HZ
+    from repro_torch.kernels.goertzel import ops
+    win = int(4.0 / dt)
+    x = torch.as_tensor(w, device=device)
+    xseg = ops.segments(ops.centre(x[None]), win)
+    cosp, sinp, rot = ops.device_tables(GRID_CRITICAL_HZ, dt, win, device)
+    zeros = torch.zeros((1, cosp.shape[0], win), device=device)
+    seg0 = torch.zeros(1, dtype=torch.int64, device=device)
+    return (xseg, cosp, sinp, rot, seg0, zeros, zeros)
+
+
 def check_sliding(torch, w, dt, device="cuda"):
     """Kernel E at a counterfactual shape against its plain version and
     the float64 oracle; its row of the kernels line."""
     import numpy as np
     from repro_torch.core.spectrum import GRID_CRITICAL_HZ
-    from repro_torch.kernels.goertzel import ops, sliding
+    from repro_torch.kernels.goertzel import sliding
     from repro_torch.kernels.goertzel.ref import sliding_bin_power_ref
-    win = int(4.0 / dt)
-    freqs = GRID_CRITICAL_HZ
-    x = torch.as_tensor(w, device=device)
-    xseg = ops.segments(ops.centre(x[None]), win)
-    B, S, _ = xseg.shape
-    cosp, sinp, rot = ops.device_tables(freqs, dt, win, device)
+    args = sliding_args(torch, w, dt, device)
+    xseg, cosp = args[0], args[1]
+    B, S, win = xseg.shape
     K = cosp.shape[0]
-    zeros = torch.zeros((B, K, win), device=device)
-    seg0 = torch.zeros(B, dtype=torch.int64, device=device)
-    args = (xseg, cosp, sinp, rot, seg0, zeros, zeros)
+    freqs = GRID_CRITICAL_HZ
     got = sliding.sliding_bin_power_v2(*args)
     sliding.sliding_bin_power_v2_plain(*args)        # warm its first call
     ref, plain_ms = timed_once(
@@ -2122,16 +2266,18 @@ def sliding_v1_row(torch, xseg, tabs, got, x, dt, path_launches):
     scaled = got * warmup_scale(torch.arange(S * win, device=DEVICE),
                                 win).reshape(S, win, 1)
     e_err = (scaled - e[0]).abs().max().item()
+    e_equal = torch.equal(scaled, e[0])
     amps = scaled.reshape(-1, K)[:n].double().cpu().numpy()
     oracle_err = float(np.abs(amps - sliding_bin_power_ref(
         x, dt, GRID_CRITICAL_HZ, win)).max()) / scale
     log(f"sliding_v1 [{S} x {win}, K={K}]: vs plain {err_w:.4g} W "
         f"({err_w / scale:.3g} of the scale, tol {MONITOR_TOL}); warm-up "
-        f"scaled vs kernel E {e_err / scale:.3g} (tol {MONITOR_TOL}, bitwise "
-        f"{torch.equal(scaled, e[0])}); vs float64 oracle {oracle_err:.3g} "
-        f"(tol {ORACLE_TOL})")
-    if (err_w > MONITOR_TOL * scale or e_err > MONITOR_TOL * scale
-            or oracle_err > ORACLE_TOL):
+        f"scaled vs kernel E {e_err / scale:.3g} of the scale (bitwise "
+        f"{e_equal}, the gate); vs float64 oracle {oracle_err:.3g} (tol "
+        f"{ORACLE_TOL})")
+    # I is E's kernel body with a scale of exactly 1, so I times the warm-up
+    # scale (one f32 product, as E's last step) equals E bit for bit
+    if err_w > MONITOR_TOL * scale or not e_equal or oracle_err > ORACLE_TOL:
         raise AssertionError("kernel I disagrees with its plain version, "
                              "kernel E or the float64 oracle")
     ms = cuda_ms(torch, lambda: sliding_v1.sliding_goertzel_v1(xseg, *tabs),
@@ -2143,7 +2289,7 @@ def sliding_v1_row(torch, xseg, tabs, got, x, dt, path_launches):
             "launches": path_launches, "max_abs_err": err_w,
             "tolerance": f"{MONITOR_TOL} x amplitude scale",
             "err_of_scale": err_w / scale, "kernel_e_err": e_err / scale,
-            "kernel_e_bitwise": torch.equal(scaled, e[0]),
+            "kernel_e_bitwise": e_equal,
             "oracle_err": oracle_err, "shape": [S, win, K], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
@@ -2306,18 +2452,18 @@ def ballast_row(torch, gen_seed, checksum, path_launches):
             "ptxas": ptxas_lines(ballast.BALLAST_KERNEL)}
 
 
-def entry_point_phase(torch, build, w, dt, w_long, dt_long):
-    """Phase 15: ``bin_power`` (kernel H) on three traces, the v1 sliding
-    layout (kernel I) on the 600 s trace's segments and ``ballast_burn``
-    (kernel G), each once on the card with launch counts from 0; then
-    each kernel against its plain version and its oracles, and timed.
-    Returns the three rows of the kernels line and the path's counts."""
+def phase15_traces(w, dt, w_long, dt_long):
+    """``bin_power``'s three traces in phase 15: (trace, dt, win) by name."""
+    return {"600s": (w_long, dt_long, 4000),
+            "600s_tail": (w_long[:598765], dt_long, 4000),
+            "ramp48": (w, dt, 2000)}
+
+
+def bin_power_calls(traces):
+    """``bin_power`` on each of ``traces``, with kernel H's calls kept:
+    (amplitudes by trace, ``(windows, coef, block_w, raw)`` per call)."""
     from repro_torch.core.spectrum import GRID_CRITICAL_HZ
-    from repro_torch.kernels.ballast import ops as bops
-    from repro_torch.kernels.goertzel import ops, sliding_v1
-    traces = {"600s": (w_long, dt_long, 4000),
-              "600s_tail": (w_long[:598765], dt_long, 4000),
-              "ramp48": (w, dt, 2000)}
+    from repro_torch.kernels.goertzel import ops
     calls = []
     real = ops.goertzel_windows
 
@@ -2325,26 +2471,48 @@ def entry_point_phase(torch, build, w, dt, w_long, dt_long):
         raw = real(windows, coef, block_w=block_w)
         calls.append((windows, coef, block_w, raw))
         return raw
-    x_long = torch.as_tensor(w_long, device=DEVICE)
-    xseg = ops.segments(ops.centre(x_long[None]), 4000)[0]
-    tabs = tuple(torch.as_tensor(t, device=DEVICE) for t in
-                 ops.phase_tables_v1(GRID_CRITICAL_HZ, dt_long, 4000))
-    seed = 15
-    build.reset_launch_counts()
     ops.goertzel_windows = spy
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         amps = {name: ops.bin_power(x, d, GRID_CRITICAL_HZ, win=win)
                 for name, (x, d, win) in traces.items()}
-        v1 = sliding_v1.sliding_goertzel_v1(xseg, *tabs)
-        checksum = bops.ballast_burn(
-            torch.Generator(device=DEVICE).manual_seed(seed),
-            gflops=BALLAST_GFLOPS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     finally:
         ops.goertzel_windows = real
+    return amps, calls
+
+
+def v1_operands(torch, w, dt, win=4000):
+    """Kernel I's operands in phase 15: the float64-centred trace's
+    ``[S, win]`` segments and the grid-critical bins' v1 tables."""
+    from repro_torch.core.spectrum import GRID_CRITICAL_HZ
+    from repro_torch.kernels.goertzel import ops
+    x = torch.as_tensor(w, device=DEVICE)
+    xseg = ops.segments(ops.centre(x[None]), win)[0]
+    tabs = tuple(torch.as_tensor(t, device=DEVICE) for t in
+                 ops.phase_tables_v1(GRID_CRITICAL_HZ, dt, win))
+    return xseg, tabs
+
+
+def entry_point_phase(torch, build, w, dt, w_long, dt_long):
+    """Phase 15: ``bin_power`` (kernel H) on three traces, the v1 sliding
+    layout (kernel I) on the 600 s trace's segments and ``ballast_burn``
+    (kernel G), each once on the card with launch counts from 0; then
+    each kernel against its plain version and its oracles, and timed.
+    Returns the three rows of the kernels line and the path's counts."""
+    from repro_torch.kernels.ballast import ops as bops
+    from repro_torch.kernels.goertzel import sliding_v1
+    traces = phase15_traces(w, dt, w_long, dt_long)
+    xseg, tabs = v1_operands(torch, w_long, dt_long)
+    seed = 15
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amps, calls = bin_power_calls(traces)
+    v1 = sliding_v1.sliding_goertzel_v1(xseg, *tabs)
+    checksum = bops.ballast_burn(
+        torch.Generator(device=DEVICE).manual_seed(seed),
+        gflops=BALLAST_GFLOPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     counts = build.launch_counts()
     log(f"[entry points] 3 bin_power calls, the v1 layout and a "
         f"{BALLAST_GFLOPS:g}-GFLOP burn: {wall:.3f} s; launches "
@@ -2375,15 +2543,17 @@ def loop_summary(clog):
 
 
 def ad_main(torch) -> int:
-    """``--ad``: the walls that kernels A, B, D and G sit on, and the four
-    kernels alone, for comparing two trees on one card (run the script of
-    the newer tree from the root of each): the warm Study, the canonical
-    loop and the 600 s replay with their device busy shares, the two
-    loops' dispatch latencies and detection leads, and B's device time in
-    the replay (no gate beyond the loop's invariants), then
-    ``ad_measure`` at the Study's and a tick's shapes, ``floor_measure``
-    at B's three paths' shapes (bitwise against the plain version at the
-    Study's and the loop's) and ``ballast_measure`` at phase 15's burn.
+    """``--ad``: the walls that kernels A, B, D, E and G sit on, and
+    kernels A, B, D, E, G, H and I alone, for comparing two trees on one
+    card (run the script of the newer tree from the root of each): the
+    warm Study, the canonical loop and the 600 s replay with their device
+    busy shares, the two loops' dispatch latencies and detection leads,
+    and B's device time in the replay (no gate beyond the loop's
+    invariants), then ``ad_measure`` at the Study's and a tick's shapes,
+    ``floor_measure`` at B's three paths' shapes (bitwise against the
+    plain version at the Study's and the loop's), ``ballast_measure`` at
+    phase 15's burn and ``sliding_measure`` (E at its paths' shapes, A's
+    Study shape and A's four variants, I and H at phase 15's shapes).
     Prints one ``{"ad": ...}`` JSON line."""
     from repro_torch import api, control
     from repro_torch.kernels import build
@@ -2431,6 +2601,8 @@ def ad_main(torch) -> int:
     out["gpu_floor"] = floor_measure(torch, study_b, loop_b, replay_calls,
                                      replay_plain=False)
     out["ballast"] = ballast_measure(torch)
+    out["sliding"] = sliding_measure(torch, cap.args["monitor"][1], w, dt,
+                                     w_long, dt_long)
     out["total_s"] = time.perf_counter() - t_start
     print(json.dumps({"ad": out}), flush=True)
     return 0
@@ -2615,6 +2787,10 @@ def main() -> int:
     ad = ad_measure(torch, cap.args, canon["capture"].args)
     ad_gates(torch, cap.args, ad)
     ad["monitor_variants"] = monitor_variants(torch)
+    # kernels E, I and H alone: event and device ms at each shape
+    from repro_torch.kernels.goertzel.sliding import SLIDING_KERNEL
+    sl = sliding_measure(torch, cap.args["monitor"][1], w, dt, w_long,
+                         dt_long)
     e = {"name": "sliding_bin_power_v2", "route": "cuda",
          "source": "src/repro_torch/kernels/goertzel/csrc/sliding.cu",
          "replaces": "src/repro/kernels/goertzel/goertzel.py:250",
@@ -2624,6 +2800,9 @@ def main() -> int:
          "library_note": "no single PyTorch call computes every sample's "
                          "sliding windowed DFT bins",
          "long_replay": e_rows[1],
+         "device_ms": sl["E"]["loop"]["device_ms"],
+         "geometry": sl["E"]["loop"]["geometry"], "shapes": sl["E"],
+         "ptxas": ptxas_lines(SLIDING_KERNEL),
          "launches_by_path": {"study": counts["sliding"]}}
     kernels.append(e)
     for k in kernels:
@@ -2682,6 +2861,12 @@ def main() -> int:
         k["launches_by_path"]["entry_points"] = entry_counts[
             COUNT_NAME[k["name"]]]
     for r in late_rows:
+        if r["name"] == "sliding_goertzel_v1":
+            r.update(device_ms=sl["I"]["device_ms"],
+                     geometry=sl["I"]["geometry"])
+        elif r["name"] == "goertzel_windows":
+            r.update(device_ms=sl["H"]["600s"]["device_ms"],
+                     shapes=sl["H"])
         nm = COUNT_NAME[r["name"]]
         r["launches_by_path"] = {p: c[nm] for p, c in late.items()}
         r["launches_by_path"]["entry_points"] = entry_counts[nm]

@@ -113,6 +113,16 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
+    def call(self, symbol: str, argtypes: Sequence, *args) -> int:
+        """Call another C function of this kernel's library (a query such as
+        an occupancy: it launches nothing, so ``launches`` does not move);
+        returns its int."""
+        self._load()
+        fn = getattr(ctypes.CDLL(str(self.library_path())), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn(*args)
+
     def launch(self, *args) -> None:
         err = self._load()(*args)
         if err != 0:

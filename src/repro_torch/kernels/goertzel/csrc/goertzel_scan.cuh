@@ -1,8 +1,9 @@
 // Shared by the sliding-Goertzel kernels (monitor.cu, kernel A, and
-// sliding.cu, kernel E): the modulated prefix-sum step and the block scan
-// that both build their per-bin prefix tables with.  The two kernels must
-// produce the same prefixes from the same samples, bit for bit, so they
-// take them from this one source.
+// sliding_walk.cuh, kernels E and I): the modulated prefix-sum step and
+// the block scan that they build their per-bin prefix tables with, and
+// the amplitude with its warm-up scale.  The kernels must produce the
+// same prefixes and amplitudes from the same samples, bit for bit, so
+// they take them from this one source.
 //
 // The scan is a Hillis-Steele tree over lanes and then over warps: a
 // thread's exclusive offset sums the partial sums of the threads before it
@@ -62,6 +63,32 @@ __device__ float4 block_exclusive_scan(float4 v, float4* warp_tot) {
   }
   __syncthreads();
   return add4(warp_tot[warp], exc);
+}
+
+// The amplitude of one sample from its prefixes (pr, pi), the previous
+// segment's (qr, qi) and total (Tr, Ti), and the bin's rotation:
+//   2/win |pr + j pi + e^{j w win} (T - q)| * scale.
+// Each rounding step is written out, so no kernel's compilation can fuse
+// it another way (left to the compiler, the same expression was fused two
+// ways in two kernels).  A scale of exactly 1 (kernel I) changes no bit.
+__device__ __forceinline__ float amplitude(float pr, float pi, float qr,
+                                           float qi, float Tr, float Ti,
+                                           float rr, float ri, float scale,
+                                           float two_over_win) {
+  const float dr = __fsub_rn(Tr, qr), di = __fsub_rn(Ti, qi);
+  const float mr = __fmaf_rn(-ri, di, __fmaf_rn(rr, dr, pr));
+  const float mi = __fmaf_rn(ri, dr, __fmaf_rn(rr, di, pi));
+  const float m2 = __fmaf_rn(mr, mr, __fmul_rn(mi, mi));
+  return __fmul_rn(__fmul_rn(two_over_win, __fsqrt_rn(m2)), scale);
+}
+
+// The warm-up scale win / min(idx + 1, win) at global index idx; past the
+// warm-up it is win / win, exactly 1, so a run with no sample in the
+// warm-up (kWarm false) skips the division.
+template <bool kWarm>
+__device__ __forceinline__ float warmup_scale(long long idx, int win) {
+  return kWarm && idx + 1 < win ? __fdiv_rn((float)win, (float)(idx + 1))
+                                : 1.0f;
 }
 
 }  // namespace

@@ -20,7 +20,9 @@
 // bit of every prefix and amplitude, is a function of win alone: it is
 // kernel E's, so the worst over bins equals the amax of E's amplitudes,
 // and a one-segment launch of the online path equals the offline [B, S,
-// win] launch.  Sample indices are int64: exact at any trace length.
+// win] launch.  The amplitude's rounding steps (amplitude(), with the
+// warm-up scale) are written once, in goertzel_scan.cuh, for kernels A, E
+// and I.  Sample indices are int64: exact at any trace length.
 //
 // Bound on this card: bytes.  Per sample it must read 4 bytes and write 5
 // (worst f32, class int8), against about 21 f32 operations per bin; at
@@ -41,7 +43,8 @@
 //    is not 16-byte aligned).  Thread t's run sits in row t of a [256, Q]
 //    tile, Q >= chunk and Q = 4 (mod 8): the passes read it 16 bytes at a
 //    time, and the 8 lanes of each quarter warp then hit 8 distinct groups
-//    of 4 banks.
+//    of 4 banks.  The tiles and copies are goertzel_tiles.cuh's, shared
+//    with kernels E and I (sliding_walk.cuh).
 //  * The worst stays on chip.  The amplitudes of a block's bin stay in its
 //    shared memory; after a cluster barrier each block reduces 1/C of the
 //    segment's samples over the C blocks' tiles through distributed shared
@@ -74,25 +77,14 @@
 #include <type_traits>
 
 #include "goertzel_scan.cuh"
+#include "goertzel_tiles.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxCluster = 8;  // the portable cluster size
-constexpr int kTiles = 6;       // staged [256, Q] tiles a block
 constexpr int kFields = 5;      // general path, per thread and bin: pr, pi,
                                 // qr, qi, peak
-
-// the least row stride >= cols with Q = 4 (mod 8)
-__host__ __device__ inline int row_stride(int cols) {
-  int q = (cols + 3) & ~3;
-  return (q & 7) == 0 ? q + 4 : q;
-}
-
-__host__ inline size_t tiles_bytes(int J) {
-  return sizeof(float) * (size_t)kTiles * kThreads * row_stride(J);
-}
 
 __host__ inline size_t general_bytes(int J, int nbins) {
   return tiles_bytes(J) + sizeof(float) * (size_t)nbins *
@@ -108,135 +100,6 @@ struct Operands {
   float *peaks, *nre, *nim;
   int S, K;
 };
-
-struct Geometry {
-  int win, chunk;    // samples a segment, samples a thread's run
-  int J, Q;          // run columns staged a round, tile row stride
-  int rounds;
-  bool vec;          // 16-byte copies (chunk, win and bases allow them)
-  bool resident;     // the usual case: segment groups, kept prefix tables
-  int group, groups; // segments a cluster walks, and clusters a row
-};
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// every cp.async of this thread has landed; then the block may read them
-__device__ __forceinline__ void staged() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float at(const float4& v, int e) {
-  return reinterpret_cast<const float*>(&v)[e];
-}
-
-__device__ __forceinline__ float& at(float4& v, int e) {
-  return reinterpret_cast<float*>(&v)[e];
-}
-
-// Piece u = t * per + i of a tile's round (per pieces a run), walked by a
-// thread in steps of kThreads pieces without a division a step.
-struct Pieces {
-  int t, i, dt, di, per;
-  __device__ __forceinline__ Pieces(int u, int per_) : per(per_) {
-    t = u / per, i = u - t * per;
-    dt = kThreads / per, di = kThreads - dt * per;
-  }
-  __device__ __forceinline__ void next() {
-    t += dt, i += di;
-    if (i >= per) i -= per, ++t;
-  }
-};
-
-// Copy columns [c0, c0 + jr) of every thread's run of a win-sample row
-// (src) into rows of a tile (dst[t * Q + j]); with vec, jr % 4 == 0.
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      const Geometry& g, int c0, int jr) {
-  if (g.vec) {
-    const int q4 = jr >> 2;
-    Pieces p(threadIdx.x, q4);
-    for (int u = threadIdx.x; u < kThreads * q4; u += kThreads, p.next()) {
-      const int gi = p.t * g.chunk + c0 + 4 * p.i;
-      if (gi < g.win) cp_async16(dst + p.t * g.Q + 4 * p.i, src + gi);
-    }
-  } else {
-    for (int u = threadIdx.x; u < kThreads * jr; u += kThreads) {
-      const int t = u / jr, j = u - t * jr;
-      const int gi = t * g.chunk + c0 + j;
-      if (gi < g.win) cp_async4(dst + t * g.Q + j, src + gi);
-    }
-  }
-}
-
-// The reverse of stage, for the prefix state out.
-__device__ __forceinline__ void unstage(float* dst, const float* src,
-                                        const Geometry& g, int c0, int jr) {
-  if (g.vec) {
-    const int q4 = jr >> 2;
-    Pieces p(threadIdx.x, q4);
-    for (int u = threadIdx.x; u < kThreads * q4; u += kThreads, p.next()) {
-      const int gi = p.t * g.chunk + c0 + 4 * p.i;
-      if (gi < g.win) st4(dst + gi, ld4(src + p.t * g.Q + 4 * p.i));
-    }
-  } else {
-    for (int u = threadIdx.x; u < kThreads * jr; u += kThreads) {
-      const int t = u / jr, j = u - t * jr;
-      const int gi = t * g.chunk + c0 + j;
-      if (gi < g.win) dst[gi] = src[t * g.Q + j];
-    }
-  }
-}
-
-// The amplitude of one sample from its prefixes (pr, pi), the previous
-// segment's (qr, qi) and total (Tr, Ti), and the bin's rotation:
-//   2/win |pr + j pi + e^{j w win} (T - q)| * scale.
-// Each rounding step is written out, in the steps nvcc compiles kernel
-// E's expression into (sliding.cu; chip_smoke.py holds A to E bit for
-// bit): left to the compiler, the same expression in this larger kernel
-// fused the other product of mr^2 + mi^2.
-__device__ __forceinline__ float amplitude(float pr, float pi, float qr,
-                                           float qi, float Tr, float Ti,
-                                           float rr, float ri, float scale,
-                                           float two_over_win) {
-  const float dr = __fsub_rn(Tr, qr), di = __fsub_rn(Ti, qi);
-  const float mr = __fmaf_rn(-ri, di, __fmaf_rn(rr, dr, pr));
-  const float mi = __fmaf_rn(ri, dr, __fmaf_rn(rr, di, pi));
-  const float m2 = __fmaf_rn(mr, mr, __fmul_rn(mi, mi));
-  return __fmul_rn(__fmul_rn(two_over_win, __fsqrt_rn(m2)), scale);
-}
-
-// The warm-up scale win / min(idx + 1, win) at global index idx; past the
-// warm-up it is win / win, exactly 1, so a run with no sample in the
-// warm-up (kWarm false) skips the division.
-template <bool kWarm>
-__device__ __forceinline__ float warmup_scale(long long idx, int win) {
-  return kWarm && idx + 1 < win ? __fdiv_rn((float)win, (float)(idx + 1))
-                                : 1.0f;
-}
 
 __device__ __forceinline__ int8_t classify(float w, long long idx, int win,
                                            long long nb, float t_hit,
@@ -635,10 +498,6 @@ __global__ void __launch_bounds__(kThreads)
     walk_group(op, g, smem, warp_tot, warp_peak);
   else
     one_segment(op, g, smem, warp_tot, warp_peak);
-}
-
-bool aligned(const void* p, uintptr_t bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 // segments a cluster walks in the usual case: fewest waves of `active`

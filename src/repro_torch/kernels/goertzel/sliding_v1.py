@@ -14,10 +14,12 @@ Operands: ``xseg`` ``[S, win]`` f32 (the centred, zero-padded trace),
 divide into blocks of ``block_s`` segments, as the reference asserts;
 the kernel does not use ``block_s`` beyond that check.
 
-On a CUDA tensor it launches the CUDA kernel (``csrc/sliding_v1.cu``,
-which first copies the tables to rows in a scratch buffer); on
-a CPU tensor it runs ``sliding_goertzel_v1_plain``, which walks the
-segments in order with ``torch.cumsum``; any other device raises.
+On a CUDA tensor it launches the CUDA kernel (``csrc/sliding_v1.cu``:
+kernel E's body, ``csrc/sliding_walk.cuh``, in its mode with no scale and
+no state, on the geometry ``sliding.launch_geometry`` chooses), one
+launch and no scratch buffer; on a CPU tensor it runs
+``sliding_goertzel_v1_plain``, which walks the segments in order with
+``torch.cumsum``; any other device raises.
 """
 from __future__ import annotations
 
@@ -26,10 +28,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import CudaKernel, ptr, stream_of
+from repro_torch.kernels.goertzel.sliding import launch_geometry
 
 SLIDING_V1_KERNEL = CudaKernel(
     "goertzel/csrc/sliding_v1.cu", "sliding_v1_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _check(xseg, cosp, sinp, rot, block_s: int) -> None:
@@ -88,9 +91,10 @@ def sliding_goertzel_v1(xseg, cosp, sinp, rot, *, block_s: int = 1):
     S, win = xseg.shape
     K = cosp.shape[1]
     args = [t.contiguous() for t in (xseg, cosp, sinp, rot)]
-    # scratch for the tables as [2, K, win] rows (see csrc/sliding_v1.cu)
-    rows = torch.empty((2, K, win), dtype=torch.float32, device=xseg.device)
     out = torch.empty((S, win, K), dtype=torch.float32, device=xseg.device)
-    SLIDING_V1_KERNEL.launch(*(ptr(t) for t in args), ptr(rows), ptr(out),
-                             S, win, K, stream_of(xseg))
+    route, group = launch_geometry(SLIDING_V1_KERNEL,
+                                   "sliding_v1_active_clusters", 1, S, win, K)
+    SLIDING_V1_KERNEL.launch(*(ptr(t) for t in args), ptr(out), S, win, K,
+                             int(route.resident), route.J, group,
+                             stream_of(xseg))
     return out

@@ -335,3 +335,121 @@ def test_loop_summary_reads_dispatches_and_lead():
     assert chip_smoke.loop_summary(Log([], None)) == {
         "dispatches": 0, "dispatch_p50_ms": None, "dispatch_max_ms": None,
         "detection_lead_s": None}
+
+
+def test_call_device_ms_sums_every_kernel_per_call(monkeypatch):
+    """Every device kernel a call launches counts, each by its mean over
+    its recorded launches (a dropped launch moves no mean); host events
+    (marked CPU) do not, even with a device time."""
+    import torch
+
+    class Dev:
+        def __init__(self, key, us, count, device_type):
+            self.key, self.count = key, count
+            self.self_device_time_total = us
+            self.device_type = device_type
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [Dev("transpose_tables(float const*)", 40.0, 20,
+                        "DeviceType.CUDA"),
+                    Dev("sliding_v1_kernel(float const*)", 234.0, 18,
+                        "DeviceType.CUDA"),
+                    Dev("aten::empty", 300.0, 20, "DeviceType.CPU")]
+
+    class FakeTorch:
+        class cuda:
+            @staticmethod
+            def synchronize():
+                pass
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    got = chip_smoke.call_device_ms(FakeTorch, lambda: None, "kernel I",
+                                    repeat=20)
+    assert got == pytest.approx(0.015)
+
+
+def test_e_operands_take_a_monitor_calls_operands():
+    import torch
+    a = chip_smoke.variant_operands(torch, 2, 3, 101, 3, dev="cpu")
+    e = chip_smoke.e_operands(a)
+    xseg, cosp, sinp, rot, thr, rel, n, seg0, re0, im0 = a
+    assert all(x is y for x, y in zip(e, (xseg, cosp, sinp, rot, seg0, re0,
+                                          im0)))
+    assert torch.equal(rel, thr * 0.6) and int(seg0[0]) == 0
+    # seeded: the same operands again
+    b = chip_smoke.variant_operands(torch, 2, 3, 101, 3, dev="cpu")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _trace(n, seed=3):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) * 0.002
+    return (5e8 + 4e7 * np.sin(2 * np.pi * 2.0 * t)
+            + 1e5 * rng.standard_normal(n)).astype(np.float32)
+
+
+def test_sliding_args_are_the_offline_calls_operands():
+    """Kernel E on ``sliding_args`` is ``ops.sliding_bin_power`` on the
+    trace, bit for bit (the plain versions here)."""
+    import torch
+    from repro_torch.core.spectrum import GRID_CRITICAL_HZ
+    from repro_torch.kernels.goertzel import ops, sliding
+    w = _trace(4500)
+    args = chip_smoke.sliding_args(torch, w, 0.002, device="cpu")
+    assert tuple(args[0].shape) == (1, 3, 2000)
+    amps = sliding.sliding_bin_power_v2(*args)[0].reshape(-1, 7)[:len(w)]
+    want = ops.sliding_bin_power(torch.as_tensor(w), 0.002,
+                                 GRID_CRITICAL_HZ, win=2000)
+    assert torch.equal(amps, want)
+
+
+def test_v1_operands_times_the_scale_equal_kernel_e(monkeypatch):
+    """Kernel I on phase 15's operands, warm-up scaled, equals kernel E on
+    the same trace bit for bit: the CPU side of the bitwise gate."""
+    import torch
+    from repro_torch.core.telemetry import warmup_scale
+    from repro_torch.kernels.goertzel import sliding, sliding_v1
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    w = _trace(9000, seed=4)
+    xseg, tabs = chip_smoke.v1_operands(torch, w, 0.001)
+    S, win = xseg.shape
+    assert (S, win) == (3, 4000) and tabs[0].shape == (4000, 7)
+    v1 = sliding_v1.sliding_goertzel_v1(xseg, *tabs)
+    e = sliding.sliding_bin_power_v2(
+        *chip_smoke.sliding_args(torch, w, 0.001, device="cpu"))[0][0]
+    scaled = v1 * warmup_scale(torch.arange(S * win), win).reshape(S, win, 1)
+    assert torch.equal(scaled, e)
+
+
+def test_sliding_geometry_is_the_route():
+    from repro_torch.kernels.goertzel import sliding
+    got = chip_smoke.sliding_geometry(4000, 7)
+    assert got == sliding.sliding_route(4000, 7)._asdict()
+    assert got["resident"] and got["cluster"] == 7
+
+
+def test_bin_power_calls_keep_each_windows_call(monkeypatch):
+    import torch
+    from repro_torch.kernels.goertzel import ops
+    monkeypatch.setattr(ops, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    w = _trace(5000, seed=5)
+    traces = chip_smoke.phase15_traces(w, 0.002, w, 0.002)
+    traces = {k: (x[:4100], d, 1000) for k, (x, d, _) in traces.items()}
+    amps, calls = chip_smoke.bin_power_calls(traces)
+    assert list(amps) == ["600s", "600s_tail", "ramp48"] and len(calls) == 3
+    for (wnd, coef, block_w, raw), got in zip(calls, amps.values()):
+        assert wnd.shape == (8, 1000) and coef.shape == (7,) and block_w == 8
+        assert raw.shape == (8, 7) and got.shape == (5, 7)
+    assert ops.goertzel_windows.__name__ == "goertzel_windows"
