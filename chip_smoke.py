@@ -22,8 +22,9 @@ B bit for bit at the Study's, the loop's and the replay's shapes (every
 replay call, captured from a run of its own) and on two seeded rows,
 times it there and in its worst case (no segment merges) and its chain
 alone, times kernels E, I and H on the device alone at each of their
-shapes (E at A's shapes against A), and re-runs the canonical loop on
-the CPU (phases 1-10).  Then the model zoo
+shapes (E at A's shapes against A; H also with its chain alone and each
+shape's chain floor), and re-runs the canonical loop on the CPU (phases
+1-10).  Then the model zoo
 (phases 11-14): kernel F (flash attention) against its plain version and
 a float64 oracle at four shapes in bf16 and f32; granite-3-8b at full
 width (random f32 params from seed 0) prefilling 4 x 4096 tokens on the
@@ -33,13 +34,17 @@ against 32 tokens decoded from the flash route's cache; and the model cut
 to 2 layers in f32, run on the card and on the CPU.  Last (phase 15), the
 three kernels that only the reference's own entry points reach:
 ``bin_power`` (kernel H) on the 600 s replay, on it cut to leave a
-2765-sample tail window and on the 48 s ramp, the v1 sliding layout
-(kernel I) on the 600 s trace's segments, and ``ballast_burn`` (kernel G)
-at 140 GFLOP, each held against its plain version and its float64 oracle
-(H no worse than twice the reference's own error there, I also against
-kernel E bit for bit after the warm-up scale; G also on five more cases
-and one shape for each of its two routes, the burn timed on both), with
-no earlier path launching any of the three.  It prints:
+2765-sample tail window, on the 48 s ramp and on "day" (the 600 s trace
+tiled 144 times: 24 h of 1 kHz telemetry, 21 600 windows), the v1
+sliding layout (kernel I) on the 600 s trace's segments, and
+``ballast_burn`` (kernel G) at 140 GFLOP, each held against its plain
+version and its float64 oracle (H bit for bit on the three traces and,
+at "day", on the 600 s windows tiled against the 600 s output tiled; no
+worse than twice the reference's own error there, "day" as the 600 s
+trace; I also against kernel E bit for bit after the warm-up scale; G
+also on five more cases and one shape for each of its two routes, the
+burn timed on both), with no earlier path launching any of the three.
+It prints:
 
   * the card's name and power limit (``nvidia-smi``);
   * build times and ``ptxas`` register and spill lines, and for kernels
@@ -64,14 +69,18 @@ no earlier path launching any of the three.  It prints:
     case: event and device ms, how its segments' walks merge, its chain
     alone and each shape's serial and segmented floors;
   * kernels E, I and H at each of their shapes: event and device ms, the
-    bound and, for E and I, the geometry (``sliding.sliding_route``);
+    bound and the geometry (``sliding.sliding_route``,
+    ``windows.windows_route``); H's chain alone
+    (``goertzel_step_cycles``: SM cycles and ns a step) and each shape's
+    chain floor, and "day" again with persistent blocks;
   * per model phase: kernel F's errors, times and TFLOP/s beside its
     bound and ``F.scaled_dot_product_attention``'s time, prefill walls,
     tokens/s,
     peak memory, the routes' gaps, the device busy share of a profiled
     prefill, decode ms per token, and the CPU re-run's gaps;
   * for kernels G, H and I: errors, ``ms``, ``plain_ms``, ``bound_ms``,
-    ``library_ms``, ``ptxas`` lines and launches on every path; for G
+    ``library_ms``, ``ptxas`` lines and launches on every path (H also its
+    route and ``chain_floor_ms``); for G
     each case's route, ms and TFLOP/s, the burn's device ms on both
     routes, and each cluster geometry's shared memory and resident
     clusters;
@@ -84,15 +93,17 @@ when ``src/repro_torch`` is not beside it.
 
     python3 chip_smoke.py --ad
 
-measures only what kernels A, B, D, E, G and I change, to compare two
+measures only what kernels A, B, D, E, G, H and I change, to compare two
 trees on one card: the warm Study, the canonical loop and the 600 s
 replay with their device busy shares (and B's device time in the
 replay), A and D alone at both shapes, B at its three paths' shapes with
 its chain where the library has a probe, G at phase 15's burn on each of
 its routes, E at the loop's, the replay's and A's shapes (A against E
-there), I at phase 15's shape (against E) and H at phase 15's three
-shapes, with event and device ms (run this script from the root of each
-tree; it prints one ``{"ad": ...}`` line).
+there), I at phase 15's shape (against E) and H at phase 15's four
+shapes (bit for bit against its plain version on the three traces, the
+600 s windows tiled at "day", its route and chain probe where the tree
+has them), with event and device ms (run this script from the root of
+each tree; it prints one ``{"ad": ...}`` line).
 """
 from __future__ import annotations
 
@@ -893,10 +904,11 @@ def sliding_measure(torch, study_monitor_args, w, dt, w_long, dt_long):
     counterfactual shapes, at A's Study shape and at the four
     ``MONITOR_VARIANTS`` (there against A by the witness); kernel I at
     phase 15's shape, warm-up scaled against E; kernel H at phase 15's
-    three shapes.  Each: event ms, device ms and bound, with the tree's
-    geometry.  A measurement; the gates are elsewhere."""
+    four shapes (``windows_measure``).  Each: event ms, device ms and
+    bound, with the tree's geometry.  A measurement; the gates are
+    elsewhere."""
     from repro_torch.core.telemetry import warmup_scale
-    from repro_torch.kernels.goertzel import sliding, sliding_v1, windows
+    from repro_torch.kernels.goertzel import sliding, sliding_v1
     e_shapes = {"loop": (sliding_args(torch, w, dt), None),
                 "replay": (sliding_args(torch, w_long, dt_long), None),
                 "study": (e_operands(study_monitor_args),
@@ -904,7 +916,7 @@ def sliding_measure(torch, study_monitor_args, w, dt, w_long, dt_long):
     for B, S, win, K in MONITOR_VARIANTS:
         a = variant_operands(torch, B, S, win, K)
         e_shapes[f"{B}x{S}x{win}_K{K}"] = (e_operands(a), a)
-    out = {"E": {}, "H": {}}
+    out = {"E": {}}
     for tag, (args, a_args) in e_shapes.items():
         B, S, win = args[0].shape
         K = args[1].shape[0]
@@ -939,19 +951,129 @@ def sliding_measure(torch, study_monitor_args, w, dt, w_long, dt_long):
         f"by events, {out['I']['device_ms']} ms on the device; warm-up "
         f"scaled vs E bitwise {out['I']['scaled_vs_E_bitwise']} (max abs "
         f"{out['I']['scaled_vs_E_max_abs']:.4g})")
-    _, calls = bin_power_calls(phase15_traces(w, dt, w_long, dt_long))
-    for name, (wnd, coef, block_w, raw) in zip(("600s", "600s_tail",
-                                                "ramp48"), calls):
+    out["H"] = windows_measure(torch, w, dt, w_long, dt_long)
+    return out
+
+
+WINDOWS_REPS = 200        # passes of H's chain probe
+SM_SMEM = 233_472         # an H100 SM's shared memory (228 KB)
+BLOCK_RESERVED_SMEM = 1024  # what the card keeps of it for each block
+
+
+def windows_geometry(W, win, K):
+    """The tree's geometry for kernel H at ``[W, win]``, K
+    (``windows.windows_route``) as a dict, or None in a tree without it."""
+    from repro_torch.kernels.goertzel import windows
+    route = getattr(windows, "windows_route", None)
+    return None if route is None else route(W, win, K)._asdict()
+
+
+def windows_chain(torch, wnd, coef, reps=WINDOWS_REPS):
+    """H's chain alone (``goertzel_step_cycles`` in ``windows.cu``): lane 0
+    walks bin 0's chain over the first 2048 samples of window 0 (cut to a
+    multiple of 32), staged in shared memory, ``reps`` times with the
+    kernel's own walk.  Returns (SM cycles a step, ns a step by CUDA
+    events), or None where the library has no probe."""
+    import ctypes
+    from repro_torch.kernels.build import ptr, stream_of
+    from repro_torch.kernels.goertzel import windows
+    lib = ctypes.CDLL(str(windows.WINDOWS_KERNEL.library_path()))
+    if not hasattr(lib, "goertzel_step_cycles"):
+        return None
+    fn = lib.goertzel_step_cycles
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    cycles = torch.zeros(1, dtype=torch.int64, device=wnd.device)
+    sink = torch.zeros(1, device=wnd.device)
+    n = wnd.shape[1]
+
+    def run():
+        err = fn(ptr(wnd), ptr(coef), n, reps, ptr(cycles), ptr(sink),
+                 stream_of(wnd))
+        if err:
+            raise RuntimeError(f"goertzel_step_cycles: CUDA error {err}")
+    ms = cuda_ms(torch, run, 3)
+    return chain_step(cycles.item(), ms, reps * (min(n, 2048) // 32 * 32))
+
+
+def day_tiled(base_call, base, day):
+    """Kernel H on the 600 s call's windows (less its pad rows) tiled as
+    "day" tiles its trace, and that call's output tiled the same way:
+    equal bit for bit where every route walks each chain in the same
+    steps.  ``base`` and ``day`` are the two traces' (trace, dt, win)."""
+    from repro_torch.kernels.goertzel import windows
+    wnd, coef, block_w, raw = base_call
+    (x, _, win), (x_day, _, _) = base, day
+    W0, tiles = len(x) // win, len(x_day) // len(x)
+    got = windows.goertzel_windows(wnd[:W0].repeat(tiles, 1), coef,
+                                   block_w=block_w)
+    return got, raw[:W0].repeat(tiles, 1)
+
+
+def windows_measure(torch, w, dt, w_long, dt_long):
+    """Kernel H at phase 15's four shapes: event and device ms, the bound
+    and the tree's route; on the three traces whether it equals the plain
+    version (on the card) bit for bit, at "day" whether the 600 s windows
+    tiled give the 600 s output tiled, and, where the tree has routes,
+    "day" again with persistent blocks; then the chain probe, where the
+    library has one, and each shape's chain floor.  A measurement; the
+    gates are in phase 15."""
+    from repro_torch.kernels.goertzel import windows
+    traces = phase15_traces(w, dt, w_long, dt_long)
+    _, calls = bin_power_calls(traces)
+    shapes = {}
+    for name, (wnd, coef, block_w, raw) in zip(traces, calls):
         W, n = wnd.shape
-        row = {"shape": [W, n, coef.shape[0]], **timed_call(
-            torch, lambda a=(wnd, coef, block_w): windows.goertzel_windows(
-                a[0], a[1], block_w=a[2]),
-            (wnd, coef, raw), GOERTZEL_OPS * W * n * coef.shape[0],
-            "kernel H")}
-        out["H"][name] = row
+        K = coef.shape[0]
+        row = {"shape": [W, n, K], "geometry": windows_geometry(W, n, K),
+               **timed_call(
+                   torch, lambda a=(wnd, coef, block_w):
+                   windows.goertzel_windows(a[0], a[1], block_w=a[2]),
+                   (wnd, coef, raw), GOERTZEL_OPS * W * n * K, "kernel H")}
+        if name == "day":
+            got, want = day_tiled(calls[0], traces["600s"], traces["day"])
+            row["tiled_bitwise"] = torch.equal(got, want)
+        else:
+            row["bitwise_vs_plain"] = torch.equal(
+                raw, windows.goertzel_windows_plain(wnd, coef,
+                                                    block_w=block_w))
+        shapes[name] = row
         log(f"goertzel_windows (H) {name} {row['shape']}: "
             f"{row['event_ms']:.4g} ms by events, {row['device_ms']} ms on "
-            f"the device, bound {row['bound_ms']:.4g} ms")
+            f"the device, bound {row['bound_ms']:.4g} ms; route "
+            f"{row['geometry']}; "
+            + (f"600 s windows tiled bitwise {row['tiled_bitwise']}"
+               if name == "day" else
+               f"bitwise vs plain {row['bitwise_vs_plain']}"))
+    out = {"shapes": shapes}
+    if hasattr(windows, "launch_route"):
+        wnd, coef, _, raw = calls[-1]
+        route = windows.windows_route(*wnd.shape, coef.shape[0])
+        per_sm = min(32, 64 // route.warps,
+                     SM_SMEM // (route.smem_bytes + BLOCK_RESERVED_SMEM))
+        persistent = route._replace(blocks=windows.SMS * per_sm)
+        got = windows.launch_route(wnd, coef, persistent)
+        out["day_persistent"] = {
+            "geometry": persistent._asdict(),
+            "bitwise_vs_route": torch.equal(got, raw), **timed_call(
+                torch, lambda: windows.launch_route(wnd, coef, persistent),
+                (wnd, coef, raw), GOERTZEL_OPS * wnd.numel() * coef.shape[0],
+                "kernel H")}
+        log(f"goertzel_windows (H) day, persistent {persistent}: "
+            f"{out['day_persistent']['event_ms']:.4g} ms by events, "
+            f"{out['day_persistent']['device_ms']} ms on the device; bitwise "
+            f"vs the route's blocks {out['day_persistent']['bitwise_vs_route']}")
+    chain = windows_chain(torch, calls[0][0], calls[0][1])
+    if chain is not None:
+        cyc, ns = chain
+        floors = chain_floor_ms(ns, {t: r["shape"][:2]
+                                     for t, r in shapes.items()})
+        for t, r in shapes.items():
+            r["chain_floor_ms"] = floors[t]
+        out["chain"] = {"cycles_per_step": cyc, "ns_per_step": ns}
+        log(f"goertzel_windows chain alone: {cyc:.2f} SM cycles a step, "
+            f"{ns:.4f} ns a step; chain floors (ms) " + json.dumps(floors))
     return out
 
 
@@ -2099,11 +2221,11 @@ def model_phases(torch, build, kernels, earlier_f_counts):
 # it); only a limit here: the port may be at most twice it
 BIN_POWER_REF_ERR = {"600s": 3.161e-05, "600s_tail": 3.155e-05,
                      "ramp48": 7.724e-06}
-BIN_POWER_TOL = 1e-5      # kernel H vs its plain version, of the scale
 BALLAST_GFLOPS = 140.0    # n_iter 1043 at the defaults m 1024, k = n 256
 BALLAST_RTOL = 1e-5       # kernel G vs its plain version, of max |plain|
 BALLAST_CHECK_ITERS = 32  # the dense-b and bf16 cases
 GOERTZEL_OPS = 3          # f32 operations per sample and bin, kernel H
+DAY_TILES = 144           # "day": the 600 s trace 144 times, 24 h at 1 kHz
 LATE_KERNELS = ("ballast", "windows", "sliding_v1")
 
 
@@ -2161,43 +2283,90 @@ def sass_opcode_counts(sass, opcodes):
     return {op: sum(o == op for o in ops) for op in opcodes}
 
 
-def bin_power_case(torch, name, x, dt, win, got, call):
-    """Kernel H at one trace: the launch of the path run against the plain
-    version on the same windows, and ``bin_power`` against the float64
-    recurrence, no worse than twice the reference's own error."""
+def bin_power_oracle_err(x, dt, win, got):
+    """``bin_power``'s output ``got`` on trace ``x`` against the float64
+    recurrence: max |got - oracle| over the amplitude scale (max |centred
+    window|), and the windows' sample counts."""
     import numpy as np
     from repro_torch.core.spectrum import GRID_CRITICAL_HZ
-    from repro_torch.kernels.goertzel import ops, windows
+    from repro_torch.kernels.goertzel import ops
     from repro_torch.kernels.goertzel.ref import (bin_power_recurrence_ref,
                                                   centred_windows)
+    wnd, counts = centred_windows(x, win)
+    oracle = bin_power_recurrence_ref(
+        x, ops.goertzel_coef(GRID_CRITICAL_HZ, dt).numpy(), win)
+    return (float(np.abs(got.cpu().numpy() - oracle).max()
+                  / np.abs(wnd).max()), counts)
+
+
+def check_bin_power_out(name, got, counts, K, oracle_err, ref_err):
+    if oracle_err > 2.0 * ref_err:
+        raise AssertionError(f"bin_power on {name} is more than twice the "
+                             "reference's error from the float64 oracle")
+    if got.shape != (len(counts), K) or not got.isfinite().all():
+        raise AssertionError(f"bin_power on {name}: {tuple(got.shape)}")
+
+
+def bin_power_case(torch, name, x, dt, win, got, call):
+    """Kernel H at one trace: the launch of the path run against the plain
+    version on the same windows, bit for bit (the same steps in the same
+    order), and ``bin_power`` against the float64 recurrence, no worse than
+    twice the reference's own error."""
+    from repro_torch.kernels.goertzel import windows
     wnd_t, coef, block_w, raw = call
     plain = windows.goertzel_windows_plain(wnd_t, coef, block_w=block_w)
     scale = wnd_t.abs().max().item()
     err_w = (raw - plain).abs().max().item()
-    wnd, counts = centred_windows(x, win)
-    oracle = bin_power_recurrence_ref(
-        x, ops.goertzel_coef(GRID_CRITICAL_HZ, dt).numpy(), win)
-    oracle_err = float(np.abs(got.cpu().numpy() - oracle).max()
-                       / np.abs(wnd).max())
+    bitwise = torch.equal(raw, plain)
+    oracle_err, counts = bin_power_oracle_err(x, dt, win, got)
     ref_err = BIN_POWER_REF_ERR[name]
+    K = coef.shape[0]
     log(f"bin_power {name} [n {len(x)}, win {win}, W {len(counts)}, tail "
-        f"{int(counts[-1])}, K {coef.shape[0]}]: kernel vs plain {err_w:.4g}"
-        f" W ({err_w / scale:.3g} of the scale {scale:.6g} W, tol "
-        f"{BIN_POWER_TOL}, bitwise {torch.equal(raw, plain)}); vs the "
-        f"float64 recurrence {oracle_err:.4g} of the scale (the reference's "
-        f"{ref_err:.4g}, limit {2 * ref_err:.4g})")
-    if err_w > BIN_POWER_TOL * scale:
+        f"{int(counts[-1])}, K {K}], route {windows_geometry(*wnd_t.shape, K)}"
+        f": kernel vs plain bitwise {bitwise} (the gate; max |diff| "
+        f"{err_w:.4g} W, scale {scale:.6g} W); vs the float64 recurrence "
+        f"{oracle_err:.4g} of the scale (the reference's {ref_err:.4g}, "
+        f"limit {2 * ref_err:.4g})")
+    if not bitwise:
         raise AssertionError(f"kernel H disagrees with its plain version on "
                              f"{name}")
-    if oracle_err > 2.0 * ref_err:
-        raise AssertionError(f"bin_power on {name} is more than twice the "
-                             "reference's error from the float64 oracle")
-    if got.shape != (len(counts), coef.shape[0]) or not torch.isfinite(
-            got).all():
-        raise AssertionError(f"bin_power on {name}: {tuple(got.shape)}")
+    check_bin_power_out(name, got, counts, K, oracle_err, ref_err)
     return {"trace": name, "n": len(x), "win": win, "shape":
-            list(wnd_t.shape) + [coef.shape[0]], "max_abs_err": err_w,
-            "err_of_scale": err_w / scale, "bitwise": torch.equal(raw, plain),
+            list(wnd_t.shape) + [K], "max_abs_err": err_w,
+            "bitwise": bitwise, "oracle_err": oracle_err}
+
+
+def day_case(torch, traces, amps, calls):
+    """Kernel H at "day", with no plain run at its 21 600 windows: the
+    600 s call's windows tiled through the kernel equal that call's
+    output tiled (``torch.equal``: the route at "day" against the route
+    at 600 s on the same windows), and ``bin_power(day)`` no worse than
+    twice the 600 s trace's reference error from the float64 recurrence
+    (its windows are the 600 s trace's)."""
+    x, dt, win = traces["day"]
+    got_k, want = day_tiled(calls[0], traces["600s"], traces["day"])
+    equal = torch.equal(got_k, want)
+    oracle_err, counts = bin_power_oracle_err(x, dt, win, amps["day"])
+    ref_err = BIN_POWER_REF_ERR["600s"]
+    wnd_t, coef, _, _ = calls[-1]
+    K = coef.shape[0]
+    W0 = len(traces["600s"][0]) // win
+    same_windows = torch.equal(
+        wnd_t, calls[0][0][:W0].repeat(len(counts) // W0, 1))
+    log(f"bin_power day [n {len(x)}, win {win}, W {len(counts)}, K {K}], "
+        f"route {windows_geometry(*wnd_t.shape, K)}: the 600 s windows tiled"
+        f" through the kernel vs the 600 s output tiled, bitwise {equal} "
+        f"(bin_power's day windows equal the 600 s windows tiled: "
+        f"{same_windows}); vs the float64 recurrence {oracle_err:.4g} of the "
+        f"scale (limit {2 * ref_err:.4g}, twice the reference's on 600 s)")
+    if not equal:
+        raise AssertionError("kernel H on the 600 s windows tiled differs "
+                             "from the 600 s output tiled")
+    check_bin_power_out("day", amps["day"], counts, K, oracle_err, ref_err)
+    return {"trace": "day", "n": len(x), "win": win,
+            "shape": list(wnd_t.shape) + [K],
+            "max_abs_err": (got_k - want).abs().max().item(),
+            "tiled_bitwise": equal, "windows_equal_tiled": same_windows,
             "oracle_err": oracle_err}
 
 
@@ -2229,13 +2398,17 @@ def goertzel_row(torch, cases, call, dt, path_launches):
             "replaces": "src/repro/kernels/goertzel/goertzel.py:87",
             "launches": path_launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "tolerance": f"{BIN_POWER_TOL} x amplitude scale vs plain; vs "
-                         "the float64 recurrence at most 2 x the reference's "
-                         "CPU error (" + ", ".join(
+            "tolerance": "bitwise (torch.equal) vs plain at the three "
+                         "traces; at day the 600 s windows tiled equal the "
+                         "600 s output tiled; vs the float64 recurrence at "
+                         "most 2 x the "
+                         "reference's CPU error (" + ", ".join(
                              f"{k} {2 * v:.4g}" for k, v in
                              BIN_POWER_REF_ERR.items()) + " of the scale, "
-                         "from tests/test_torch_bin_power.py)",
-            "shape": [W, win, K], "ms": ms, "plain_ms": plain_ms,
+                         "from tests/test_torch_bin_power.py; day as 600s)",
+            "shape": [W, win, K], "kernel_route":
+            windows.windows_route(W, win, K).route,
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "library_note": "torch.matmul of the windows with a [win, 2K] "
                             "cos/sin table, then the magnitude",
@@ -2452,11 +2625,22 @@ def ballast_row(torch, gen_seed, checksum, path_launches):
             "ptxas": ptxas_lines(ballast.BALLAST_KERNEL)}
 
 
+def day_trace(w_long, tiles=DAY_TILES):
+    """"day": 24 h of 1 kHz rack telemetry, the 600 s trace tiled
+    ``tiles`` times; its length is a multiple of the window (4000), so
+    every window of it is a window of the 600 s trace."""
+    import numpy as np
+    if len(w_long) % 4000:
+        raise ValueError(f"day: {len(w_long)} samples are not whole windows")
+    return np.tile(np.asarray(w_long), tiles)
+
+
 def phase15_traces(w, dt, w_long, dt_long):
-    """``bin_power``'s three traces in phase 15: (trace, dt, win) by name."""
+    """``bin_power``'s four traces in phase 15: (trace, dt, win) by name."""
     return {"600s": (w_long, dt_long, 4000),
             "600s_tail": (w_long[:598765], dt_long, 4000),
-            "ramp48": (w, dt, 2000)}
+            "ramp48": (w, dt, 2000),
+            "day": (day_trace(w_long), dt_long, 4000)}
 
 
 def bin_power_calls(traces):
@@ -2493,7 +2677,7 @@ def v1_operands(torch, w, dt, win=4000):
 
 
 def entry_point_phase(torch, build, w, dt, w_long, dt_long):
-    """Phase 15: ``bin_power`` (kernel H) on three traces, the v1 sliding
+    """Phase 15: ``bin_power`` (kernel H) on four traces, the v1 sliding
     layout (kernel I) on the 600 s trace's segments and ``ballast_burn``
     (kernel G), each once on the card with launch counts from 0; then
     each kernel against its plain version and its oracles, and timed.
@@ -2514,15 +2698,17 @@ def entry_point_phase(torch, build, w, dt, w_long, dt_long):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = build.launch_counts()
-    log(f"[entry points] 3 bin_power calls, the v1 layout and a "
+    log(f"[entry points] {len(traces)} bin_power calls, the v1 layout and a "
         f"{BALLAST_GFLOPS:g}-GFLOP burn: {wall:.3f} s; launches "
         + json.dumps(counts))
-    want = {"windows": 3, "sliding_v1": 1, "ballast": 1}
+    want = {"windows": 4, "sliding_v1": 1, "ballast": 1}
     if any(counts[k] != want.get(k, 0) for k in counts):
         raise AssertionError(f"the entry points launched {counts}, not "
                              f"{want}")
     cases = [bin_power_case(torch, name, x, d, win, amps[name], call)
-             for (name, (x, d, win)), call in zip(traces.items(), calls)]
+             for (name, (x, d, win)), call in zip(traces.items(), calls)
+             if name != "day"]
+    cases.append(day_case(torch, traces, amps, calls))
     rows = [ballast_row(torch, seed, checksum.item(), counts["ballast"]),
             goertzel_row(torch, cases, calls[0], dt_long, counts["windows"]),
             sliding_v1_row(torch, xseg, tabs, v1, w_long, dt_long,
@@ -2553,8 +2739,8 @@ def ad_main(torch) -> int:
     ``floor_measure`` at B's three paths' shapes (bitwise against the
     plain version at the Study's and the loop's), ``ballast_measure`` at
     phase 15's burn and ``sliding_measure`` (E at its paths' shapes, A's
-    Study shape and A's four variants, I and H at phase 15's shapes).
-    Prints one ``{"ad": ...}`` JSON line."""
+    Study shape and A's four variants, I and H at phase 15's shapes, H
+    with its chain probe).  Prints one ``{"ad": ...}`` JSON line."""
     from repro_torch import api, control
     from repro_torch.kernels import build
     from repro_torch.kernels.ballast import ballast  # noqa: F401
@@ -2853,7 +3039,7 @@ def main() -> int:
     late.update(model["launches"])
 
     # 15. kernels G, H and I through the reference's own entry points:
-    # bin_power on three traces, the v1 sliding layout, ballast_burn
+    # bin_power on four traces, the v1 sliding layout, ballast_burn
     t15 = time.perf_counter()
     late_rows, entry_counts = entry_point_phase(torch, build, w, dt, w_long,
                                                 dt_long)
@@ -2865,8 +3051,11 @@ def main() -> int:
             r.update(device_ms=sl["I"]["device_ms"],
                      geometry=sl["I"]["geometry"])
         elif r["name"] == "goertzel_windows":
-            r.update(device_ms=sl["H"]["600s"]["device_ms"],
-                     shapes=sl["H"])
+            r.update(device_ms=sl["H"]["shapes"]["600s"]["device_ms"],
+                     chain_floor_ms=sl["H"]["shapes"]["600s"].get(
+                         "chain_floor_ms"),
+                     chain=sl["H"].get("chain"), shapes=sl["H"]["shapes"],
+                     day_persistent=sl["H"].get("day_persistent"))
         nm = COUNT_NAME[r["name"]]
         r["launches_by_path"] = {p: c[nm] for p, c in late.items()}
         r["launches_by_path"]["entry_points"] = entry_counts[nm]

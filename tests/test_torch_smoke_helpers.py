@@ -444,11 +444,13 @@ def test_bin_power_calls_keep_each_windows_call(monkeypatch):
     from repro_torch.kernels.goertzel import ops
     monkeypatch.setattr(ops, "resolve_device",
                         lambda device=None: torch.device("cpu"))
-    w = _trace(5000, seed=5)
+    w = _trace(8000, seed=5)
     traces = chip_smoke.phase15_traces(w, 0.002, w, 0.002)
+    assert len(traces["day"][0]) == 144 * 8000
     traces = {k: (x[:4100], d, 1000) for k, (x, d, _) in traces.items()}
     amps, calls = chip_smoke.bin_power_calls(traces)
-    assert list(amps) == ["600s", "600s_tail", "ramp48"] and len(calls) == 3
+    assert list(amps) == ["600s", "600s_tail", "ramp48", "day"]
+    assert len(calls) == 4
     for (wnd, coef, block_w, raw), got in zip(calls, amps.values()):
         assert wnd.shape == (8, 1000) and coef.shape == (7,) and block_w == 8
         assert raw.shape == (8, 7) and got.shape == (5, 7)
