@@ -44,6 +44,16 @@ worse than twice the reference's own error there, "day" as the 600 s
 trace; I also against kernel E bit for bit after the warm-up scale; G
 also on five more cases and one shape for each of its two routes, the
 burn timed on both), with no earlier path launching any of the three.
+Phase 16 runs before phase 15: the keyed Study, phase 5's workloads,
+fleets, seeds and specs with eight Firefly and ``CombinedMitigation``
+configurations (noisy telemetry among them) and ``key=0``, 128 rows on
+the card.  It holds two runs of one key equal bit for bit, ``stream=16``
+and ``stream=True`` equal to the one-shot run in every column, a
+``resume=`` run stopped after its third chunk and run again equal to it,
+a restore that computes nothing and an extension by one configuration
+that computes only its rows; checks that two keys draw two noises and
+``key=None`` one; and re-runs 16 rows (noisy ones among them) on the CPU
+at phase 6's tolerances, counting where card and CPU noise differ.
 It prints:
 
   * the card's name and power limit (``nvidia-smi``);
@@ -84,6 +94,12 @@ It prints:
     each case's route, ms and TFLOP/s, the burn's device ms on both
     routes, and each cluster geometry's shared memory and resident
     clusters;
+  * for phase 16: launches of every kernel, warm walls and rows/s of the
+    one-shot and both streamed runs, the resumed run's and the restore's
+    times, the device busy share and top device operations of a profiled
+    run, ``prng.normal``'s device ms and share of that busy time, and the
+    CPU subset's gaps with the noise samples where card and CPU differ
+    (and their largest gap in ulps);
   * one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again,
     and, last, ``{"ok": true, "device": {...}}``.
 
@@ -144,7 +160,7 @@ FLASH_SHAPES = (((PREFILL_B, PREFILL_S, 8, 4, 128), 128, True),
                 ((1, 2048, 8, 4, 128), 128, False),
                 ((1, 2048, 16, 1, 192), 128, True))
 GRANITE = "granite-3-8b"
-DEVICE = "cuda"  # where phases 11-14 put the card's side
+DEVICE = "cuda"  # where phases 11-14 and 16 put the card's side
 # kernel F against its plain version and the float64 oracle, of max |plain|
 FLASH_TOL = {"bfloat16": (2.0 ** -8, 2.0 ** -7), "float32": (1e-5, 1e-5)}
 # dense tensor-core peaks (NVIDIA data sheet) for kernel F's bound
@@ -2212,6 +2228,387 @@ def model_phases(torch, build, kernels, earlier_f_counts):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the keyed Study (Firefly, CombinedMitigation, noisy telemetry),
+# chunked, resumed and held against the CPU
+# ---------------------------------------------------------------------------
+
+KEYED_STREAM = 16         # the streamed runs' chunk size
+KEYED_KILL_AFTER = 3      # chunks the resumed run finishes before it stops
+KEYED_CPU_ROWS = dict(workloads=("dense_1s", "dense_3s"), fleets=(32768,),
+                      configs=("ff90", "ff85_noisy", "ff85_noisy+bat8MJ+bs8",
+                               "comb75_8MJ_n32768"))
+
+
+def keyed_configs(api):
+    """Phase 16's eight configurations: Firefly at its defaults, at engage
+    0.90 / threshold 0.85, and with noisy telemetry (period 2 ms, latency
+    2 ms, 20 W of noise); Firefly with an 8 MJ battery, noisy Firefly with
+    the battery and a backstop stacked, ``CombinedMitigation`` (MPF 0.75
+    and the 8 MJ battery) sized for each fleet, and the baseline."""
+    bat = api.RackBattery(capacity_j=8e6, max_discharge_w=3e6,
+                          max_charge_w=3e6, switch_latency_s=0.01)
+    bs8 = api.TelemetryBackstop(amp_threshold_w=8e5)
+    noisy = api.Firefly(telemetry=api.TelemetrySource(
+        period_s=0.002, latency_s=0.002, noise_w=20.0))
+    mpf75 = api.GpuPowerSmoothing(mpf_frac=0.75, ramp_up_w_per_s=2000.0,
+                                  ramp_down_w_per_s=2000.0)
+    cfgs = {"ff85": (api.Firefly(), None),
+            "ff90": (api.Firefly(engage_frac=0.90, threshold_frac=0.85),
+                     None),
+            "ff85_noisy": (noisy, None),
+            "ff85+bat8MJ": (api.Firefly(), bat),
+            "ff85_noisy+bat8MJ+bs8": (noisy, api.Stack((bat, bs8)))}
+    cfgs.update({f"comb75_8MJ_n{n}": (None, api.CombinedMitigation(
+        mpf75, bat, n)) for n in FLEETS})
+    cfgs["none"] = None
+    return cfgs
+
+
+def build_keyed_study(api, key=0, device=None):
+    """Phase 5's workloads, fleets, seeds and specs at full size with
+    ``keyed_configs`` and a root key: 128 pipeline rows, 256 records."""
+    base = build_study(api, configs=["none"], device=device or DEVICE)
+    return api.Study(base.workloads, fleets=list(FLEETS),
+                     configs=keyed_configs(api),
+                     specs=[s for _, s in base.specs], seeds=list(SEEDS),
+                     wave_cfg=base.wave_cfg, sample_chips=64, key=key,
+                     device=device or DEVICE)
+
+
+def columns_equal(a, b):
+    """Names of the columns in which two results differ (NaN equal to
+    NaN); empty when they are equal bit for bit."""
+    import numpy as np
+    ca, cb = a.columns, b.columns
+    if list(ca) != list(cb):
+        return ["<column names>"]
+    bad = []
+    for k in ca:
+        if ca[k].dtype == object:
+            same = list(ca[k]) == list(cb[k])
+        else:
+            same = np.array_equal(ca[k], cb[k], equal_nan=True)
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed_run(torch, run):
+    sync(torch)
+    t0 = time.perf_counter()
+    out = run()
+    sync(torch)
+    return out, time.perf_counter() - t0
+
+
+class NormalCalls:
+    """Wrap ``prng.normal`` (the draw of every noisy row) and keep each
+    call's keys and length."""
+
+    def __init__(self):
+        from repro_torch.core import prng
+        self.prng, self.calls = prng, []
+
+    def __enter__(self):
+        self.fn = self.prng.normal
+
+        def wrapped(key, n):
+            self.calls.append((key.clone(), n))
+            return self.fn(key, n)
+        self.prng.normal = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.prng.normal = self.fn
+
+
+def device_total_ms(torch, fn, repeat=5):
+    """Device ms a call of ``fn`` takes in all kernels it launches (the
+    profiler's kernel durations, summed, over ``repeat`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeat):
+            fn()
+        torch.cuda.synchronize()
+    return sum(event_device_us(e) for e in prof.key_averages()) / 1e3 / repeat
+
+
+def ulps32(np, a, b):
+    return np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32).astype(np.int64))
+
+
+def noise_card_vs_cpu(torch, api, study, rows):
+    """The noisy rows' draws and telemetry on the card and on the CPU:
+    samples where the normals differ and their largest gap in float32
+    ulps, then samples where the measured telemetry (rounded to 1 W) and
+    the Firefly output differ, on the chip waveform of each row's
+    workload.  The device stage draws from ``fold_in(row_key, 0)``."""
+    import numpy as np
+    from repro_torch.core import prng
+    from repro_torch.core.waveform import chip_waveform, phase_levels
+    cfg = study.wave_cfg
+    noisy = [r for r in rows if study.rows()[r][2].name.startswith(
+        "ff85_noisy")]
+    n = max(len(phase_levels(tl, cfg, study.hw))
+            for tl in study.workloads.values())
+    keys = prng.fold_in(torch.stack([study.scenario_key(r) for r in noisy]),
+                        0)
+    z_card = prng.normal(keys.to(DEVICE), n).cpu().numpy()
+    z_cpu = prng.normal(keys, n).numpy()
+    u = ulps32(np, z_card, z_cpu)
+    levels = np.stack([np.pad(phase_levels(study.workloads[
+        study.rows()[r][0]], cfg, study.hw), (0, 0)) for r in noisy[:1]])
+    lv = torch.as_tensor(np.pad(levels, ((0, 0), (0, n - levels.shape[1])),
+                                mode="edge"), dtype=torch.float32)
+    chip = chip_waveform(lv, cfg.dt, study.hw).expand(len(noisy), -1)
+    ff = study.rows()[noisy[0]][2].device
+    meas = [ff.telemetry.measure_batch(chip.to(d).contiguous(), cfg.dt,
+                                       keys.to(d)).cpu().numpy()
+            for d in (DEVICE, "cpu")]
+    outs = [type(ff).apply_batch([ff] * len(noisy), chip.to(d).contiguous(),
+                                 cfg.dt, keys=keys.to(d))[0].cpu().numpy()
+            for d in (DEVICE, "cpu")]
+    return {"rows": len(noisy), "samples": int(z_card.size),
+            "normal_differ": int((u > 0).sum()),
+            "normal_max_ulps": int(u.max()),
+            "telemetry_differ": int((meas[0] != meas[1]).sum()),
+            "firefly_differ": int((outs[0] != outs[1]).sum()),
+            "firefly_max_abs": float(np.abs(outs[0] - outs[1]).max())}
+
+
+def keyed_cpu_subset(torch, api, study, gpu_res):
+    """The 16 rows of ``KEYED_CPU_ROWS`` re-run on the CPU (the plain
+    versions) with their own row keys, held to the card's records as
+    phase 6 holds its subset."""
+    from repro_torch.core.study import run_rows
+    sel = [r for r, (w, n, c, s) in enumerate(study.rows())
+           if w in KEYED_CPU_ROWS["workloads"]
+           and n in KEYED_CPU_ROWS["fleets"]
+           and c.name in KEYED_CPU_ROWS["configs"]]
+    if len(sel) != 16:
+        raise AssertionError(f"the CPU subset has {len(sel)} rows, not 16")
+    t0 = time.perf_counter()
+    cpu_res = run_rows(study.workloads, [study.rows()[r] for r in sel],
+                       study.specs, wave_cfg=study.wave_cfg, hw=study.hw,
+                       keys=[study.scenario_key(r) for r in sel],
+                       sample_chips=study.sample_chips, device="cpu")
+    secs = time.perf_counter() - t0
+    S = len(study.specs)
+    worst, near, equal = 0.0, 0, 0
+    specs = dict(zip(SPEC_NAMES, (s for _, s in study.specs)))
+    limit_of = {"max_ramp_up_w_per_s": "ramp_up_w_per_s",
+                "max_ramp_down_w_per_s": "ramp_down_w_per_s",
+                "dynamic_range_w": "dynamic_range_w",
+                "band_energy_fraction": "max_energy_fraction",
+                "ac_rms_frac": "min_ac_rms_frac"}
+    for j, r in enumerate(sel):
+        for si in range(S):
+            c, g = cpu_res[j * S + si], gpu_res[r * S + si]
+            for k in ("workload", "n_chips", "config", "seed", "spec"):
+                if c[k] != g[k]:
+                    raise AssertionError(f"cpu subset row {j} is not {g}")
+            vals = [(k, c[k], g[k]) for k in (
+                "mean_mw", "swing_mw", "swing_mitigated_mw",
+                "energy_overhead", "paper_band_frac")]
+            vals += [(k, v, g["metrics"][k]) for k, v in c["metrics"].items()]
+            for k, a, b in vals:
+                atol = 1e-6 if k == "energy_overhead" else 0.0
+                if abs(a - b) > STUDY_RTOL * abs(b) + atol:
+                    raise AssertionError(f"keyed cpu vs card: {k} {a} vs {b}"
+                                         f" in {c}")
+                worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+            lim = specs[c["spec"]].limits()
+            if any(abs(v - lim[limit_of[k]])
+                   <= STUDY_RTOL * abs(lim[limit_of[k]])
+                   for k, v in g["metrics"].items() if k in limit_of):
+                near += 1
+                continue
+            if (c["spec_ok"], tuple(c["violations"])) != (
+                    g["spec_ok"], tuple(g["violations"])):
+                raise AssertionError(f"keyed cpu vs card verdicts differ: "
+                                     f"{c} {g}")
+            equal += 1
+    return {"rows": len(sel), "cpu_s": secs, "verdicts_equal": equal,
+            "near_limit": near, "worst_rel": worst,
+            "noise": noise_card_vs_cpu(torch, api, study, sel)}
+
+
+def keyed_resume(torch, api, study, base):
+    """A ``resume=`` run stopped after ``KEYED_KILL_AFTER`` chunks by an
+    ``on_chunk`` that raises, run again (equal to the one-shot ``base``),
+    restored whole (its time), and extended by one config of a structure
+    of its own: only the new rows are computed."""
+    import shutil
+    from repro_torch.core import prng
+    from repro_torch.core.study import MitigationConfig, run_rows
+    d = os.path.join(HERE, "build", "phase16_resume")
+    shutil.rmtree(d, ignore_errors=True)
+
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    def stop_after(done, total, secs):
+        seen.append(done)
+        if len(seen) == KEYED_KILL_AFTER:
+            raise Stop
+
+    try:
+        study.run(stream=KEYED_STREAM, resume=d, on_chunk=stop_after)
+        raise AssertionError("the stopped run was not stopped")
+    except Stop:
+        pass
+    calls = []
+    resumed, resume_s = timed_run(torch, lambda: study.run(
+        stream=KEYED_STREAM, resume=d,
+        on_chunk=lambda dn, t, e: calls.append(dn)))
+    bad = columns_equal(resumed, base)
+    if bad:
+        raise AssertionError(f"the resumed run differs in {bad}")
+    restored, restore_s = timed_run(torch, lambda: study.run(
+        stream=KEYED_STREAM, resume=d))
+    if columns_equal(restored, base):
+        raise AssertionError("the restored run differs from the one-shot")
+    rows = study.rows()
+    extra = MitigationConfig("mpf90", device=api.GpuPowerSmoothing(
+        mpf_frac=0.9, ramp_up_w_per_s=2000.0, ramp_down_w_per_s=2000.0))
+    new = [(w, n, extra, s) for w in study.workloads for n in study.fleets
+           for s in study.seeds]
+    rows_ext = rows + new
+    keys = list(prng.fold_in(study.key, torch.arange(len(rows_ext))))
+    done = []
+    ext, ext_s = timed_run(torch, lambda: run_rows(
+        study.workloads, rows_ext, study.specs, wave_cfg=study.wave_cfg,
+        hw=study.hw, keys=keys, stream=KEYED_STREAM, resume=d,
+        sample_chips=study.sample_chips, device=study.device,
+        on_chunk=lambda dn, t, e: done.append(dn)))
+    # one report of the restored rows per old call stream, then one per
+    # chunk of the new rows
+    from repro_torch.core.study import _structure_groups
+    n_streams = len(_structure_groups(rows))
+    n_new_chunks = -(-len(new) // KEYED_STREAM)
+    computed = done[-1] - done[n_streams - 1]
+    if (done[n_streams - 1] != len(rows) or computed != len(new)
+            or len(done) != n_streams + n_new_chunks):
+        raise AssertionError(f"the extended run computed {computed} rows, "
+                             f"not the {len(new)} new ones ({done})")
+    n_old = len(rows) * len(study.specs)
+    got = {k: v[:n_old] for k, v in ext.columns.items()}
+    from repro_torch.core.study import StudyResult
+    if columns_equal(StudyResult(got), base):
+        raise AssertionError("the extended run's old rows differ")
+    shutil.rmtree(d, ignore_errors=True)
+    return {"stopped_after_rows": seen[-1],
+            "resumed_first_report": calls[0], "resume_s": resume_s,
+            "restore_s": restore_s, "extension_s": ext_s,
+            "extension_computed_rows": computed,
+            "extension_reports": done}
+
+
+def keyed_study_phase(torch, api, build):
+    """Phase 16: the keyed Study on the card, with launch counts from 0,
+    warm walls one-shot and streamed, the bitwise gates (same key, chunked
+    and resumed runs), the shared and per-row draws, a profiled run, the
+    share of ``prng``'s work, and 16 rows on the CPU."""
+    import numpy as np
+    from repro_torch.core import prng
+    from repro_torch.core.engine import simulate_batch
+    t16 = time.perf_counter()
+    study = build_keyed_study(api)
+    log(study.describe() + f", key=0, device={DEVICE}")
+    build.reset_launch_counts()
+    res, cold = timed_run(torch, study.run)
+    counts = build.launch_counts()
+    log("[keyed] launches in the Study run: " + json.dumps(counts))
+    for nm in ("gpu_floor", "battery", "monitor", "escalation"):
+        if counts[nm] <= 0:
+            raise AssertionError(f"[keyed] kernel {nm} was not launched")
+    if counts["flash_fwd"]:
+        raise AssertionError("[keyed] kernel F launched on the Study path")
+    if len(res) != 256 or study.n_rows != 128:
+        raise AssertionError(f"[keyed] {study.n_rows} rows, {len(res)} "
+                             "records")
+    out = {"launches": counts, "cold_s": cold}
+    with NormalCalls() as nc:
+        warm_res, warm = timed_run(torch, study.run)
+    bad = columns_equal(warm_res, res)
+    if bad:
+        raise AssertionError(f"[keyed] two runs of one key differ in {bad}")
+    out["one_shot"] = {"wall_s": warm, "rows_per_s": study.n_rows / warm}
+    for tag, stream in (("stream16", KEYED_STREAM), ("stream_true", True)):
+        got, wall = timed_run(torch, lambda: study.run(stream=stream))
+        bad = columns_equal(got, res)
+        if bad:
+            raise AssertionError(f"[keyed] run(stream={stream}) differs from "
+                                 f"the one-shot run in {bad}")
+        out[tag] = {"wall_s": wall, "rows_per_s": study.n_rows / wall}
+    log("[keyed] walls: " + json.dumps({k: out[k] for k in (
+        "one_shot", "stream16", "stream_true")}) + f", cold {cold:.3f} s")
+    # the draws: per row with keys, shared without
+    ff = keyed_configs(api)["ff85_noisy"][0]
+    tl = study.workloads["dense_1s"]
+    two = [simulate_batch([tl] * 2, FLEETS[0], study.wave_cfg,
+                          device_mitigation=ff, seeds=0, keys=keys,
+                          device=DEVICE).dc_mitigated
+           for keys in (torch.stack([study.scenario_key(r) for r in (0, 1)]),
+                        None)]
+    if torch.equal(two[0][0], two[0][1]):
+        raise AssertionError("[keyed] two keys gave one noise draw")
+    if not torch.equal(two[1][0], two[1][1]):
+        raise AssertionError("[keyed] key=None rows drew differently")
+    shared = build_keyed_study(api, key=None).run()
+    noisy = np.array([c.startswith("ff85_noisy")
+                      for c in res.columns["config"]])
+    eo_k, eo_s = res.columns["energy_overhead"], \
+        shared.columns["energy_overhead"]
+    if not np.array_equal(eo_k[~noisy], eo_s[~noisy]) or np.array_equal(
+            eo_k[noisy], eo_s[noisy]):
+        raise AssertionError("[keyed] key=None should change the noisy rows "
+                             "only")
+    out["resume"] = keyed_resume(torch, api, study, res)
+    log("[keyed] resume: " + json.dumps(out["resume"]))
+    wall, busy, top = profile_device(torch, study.run)
+    out["profile"] = {"wall_s": wall, "busy_s": busy,
+                      "busy_share": busy / wall,
+                      "top": [(round(ms, 4), cnt, key[:90])
+                              for ms, cnt, key in top]}
+    log(f"[keyed] profiled run {wall:.3f} s, device busy {busy:.3f} s "
+        f"({100 * busy / wall:.1f}% of the traced wall)")
+    for ms, cnt, key in top:
+        log(f"  {ms:10.3f} ms {cnt:6d}x {key[:110]}")
+    prng_ms = sum(device_total_ms(torch, lambda k=k, n=n: prng.normal(k, n))
+                  for k, n in nc.calls)
+    out["prng"] = {"calls": len(nc.calls),
+                   "shapes": [list(k.shape[:-1]) + [n] for k, n in nc.calls],
+                   "device_ms": prng_ms,
+                   "share_of_busy": prng_ms / (busy * 1e3)}
+    log("[keyed] prng.normal: " + json.dumps(out["prng"]))
+    for r in res:
+        vals = [r["mean_mw"], r["swing_mitigated_mw"], r["energy_overhead"]]
+        vals += list(r["metrics"].values())
+        if not all(v == v and abs(v) != float("inf") for v in vals):
+            raise AssertionError(f"[keyed] non-finite metric in {r}")
+    out["verdicts"] = {sp: dict(collections.Counter(
+        "pass" if r["spec_ok"] else "fail" for r in res.filter(spec=sp)))
+        for sp in SPEC_NAMES}
+    out["passing_configs"] = {sp: res.filter(spec=sp).passing_configs()
+                              for sp in SPEC_NAMES}
+    out["cpu"] = keyed_cpu_subset(torch, api, study, res)
+    log("[keyed] cpu subset: " + json.dumps(out["cpu"]))
+    out["phase_s"] = time.perf_counter() - t16
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 15: kernels G, H and I through the reference's own entry points
 # ---------------------------------------------------------------------------
 
@@ -3037,6 +3434,17 @@ def main() -> int:
     log(f"phases 11-14: {time.perf_counter() - t_model:.1f} s; peak "
         f"{peak:.2f} GiB allocated in phases 12-14")
     late.update(model["launches"])
+
+    # 16. the keyed Study (Firefly, CombinedMitigation, noisy telemetry),
+    # chunked, resumed and on the CPU; it runs before phase 15, so that
+    # phase 15's check that no earlier path launched G, H or I covers it
+    keyed = keyed_study_phase(torch, api, build)
+    late["keyed_study"] = keyed["launches"]
+    for k in kernels:
+        k["launches_by_path"]["keyed_study"] = keyed["launches"][
+            COUNT_NAME[k["name"]]]
+    log("keyed: " + json.dumps(keyed))
+    log(f"phase 16: {keyed['phase_s']:.1f} s")
 
     # 15. kernels G, H and I through the reference's own entry points:
     # bin_power on four traces, the v1 sliding layout, ballast_burn

@@ -9,8 +9,9 @@ query), mirroring ``repro.api``.
         fleets=[8192, 32768],
         configs={"none": None,
                  "mpf90": (api.GpuPowerSmoothing(mpf_frac=0.9), None)},
-        specs=api.example_specs(job_mw=5.0))
+        specs=api.example_specs(job_mw=5.0), key=0)
     result = study.run()                      # on the card
+    result = study.run(stream=64, resume="sweep_ckpt")  # chunked, resumable
     result.passing().pivot("workload", "config", "energy_overhead")
 
     log = api.watch_trace(api.synthesize_ramp(), 0.002, n_chips=512,
@@ -23,17 +24,19 @@ from repro_torch.core.engine import (StreamChunk, design, design_grid,
                                      stream_batches)
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
 from repro_torch.core.phases import IterationTimeline, Phase, synthetic_timeline
-from repro_torch.core.smoothing import (GpuPowerSmoothing, RackBattery, Stack,
-                                        TelemetryBackstop)
+from repro_torch.core.smoothing import (CombinedMitigation, Firefly,
+                                        GpuPowerSmoothing, RackBattery, Stack,
+                                        TelemetryBackstop, design_mitigation)
 from repro_torch.core.spec import (FrequencyDomainSpec, SpecReport,
                                    TimeDomainSpec, UtilitySpec, example_specs)
 from repro_torch.core.stratosim import SimResult
-from repro_torch.core.study import MitigationConfig, Study, StudyResult
+from repro_torch.core.study import (MitigationConfig, Scenario, Study,
+                                    StudyResult)
 from repro_torch.core.telemetry import TelemetrySource
 from repro_torch.core.waveform import WaveformConfig
 
 __all__ = [
-    "Study", "StudyResult", "MitigationConfig",
+    "Study", "StudyResult", "MitigationConfig", "Scenario",
     "stream_batches", "StreamChunk", "design", "design_grid",
     # the grid-interactive control plane
     "ControlLoop", "ControlLog", "GridController", "InterventionLadder",
@@ -42,7 +45,8 @@ __all__ = [
     "IterationTimeline", "Phase", "synthetic_timeline", "WaveformConfig",
     "TelemetrySource",
     "Hardware", "DEFAULT_HW",
-    "GpuPowerSmoothing", "RackBattery", "TelemetryBackstop", "Stack",
+    "GpuPowerSmoothing", "Firefly", "RackBattery", "TelemetryBackstop",
+    "CombinedMitigation", "Stack", "design_mitigation",
     "UtilitySpec", "TimeDomainSpec", "FrequencyDomainSpec", "SpecReport",
     "example_specs", "SimResult",
 ]

@@ -1,0 +1,169 @@
+"""Checkpoints of trees of arrays on the host.
+
+- A tree is nested dicts, lists and tuples of arrays (numpy arrays, or
+  tensors, which are copied to the host).  Each leaf is saved as one
+  ``.npy`` file named by its path in the tree (``"cols/energy_overhead"``,
+  ``"layers/0/w"``); a JSON manifest holds the step, each leaf's file,
+  dtype and shape, and the caller's ``extra``.
+- Object arrays (the Study's string and tuple columns) are pickled by
+  numpy and loaded back with ``allow_pickle`` only where the manifest
+  says so.
+- A save writes ``<dir>.tmp`` and renames it over ``<dir>``, so a reader
+  sees the old checkpoint or the new one, never half of one.
+- ``CheckpointManager`` keeps the newest ``keep`` steps and can hand the
+  write to a thread.
+
+Restoring onto a device mesh (the reference's ``shardings=``) belongs to
+the port's ``parallel/`` and is not ported yet.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+SHARDINGS_NOT_PORTED = ("restore_pytree(shardings=...) is not ported yet: "
+                        "ROADMAP queue A, parallel/ on torch.distributed")
+
+
+def _flatten(tree, prefix: str = "") -> List[Tuple[str, object]]:
+    """``(path, leaf)`` pairs in the tree's order: dict keys and sequence
+    indices joined by ``/``."""
+    if isinstance(tree, dict):
+        items = [(str(k), v) for k, v in tree.items()]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out += _flatten(v, f"{prefix}/{k}" if prefix else k)
+    return out
+
+
+def _unflatten(template, leaves: Dict[str, object], prefix: str = ""):
+    if isinstance(template, dict):
+        return {k: _unflatten(v, leaves, f"{prefix}/{k}" if prefix
+                              else str(k)) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        out = [_unflatten(v, leaves, f"{prefix}/{i}" if prefix else str(i))
+               for i, v in enumerate(template)]
+        return type(template)(out)
+    return leaves[prefix]
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _host_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_tree(v) for v in tree)
+    return _host(tree)
+
+
+def save_pytree(directory: str, tree, step: int,
+                extra: Optional[Dict] = None) -> str:
+    """Save ``tree`` to ``directory`` (replaced atomically)."""
+    tmp = directory + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    manifest = {"step": step, "leaves": {}, "extra": extra or {},
+                "time": time.time()}
+    for key, leaf in _flatten(tree):
+        arr = _host(leaf)
+        fn = key.replace("/", "__") + ".npy"
+        np.save(os.path.join(tmp, fn), arr)
+        manifest["leaves"][key] = {"file": fn, "dtype": str(arr.dtype),
+                                   "shape": list(arr.shape),
+                                   "object": bool(arr.dtype == object)}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(directory):
+        shutil.rmtree(directory)
+    os.replace(tmp, directory)
+    return directory
+
+
+def load_pytree_numpy(directory: str):
+    """Every leaf of a saved tree as host numpy, keyed by its path:
+    ``(leaves, manifest)``."""
+    with open(os.path.join(directory, "manifest.json")) as f:
+        manifest = json.load(f)
+    leaves = {}
+    for key, meta in manifest["leaves"].items():
+        leaves[key] = np.load(os.path.join(directory, meta["file"]),
+                              allow_pickle=meta.get("object", False))
+    return leaves, manifest
+
+
+def restore_pytree(directory: str, template, shardings=None):
+    """The saved tree in the structure of ``template``: ``(tree,
+    manifest)``, numeric leaves as CPU tensors and object leaves as numpy
+    arrays."""
+    if shardings is not None:
+        raise NotImplementedError(SHARDINGS_NOT_PORTED)
+    leaves, manifest = load_pytree_numpy(directory)
+    leaves = {k: a if a.dtype == object else torch.from_numpy(a)
+              for k, a in leaves.items()}
+    return _unflatten(template, leaves), manifest
+
+
+class CheckpointManager:
+    """Steps under ``root/step_<n>``: retention of the newest ``keep``, an
+    optional writer thread, and the latest step's restore."""
+
+    def __init__(self, root: str, keep: int = 3, async_save: bool = False):
+        self.root = root
+        self.keep = keep
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        os.makedirs(root, exist_ok=True)
+
+    def _dir(self, step: int) -> str:
+        return os.path.join(self.root, f"step_{step:010d}")
+
+    def steps(self) -> List[int]:
+        return sorted(int(d.split("_")[1]) for d in os.listdir(self.root)
+                      if d.startswith("step_") and not d.endswith(".tmp"))
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def save(self, step: int, tree, extra: Optional[Dict] = None) -> None:
+        # copy to the host before the thread starts, so the caller may
+        # overwrite its tensors at once
+        host_tree = _host_tree(tree)
+
+        def commit():
+            save_pytree(self._dir(step), host_tree, step, extra)
+            self._gc()
+
+        if self.async_save:
+            self.wait()
+            self._thread = threading.Thread(target=commit, daemon=True)
+            self._thread.start()
+        else:
+            commit()
+
+    def restore_latest(self, template, shardings=None):
+        steps = self.steps()
+        if not steps:
+            return None, None
+        return restore_pytree(self._dir(steps[-1]), template, shardings)
+
+    def _gc(self) -> None:
+        steps = self.steps()
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(self._dir(s), ignore_errors=True)

@@ -4,8 +4,13 @@
 tuples and numpy arrays of one object, as ``dataclasses.asdict`` gives
 them for the reference package's dataclasses (nested dataclasses as
 nested dicts), and returns the port's object of that kind.  A ``Stack``
-is ``{"stages": [(kind, fields), ...]}``.  Nothing of the reference
-package is imported: the dicts are the interface.
+is ``{"stages": [(kind, fields), ...]}``; a ``Firefly``'s ``telemetry``
+and ``hw`` and a ``CombinedMitigation``'s ``gpu`` and ``battery`` are
+nested field dicts.  Nothing of the reference package is imported: the
+dicts are the interface.
+
+``key_from_reference(words)`` takes a JAX key's two uint32 words
+(``np.asarray(jax.random.key_data(key))``) and returns the port's key.
 
 ``from_reference_carry(carry, n_bins=K)`` carries a stream's state
 across: it takes the reference's ``SlidingCarry`` or ``MonitorCarry``
@@ -26,17 +31,21 @@ import torch
 from repro_torch.core.hardware import (ChipSpec, DatacenterTopology, Hardware,
                                        ServerSpec)
 from repro_torch.core.phases import IterationTimeline, Phase
-from repro_torch.core.smoothing import (GpuPowerSmoothing, RackBattery, Stack,
+from repro_torch.core import prng
+from repro_torch.core.smoothing import (CombinedMitigation, Firefly,
+                                        GpuPowerSmoothing, RackBattery, Stack,
                                         TelemetryBackstop)
 from repro_torch.core.spec import (FrequencyDomainSpec, TimeDomainSpec,
                                    UtilitySpec)
+from repro_torch.core.telemetry import TelemetrySource
 from repro_torch.core.waveform import WaveformConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.goertzel.ops import MonitorCarry, SlidingCarry
 
 KINDS = ("WaveformConfig", "IterationTimeline", "Phase", "Hardware",
          "UtilitySpec", "GpuPowerSmoothing", "RackBattery",
-         "TelemetryBackstop", "Stack")
+         "TelemetryBackstop", "Stack", "TelemetrySource", "Firefly",
+         "CombinedMitigation")
 
 
 def _plain(v):
@@ -91,7 +100,25 @@ def from_reference_fields(kind: str, fields: Mapping[str, Any]):
     if kind == "Stack":
         return Stack(tuple(from_reference_fields(k, f)
                            for k, f in fields["stages"]))
+    if kind == "TelemetrySource":
+        return TelemetrySource(**_fields(fields))
+    if kind == "Firefly":
+        f = _fields({k: v for k, v in fields.items()
+                     if k not in ("telemetry", "hw")})
+        return Firefly(**f, telemetry=TelemetrySource(
+            **_fields(fields["telemetry"])), hw=_hardware(fields["hw"]))
+    if kind == "CombinedMitigation":
+        return CombinedMitigation(
+            gpu=from_reference_fields("GpuPowerSmoothing", fields["gpu"]),
+            battery=from_reference_fields("RackBattery", fields["battery"]),
+            n_chips=_plain(fields["n_chips"]))
     raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
+
+
+def key_from_reference(words) -> torch.Tensor:
+    """The port's key (int64 ``[..., 2]`` on the CPU) from a JAX key's
+    uint32 words ``[..., 2]`` (``jax.random.key_data``, as numpy)."""
+    return prng.as_key(np.asarray(words, np.uint32))
 
 
 def _sliding_carry(c, n_bins: int, device) -> SlidingCarry:

@@ -6,16 +6,19 @@ scenario rows, as a handful of whole-batch tensor passes on one device.
                       structure, with per-row swing and energy metrics.
   ``analyze_batch``   frequency reports and spec verdicts for same-length
                       waveforms.
-  ``stream_batches``  the executor behind ``Study.run``: one chunk (the
-                      whole batch) of ``simulate_batch`` reduced to
-                      per-row metrics, analysis grouped by true length.
+  ``stream_batches``  the executor behind ``Study.run``: fixed-size chunks
+                      of ``simulate_batch`` reduced to per-row metrics,
+                      analysis grouped by true length.
   ``design``          the (MPF, battery capacity) design search on one
                       trace: ``method="grid"`` (``design_grid``) judges
                       every candidate of the coarse grid in one batch.
 
 Rows may mix enabled and disabled (None) stages: ``_normalize_mits``
 returns the enabled rows and an on-mask, the stage runs on the enabled
-rows only, and disabled rows keep the unmitigated waveform.  Mixed
+rows only, and disabled rows keep the unmitigated waveform.  Per-row
+PRNG keys ``[B, 2]`` (``core/prng.py``) reach the mitigations that draw
+noise: row ``b``'s device stage draws from ``fold_in(key_b, 0)``, its
+rack stage from ``fold_in(key_b, 1)``.  Mixed
 lengths are edge-padded to one length and masked (``pad_to``): the valid
 region is exact against an unpadded run, metrics are masked reductions,
 and the rack stage sees the pad filled with the valid-region mean, as in
@@ -23,9 +26,11 @@ the reference; a padded row's monitor therefore counts the pad samples as
 live.  The synthesis prefix (chip waveform and raw aggregate) runs once
 per unique (workload, fleet, seed).
 
-Chunked streaming (``chunk_size`` below the row count), sharding and the
-gradient-based design solvers (``method`` gradient, hybrid, warmstart)
-are not ported yet.
+Per-row values do not depend on how rows are chunked: every operation
+on the path is row-wise, the float64 sums are of float32 terms, and the
+analysis runs on slices of a fixed row count (``ANALYSIS_ROWS``) in every
+run, one-shot or chunked.  Sharding and the gradient-based design solvers
+(``method`` gradient, hybrid, warmstart) are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
 from repro_torch.core.smoothing.base import (apply_mitigation,
                                              energy_overhead, structure)
@@ -50,9 +56,10 @@ from repro_torch.device import resolve_device
 DESIGN_NOT_PORTED = ("design(method={!r}) is not ported yet: ROADMAP queue "
                      "A, the design path (only method='grid' runs)")
 
-CHUNKED_NOT_PORTED = ("chunked streaming (a chunk smaller than the batch) is "
-                      "not ported yet: ROADMAP queue A, chunked streaming "
-                      "and resume")
+# rows of one analysis call (tails repeat their last row): reductions on the
+# card and on the CPU pick their order by the number of rows they reduce,
+# so every row is analysed in a batch of this one size
+ANALYSIS_ROWS = 32
 
 
 def _tile(values, B: int, what: str) -> list:
@@ -80,6 +87,19 @@ def _normalize_mits(mits: Sequence, B: int, what: str
     if len(enabled) == len(mits):
         return enabled, None
     return enabled, torch.tensor([m is not None for m in mits])
+
+
+def _normalize_keys(keys, B: int, device) -> Optional[torch.Tensor]:
+    """None | one key | a sequence of keys | stacked ``[B, 2]`` -> int64
+    ``[B, 2]`` keys on ``device`` (a key: ``prng.as_key``)."""
+    if keys is None:
+        return None
+    if isinstance(keys, (list, tuple)):
+        rows = [prng.as_key(k) for k in keys]
+    else:
+        k = prng.as_key(keys)
+        rows = [k] if k.dim() == 1 else list(k)
+    return torch.stack(_tile(rows, B, "keys")).to(device)
 
 
 def _on_rows(on: Optional[torch.Tensor], B: int, device) -> torch.Tensor:
@@ -145,7 +165,7 @@ class BatchResult:
 
 def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
                    = None, *, device_mitigation=None, rack_mitigation=None,
-                   hw: Hardware = DEFAULT_HW, seeds=0,
+                   hw: Hardware = DEFAULT_HW, seeds=0, keys=None,
                    sample_chips: int = 64,
                    levels: Optional[Sequence[np.ndarray]] = None,
                    pad_to: Optional[int] = None,
@@ -153,9 +173,11 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
     """Simulate a batch of scenario rows of one mitigation structure.
 
     Each batched argument is a singleton (broadcast) or a length-B
-    sequence; mitigation rows may be None (disabled).  Without ``pad_to``
-    every row must expand to the same sample count; with it, rows are
-    edge-padded to ``pad_to`` and masked.
+    sequence; mitigation rows may be None (disabled).  ``keys`` (one per
+    row, or one for all) feed the mitigations that draw noise; without
+    them such a mitigation draws from ``prng_key(0)`` on every row.
+    Without ``pad_to`` every row must expand to the same sample count;
+    with it, rows are edge-padded to ``pad_to`` and masked.
     """
     cfg = wave_cfg or WaveformConfig()
     dt = cfg.dt
@@ -176,6 +198,10 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
             raise ValueError(f"pad_to={pad_to} < longest workload {max(lens)}")
         n = pad_to
     n_valid = torch.tensor(lens, dtype=torch.int64, device=device)
+    keys_t = _normalize_keys(keys, B, device)
+    k_dev = k_rack = None
+    if keys_t is not None:
+        k_dev, k_rack = prng.fold_in(keys_t, 0), prng.fold_in(keys_t, 1)
 
     # -- synthesis prefix, once per unique (workload, fleet, seed)
     uniq: Dict[Tuple, int] = {}
@@ -209,8 +235,9 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
     devs, dev_on = _normalize_mits(dev_list, B, "device_mitigation")
     if devs:
         on = _on_rows(dev_on, B, device)
-        chip_m, aux["device"] = apply_mitigation(devs, chip_u[u_idx_t[on]],
-                                                 dt)
+        chip_m, aux["device"] = apply_mitigation(
+            devs, chip_u[u_idx_t[on]], dt,
+            None if k_dev is None else k_dev[on])
         chip_m = _mask_helpers(n, n_valid[on])[0](chip_m)
         dc = dc.clone()
         dc[on] = aggregate(chip_m, chips_t[on], shifts[on], hw)
@@ -220,7 +247,8 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
     if racks:
         dc = fill_mean(dc)
         on = _on_rows(rack_on, B, device)
-        out, aux["rack"] = apply_mitigation(racks, dc[on], dt)
+        out, aux["rack"] = apply_mitigation(
+            racks, dc[on], dt, None if k_rack is None else k_rack[on])
         dc[on] = out
 
     m = mask.to(torch.float64)
@@ -282,82 +310,169 @@ class StreamChunk:
                                   self.spec_metrics[si][i])
 
 
-def _host(tree):
+def _to_host(tree):
+    """Start the copy of a tree of device tensors to the host: pinned
+    buffers and non-blocking copies on the card, so that the host can go
+    on dispatching work; ``_numpy`` reads them once their event is done."""
     if isinstance(tree, dict):
-        return {k: _host(v) for k, v in tree.items()}
-    return tree.cpu().numpy()
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree.to("cpu", non_blocking=tree.is_cuda)
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
+def _analysis_slices(idx: List[int]) -> List[List[int]]:
+    """``idx`` cut into slices of ``ANALYSIS_ROWS`` entries, the last padded
+    by repeating its last entry, so that every row is analysed in a batch
+    of one size whatever the chunk it came in."""
+    out = [idx[i:i + ANALYSIS_ROWS] for i in range(0, len(idx),
+                                                    ANALYSIS_ROWS)]
+    out[-1] = out[-1] + [out[-1][-1]] * (ANALYSIS_ROWS - len(out[-1]))
+    return out
 
 
 def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
                    = None, *, device_mitigation=None, rack_mitigation=None,
-                   specs=None, hw: Hardware = DEFAULT_HW, seeds=0,
+                   specs=None, hw: Hardware = DEFAULT_HW, seeds=0, keys=None,
                    sample_chips: int = 64,
                    levels: Optional[Sequence[np.ndarray]] = None,
                    pad_to: Optional[int] = None,
                    chunk_size: Optional[int] = None, bands: bool = True,
-                   device="cuda"):
-    """Yield the metrics of a scenario batch as ``StreamChunk``s.
+                   skip_rows: int = 0, device="cuda"):
+    """Yield the metrics of a scenario batch as one ``StreamChunk`` per
+    chunk of ``chunk_size`` rows (None: the whole batch in one chunk).
 
-    This port runs the batch as one chunk: ``chunk_size`` must be None or
-    at least the row count.  The chunk runs ``simulate_batch`` (padding to
-    the longest row when lengths mix) and then reduces to metrics on the
-    device: swing and energy per row, and, per group of rows of one true
-    length, the frequency bands (for the first spec slot) and every
-    spec's verdicts on the valid prefix.  Only per-row metrics reach the
-    host.
+    Each chunk runs ``simulate_batch`` (padding to the longest row of the
+    whole batch when lengths mix) and reduces to metrics on the device:
+    swing and energy per row, and, per group of rows of one true length,
+    the frequency bands (for the first spec slot) and every spec's
+    verdicts on the valid prefix, in slices of ``ANALYSIS_ROWS`` rows.
+    Only per-row metrics reach the host.  Tail chunks are padded to
+    ``chunk_size`` by repeating the last row (and its key) and sliced
+    back.  Chunk ``k+1`` is dispatched before chunk ``k``'s metrics are
+    read on the host, and those arrive by non-blocking copies, so the
+    host dispatches while the card computes.  Per-row values do not
+    depend on the chunking.
+
+    ``skip_rows`` skips every chunk whose rows all lie below it without
+    dispatching it (the resume path restores those from disk); it must
+    fall on a chunk boundary.
     """
     cfg = wave_cfg or WaveformConfig()
     (tls, chips, seed_list, dev_list, rack_list, level_rows,
      B) = _prepare_rows(timelines, n_chips, seeds, device_mitigation,
                         rack_mitigation, levels, cfg, hw)
-    if chunk_size is not None and chunk_size < B:
-        raise NotImplementedError(CHUNKED_NOT_PORTED)
     spec_list = list(specs) if isinstance(specs, (list, tuple)) else [specs]
+    S = len(spec_list)
+    keys_t = _normalize_keys(keys, B, "cpu")
     lens = [len(r) for r in level_rows]
     if pad_to is None and len(set(lens)) > 1:
         pad_to = max(lens)
-    res = simulate_batch(tls, chips, cfg, device_mitigation=dev_list,
-                         rack_mitigation=rack_list, hw=hw, seeds=seed_list,
-                         sample_chips=sample_chips, levels=level_rows,
-                         pad_to=pad_to, device=device)
-    S = len(spec_list)
-    chunk = StreamChunk(
-        start=0, stop=B, n=res.dc_mitigated.shape[1],
-        n_valid=np.asarray(lens, np.int64),
-        energy_overhead=_host(res.energy_overhead),
-        swing=_host(res.swing), swing_mitigated=_host(res.swing_mitigated),
-        bands_mitigated=None, spec_ok=[None] * S, spec_flags=[None] * S,
-        spec_metrics=[None] * S)
-    groups: Dict[int, List[int]] = {}
-    for i, L in enumerate(lens):
-        groups.setdefault(L, []).append(i)
-    bands_cols: Dict[str, np.ndarray] = {}
-    for L, g in sorted(groups.items()):
-        sel = torch.tensor(g, device=res.dc_mitigated.device)
-        mit = res.dc_mitigated[sel, :L]
-        for si, sp in enumerate(spec_list):
-            do_bands = bands and si == 0
-            if sp is None and not do_bands:
-                continue
-            a = _host(analyze_batch(mit, cfg.dt, sp, bands=do_bands))
-            for k, v in a.get("bands_mitigated", {}).items():
-                bands_cols.setdefault(k, np.empty(B, v.dtype))[g] = v
-            if sp is None:
-                continue
-            if chunk.spec_ok[si] is None:
-                chunk.spec_ok[si] = np.zeros(B, bool)
-                chunk.spec_flags[si] = {k: np.zeros(B, bool)
-                                        for k in a["spec_flags"]}
-                chunk.spec_metrics[si] = [None] * B
-            chunk.spec_ok[si][g] = a["spec_ok"]
-            for k, v in a["spec_flags"].items():
-                chunk.spec_flags[si][k][g] = v
-            for j, i in enumerate(g):
-                chunk.spec_metrics[si][i] = {
-                    k: float(v[j]) for k, v in a["spec_metrics"].items()}
-    if bands_cols:
-        chunk.bands_mitigated = bands_cols
-    yield chunk
+    chunk_size = B if chunk_size is None else max(1, min(int(chunk_size), B))
+    n_chunks = -(-B // chunk_size)
+    if skip_rows % chunk_size and skip_rows < B:
+        raise ValueError(f"skip_rows={skip_rows} is not a chunk boundary of "
+                         f"chunk_size={chunk_size}")
+
+    def dispatch(lo: int, hi: int):
+        C = hi - lo
+        tail = chunk_size - C if n_chunks > 1 else 0
+
+        def sl(xs):
+            return xs[lo:hi] + [xs[hi - 1]] * tail
+
+        ks = None
+        if keys_t is not None:
+            ks = torch.cat([keys_t[lo:hi], keys_t[hi - 1:hi].expand(tail, 2)])
+        res = simulate_batch(sl(tls), sl(chips), cfg,
+                             device_mitigation=sl(dev_list),
+                             rack_mitigation=sl(rack_list), hw=hw,
+                             seeds=sl(seed_list), keys=ks,
+                             sample_chips=sample_chips,
+                             levels=sl(level_rows), pad_to=pad_to,
+                             device=device)
+        groups: Dict[int, List[int]] = {}
+        for i in range(C):
+            groups.setdefault(lens[lo + i], []).append(i)
+        gres = []
+        for L, g in sorted(groups.items()):
+            for part in _analysis_slices(g):
+                sel = torch.tensor(part, device=res.dc_mitigated.device)
+                mit = res.dc_mitigated[sel, :L]
+                per_spec = []
+                for si, sp in enumerate(spec_list):
+                    do_bands = bands and si == 0
+                    per_spec.append(
+                        None if sp is None and not do_bands else _to_host(
+                            analyze_batch(mit, cfg.dt, sp, bands=do_bands)))
+                gres.append((part, per_spec))
+        direct = _to_host({"eo": res.energy_overhead[:C],
+                           "sw": {k: v[:C] for k, v in res.swing.items()},
+                           "swm": {k: v[:C] for k, v in
+                                   res.swing_mitigated.items()}})
+        done = None
+        if res.dc_mitigated.is_cuda:
+            done = torch.cuda.Event()
+            done.record()
+        return lo, hi, res.dc_mitigated.shape[1], direct, gres, done
+
+    def materialize(pending) -> StreamChunk:
+        lo, hi, n, direct, gres, done = pending
+        if done is not None:
+            done.synchronize()
+        C = hi - lo
+        direct = _numpy(direct)
+        chunk = StreamChunk(
+            start=lo, stop=hi, n=n, n_valid=np.asarray(lens[lo:hi], np.int64),
+            energy_overhead=direct["eo"], swing=direct["sw"],
+            swing_mitigated=direct["swm"], bands_mitigated=None,
+            spec_ok=[None] * S, spec_flags=[None] * S,
+            spec_metrics=[None] * S)
+        bands_cols: Dict[str, np.ndarray] = {}
+        seen = set()
+        for part, per_spec in gres:
+            # a slice's padding repeats a row it already holds
+            keep = [j for j, i in enumerate(part) if i not in seen]
+            g = [part[j] for j in keep]
+            seen.update(g)
+            for si, a in enumerate(per_spec):
+                if a is None:
+                    continue
+                a = _numpy(a)
+                for k, v in a.get("bands_mitigated", {}).items():
+                    bands_cols.setdefault(k, np.empty(C, v.dtype))[g] = v[keep]
+                if spec_list[si] is None:
+                    continue
+                if chunk.spec_ok[si] is None:
+                    chunk.spec_ok[si] = np.zeros(C, bool)
+                    chunk.spec_flags[si] = {k: np.zeros(C, bool)
+                                            for k in a["spec_flags"]}
+                    chunk.spec_metrics[si] = [None] * C
+                chunk.spec_ok[si][g] = a["spec_ok"][keep]
+                for k, v in a["spec_flags"].items():
+                    chunk.spec_flags[si][k][g] = v[keep]
+                for j, i in zip(keep, g):
+                    chunk.spec_metrics[si][i] = {
+                        k: float(v[j]) for k, v in a["spec_metrics"].items()}
+        if bands_cols:
+            chunk.bands_mitigated = bands_cols
+        return chunk
+
+    pending = None
+    for lo in range(0, B, chunk_size):
+        hi = min(lo + chunk_size, B)
+        if hi <= skip_rows:
+            continue
+        cur = dispatch(lo, hi)
+        if pending is not None:
+            yield materialize(pending)
+        pending = cur
+    if pending is not None:
+        yield materialize(pending)
 
 
 # ---------------------------------------------------------------------------

@@ -11,14 +11,21 @@ per mitigation, in one pass.
 
 ``apply_batch`` consumes the power the load *wants* to draw and returns
 the power the upstream level *sees*, plus an aux dict of per-row tensors.
-``Stack`` composes stages in load->utility order.
+A mitigation that consumes randomness (telemetry noise) takes per-row
+PRNG keys ``keys`` ``[B, 2]`` (``core/prng.py``) as a keyword of its
+``apply_batch``; ``apply_mitigation`` passes them to such classes only.
+``Stack`` composes stages in load->utility order, stage ``i`` drawing
+from ``fold_in(key, i)``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Protocol, Sequence, Tuple
+import inspect
+from typing import Dict, Optional, Protocol, Sequence, Tuple
 
 import torch
+
+from repro_torch.core import prng
 
 # the ROADMAP queue A item that brings each relaxation / mitigation the
 # port does not run yet
@@ -37,29 +44,42 @@ class Mitigation(Protocol):
 
 def structure(mit) -> Tuple:
     """The batching key of a mitigation: class and static fields (for a
-    ``Stack``, the structures of its stages)."""
+    ``Stack``, the structures of its stages; for a mitigation with
+    ``NESTED_FIELDS``, the structures of those nested mitigations)."""
     if isinstance(mit, Stack):
         return ("Stack",) + tuple(structure(s) for s in mit.stages)
     fields = getattr(type(mit), "STATIC_FIELDS", None)
     if fields is None:
         raise NotImplementedError(
-            f"{type(mit).__name__} is not ported yet (ROADMAP queue A); "
-            "the port runs GpuPowerSmoothing, RackBattery, "
-            "TelemetryBackstop and Stack")
-    return (type(mit).__name__,) + tuple(getattr(mit, f) for f in fields)
+            f"{type(mit).__name__} is not a mitigation of the port; it runs "
+            "GpuPowerSmoothing, Firefly, RackBattery, TelemetryBackstop, "
+            "CombinedMitigation and Stack")
+    nested = getattr(type(mit), "NESTED_FIELDS", ())
+    return ((type(mit).__name__,) + tuple(getattr(mit, f) for f in fields)
+            + tuple(structure(getattr(mit, f)) for f in nested))
 
 
-def apply_mitigation(mits: Sequence, w: torch.Tensor, dt: float
+def accepts_keys(mit) -> bool:
+    """True when the mitigation's class consumes randomness: its
+    ``apply_batch`` takes per-row ``keys``."""
+    return "keys" in inspect.signature(type(mit).apply_batch).parameters
+
+
+def apply_mitigation(mits: Sequence, w: torch.Tensor, dt: float,
+                     keys: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Dict]:
     """Apply one structure group of mitigations row-wise to ``w``
-    ``[len(mits), n]``."""
+    ``[len(mits), n]``; ``keys`` ``[len(mits), 2]`` reach the class only
+    if it takes them."""
     mits = list(mits)
-    keys = {structure(m) for m in mits}
-    if len(keys) != 1:
+    structs = {structure(m) for m in mits}
+    if len(structs) != 1:
         raise ValueError(f"mitigations of one batch must share a structure, "
-                         f"got {sorted(map(str, keys))}")
+                         f"got {sorted(map(str, structs))}")
     if w.dim() != 2 or w.shape[0] != len(mits):
         raise ValueError(f"w must be [{len(mits)}, n], got {tuple(w.shape)}")
+    if keys is not None and accepts_keys(mits[0]):
+        return type(mits[0]).apply_batch(mits, w, dt, keys=keys)
     return type(mits[0]).apply_batch(mits, w, dt)
 
 
@@ -97,10 +117,12 @@ class Stack:
         object.__setattr__(self, "stages", tuple(self.stages))
 
     @classmethod
-    def apply_batch(cls, mits: Sequence["Stack"], w: torch.Tensor, dt: float
+    def apply_batch(cls, mits: Sequence["Stack"], w: torch.Tensor, dt: float,
+                    keys: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Dict]:
         aux_all: Dict = {}
         for i, stage in enumerate(mits[0].stages):
-            w, aux = apply_mitigation([m.stages[i] for m in mits], w, dt)
+            k = None if keys is None else prng.fold_in(keys, i)
+            w, aux = apply_mitigation([m.stages[i] for m in mits], w, dt, k)
             aux_all[f"{i}:{type(stage).__name__}"] = aux
         return w, aux_all

@@ -7,8 +7,9 @@ few whole-batch passes on the card, query the results.
       fleets=[256, 512],
       configs={"none": None, "mpf90+bat": (gpu, battery)},
       specs=example_specs(job_mw=100.0),
-      seeds=[0, 1])
-  result = study.run()
+      seeds=[0, 1],
+      key=0)
+  result = study.run()                      # or run(stream=512, resume=dir)
   result.passing().pivot("workload", "config", "energy_overhead")
 
 Rows are grouped by mitigation *structure* (a disabled stage joins the
@@ -16,23 +17,37 @@ first concrete structure); ``padding="pad"`` runs each group's mixed
 lengths as one padded batch, ``"bucket"`` one batch per length, and
 ``"auto"`` pads iff lengths mix.  Physics runs once per (workload, fleet,
 config, seed) row; each spec then judges every row.  Results come back
-as a columnar ``StudyResult``.
+as a columnar ``StudyResult`` with query and export helpers.
+
+``key`` is the PRNG root of mitigation randomness (telemetry noise):
+pipeline row ``r`` draws from ``fold_in(prng_key(key), r)``, the key JAX
+would give the reference's row (``core/prng.py``); ``key=None`` gives
+every row the shared ``prng_key(0)`` draw.  ``run(stream=N)`` runs each
+call stream in chunks of ``N`` rows (``True``: ``DEFAULT_STREAM_CHUNK``),
+equal to the one-shot run bit for bit, and ``resume=dir`` checkpoints
+each chunk there (``ckpt/resume.py``) so that a stopped or extended run
+computes only what is missing.
 
 ``device=None`` means ``"cuda"``, and a run without a card raises unless
 the caller asked for ``device="cpu"`` (the kernels' plain versions).
-Chunked streaming (``stream=``), ``resume=``, scenario sharding
-(``plan=``) and ``optimize()`` are not ported yet and raise
-``NotImplementedError``.
+Scenario sharding (``plan=``), ``keep_waveforms`` and ``optimize()`` are
+not ported yet.
 """
 from __future__ import annotations
 
+import csv
 import dataclasses
+import io
 import json
-from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
+import time
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
 
+from repro_torch.ckpt.resume import SweepCheckpoint
+from repro_torch.core import prng
 from repro_torch.core.engine import StreamChunk, stream_batches
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
 from repro_torch.core.phases import IterationTimeline
@@ -43,11 +58,10 @@ from repro_torch.device import resolve_device
 
 PADDING_MODES = ("auto", "pad", "bucket")
 
+# chunk size of Study.run(stream=True)
+DEFAULT_STREAM_CHUNK = 512
+
 NOT_PORTED = {
-    "stream": "Study.run(stream=...) is not ported yet: ROADMAP queue A, "
-              "chunked streaming and resume",
-    "resume": "Study.run(resume=...) is not ported yet: ROADMAP queue A, "
-              "chunked streaming and resume",
     "plan": "scenario sharding (plan=, shard_devices=) is not ported yet: "
             "ROADMAP queue A, parallel/",
     "optimize": "Study.optimize() is not ported yet: ROADMAP queue A, the "
@@ -66,6 +80,25 @@ class MitigationConfig:
     name: str
     device: Optional[object] = None
     rack: Optional[object] = None
+
+    @property
+    def enabled(self) -> bool:
+        return self.device is not None or self.rack is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """One cell of the study grid: records align by ``index``; ``row`` is
+    the pipeline row, shared across the spec axis and the input to
+    ``Study.scenario_key``."""
+    index: int
+    row: int
+    workload: str
+    n_chips: int
+    config: MitigationConfig
+    spec_name: Optional[str]
+    spec: Optional[UtilitySpec]
+    seed: int
 
 
 def _one_config(name: str, entry) -> MitigationConfig:
@@ -142,37 +175,92 @@ def _structure_groups(rows) -> List[List[int]]:
     return list(groups.values())
 
 
+def _chunk_size(stream) -> Optional[int]:
+    """``Study.run``'s ``stream`` -> chunk size (None: one chunk)."""
+    if stream is None or stream is False:
+        return None
+    if stream is True:
+        return DEFAULT_STREAM_CHUNK
+    chunk_size = int(stream)
+    if chunk_size < 1:
+        raise ValueError(f"stream chunk size must be >= 1, got {stream}")
+    return chunk_size
+
+
 def run_rows(workloads: Mapping[str, IterationTimeline],
              rows: Sequence[Tuple[str, int, MitigationConfig, int]],
              specs: Sequence[Tuple[Optional[str], Optional[UtilitySpec]]],
              *, wave_cfg: Optional[WaveformConfig] = None,
-             hw: Hardware = DEFAULT_HW, padding: str = "auto",
-             sample_chips: int = 64, device=None) -> "StudyResult":
+             hw: Hardware = DEFAULT_HW, keys: Optional[Sequence] = None,
+             padding: str = "auto", stream: Union[None, bool, int] = None,
+             sample_chips: int = 64,
+             on_chunk: Optional[Callable[[int, int, float], None]] = None,
+             resume: Optional[str] = None, device=None) -> "StudyResult":
     """Run an explicit list of pipeline rows ``(workload_name, n_chips,
     MitigationConfig, seed)`` and return the columnar ``StudyResult``
-    (record ``r * len(specs) + si`` is row ``r`` under spec ``si``)."""
+    (record ``r * len(specs) + si`` is row ``r`` under spec ``si``).
+
+    ``keys`` gives one PRNG key per row (None: the shared draw).
+    ``stream`` picks the chunk size as in ``Study.run``.  ``on_chunk(done,
+    total, elapsed_s)`` is called after every chunk with the pipeline rows
+    finished so far.  ``resume=dir`` checkpoints every finished chunk into
+    ``dir`` (``ckpt/resume.SweepCheckpoint``); a rerun with the same, or
+    an append-extended, row list restores the finished chunks (reported
+    in one leading ``on_chunk`` call per call stream) and computes only
+    the rest, equal to an uninterrupted run.  A changed grid, chunk size
+    or a corrupt checkpoint raises ``ResumeError``.  ``resume`` needs
+    ``stream``."""
     dev = resolve_device(device)
     cfg = wave_cfg or WaveformConfig()
     if padding not in PADDING_MODES:
         raise ValueError(f"padding must be one of {PADDING_MODES}")
+    chunk_size = _chunk_size(stream)
     rows, specs = list(rows), list(specs)
+    if keys is not None:
+        keys = [prng.as_key(k) for k in keys]
+        if len(keys) != len(rows):
+            raise ValueError(f"keys: got {len(keys)}, expected {len(rows)}")
     levels = {w: phase_levels(workloads[w], cfg, hw)
               for w in {w for w, _, _, _ in rows}}
     row_len = [len(levels[w]) for w, _, _, _ in rows]
     mode = padding
     if mode == "auto":
         mode = "pad" if len(set(row_len)) > 1 else "bucket"
+    ckpt = None
+    if resume is not None:
+        if chunk_size is None:
+            raise ValueError(
+                "resume= requires streaming (pass stream=True or stream=N): "
+                "chunk boundaries are the checkpoint points")
+        ckpt = SweepCheckpoint(resume)
+        ckpt.validate_or_init(workloads=workloads, rows=rows, specs=specs,
+                              keys=keys, cfg=cfg, hw=hw, mode=mode,
+                              sample_chips=sample_chips,
+                              chunk_size=chunk_size)
     cols = _empty_columns(len(rows) * len(specs))
-    for sg_rows in _structure_groups(rows):
+    total, done = len(rows), 0
+    t0 = time.perf_counter()
+    for gi, sg_rows in enumerate(_structure_groups(rows)):
         if mode == "pad":
-            calls = [sg_rows]
+            calls = [(f"g{gi}-pad", sg_rows)]
         else:
             by_len: Dict[int, List[int]] = {}
             for r in sg_rows:
                 by_len.setdefault(row_len[r], []).append(r)
-            calls = [idx for _, idx in sorted(by_len.items())]
-        for idx in calls:
+            calls = [(f"g{gi}-L{L}", idx)
+                     for L, idx in sorted(by_len.items())]
+        for call_key, idx in calls:
             lens = {row_len[r] for r in idx}
+            cs = max(1, min(chunk_size or len(idx), len(idx)))
+            skip = 0
+            if ckpt is not None:
+                skip = ckpt.restore_call(call_key, idx, cs, cols, len(specs))
+                if skip:
+                    done += skip
+                    if on_chunk is not None:
+                        on_chunk(done, total, time.perf_counter() - t0)
+                if skip >= len(idx):
+                    continue
             for ch in stream_batches(
                     [workloads[rows[r][0]] for r in idx],
                     [rows[r][1] for r in idx], cfg,
@@ -180,12 +268,20 @@ def run_rows(workloads: Mapping[str, IterationTimeline],
                     rack_mitigation=[rows[r][2].rack for r in idx],
                     specs=[sp for _, sp in specs], hw=hw,
                     seeds=[rows[r][3] for r in idx],
+                    keys=(None if keys is None
+                          else torch.stack([keys[r] for r in idx])),
                     sample_chips=sample_chips,
                     levels=[levels[rows[r][0]] for r in idx],
                     pad_to=max(lens) if len(lens) > 1 else None,
-                    bands=True, device=dev):
+                    chunk_size=cs, bands=True, skip_rows=skip, device=dev):
                 _fill_chunk(cols, rows, row_len, idx, ch, specs=specs,
                             workloads=workloads)
+                if ckpt is not None:
+                    ckpt.save_chunk(call_key, idx, ch.start, ch.stop, cols,
+                                    len(specs))
+                done += len(ch)
+                if on_chunk is not None:
+                    on_chunk(done, total, time.perf_counter() - t0)
     return StudyResult(columns=cols)
 
 
@@ -224,8 +320,9 @@ def _fill_chunk(cols: Dict[str, np.ndarray], rows, row_len, idx: List[int],
             cols["spec_ok"][p] = report.ok
             cols["violations"][p] = report.violations
             # spec metrics live in numeric side columns "metrics:<name>"
-            # (NaN = not measured for this record), not per-record dicts
-            for mk, mv in report.metrics.items():
+            # (NaN = not measured for this record), not per-record dicts,
+            # made in name order (the reference's metric dicts are sorted)
+            for mk, mv in sorted(report.metrics.items()):
                 mc = cols.get("metrics:" + mk)
                 if mc is None:
                     mc = cols["metrics:" + mk] = np.full(len(cols["index"]),
@@ -246,12 +343,17 @@ class Study:
       configs    name -> None | MitigationConfig | (device, rack) pair
       specs      None | UtilitySpec | dict name -> spec | sequence
       seeds      jitter seeds (per-chip phase jitter draws)
+
+    ``key`` is the PRNG root: an int seed, or a key (a tensor or array of
+    two uint32 words, the port's form of a JAX key); pipeline row ``r``
+    draws from ``fold_in(root, r)``.  ``None`` gives every row the shared
+    draw.
     """
 
     def __init__(self, workloads, *, fleets=(512,), configs=None,
                  specs=None, seeds=(0,),
                  wave_cfg: Optional[WaveformConfig] = None,
-                 hw: Hardware = DEFAULT_HW, padding: str = "auto",
+                 hw: Hardware = DEFAULT_HW, key=0, padding: str = "auto",
                  sample_chips: int = 64, device=None, plan=None):
         if padding not in PADDING_MODES:
             raise ValueError(f"padding must be one of {PADDING_MODES}")
@@ -264,6 +366,7 @@ class Study:
         self.seeds = [int(s) for s in _as_seq(seeds)]
         self.wave_cfg = wave_cfg or WaveformConfig()
         self.hw = hw
+        self.key = None if key is None else prng.as_key(key)
         self.padding = padding
         self.sample_chips = sample_chips
         self.device = device
@@ -287,6 +390,22 @@ class Study:
                 for w in self.workloads for n in self.fleets
                 for c in self.configs for s in self.seeds]
 
+    def scenarios(self) -> List[Scenario]:
+        out = []
+        for r, (w, n, c, s) in enumerate(self.rows()):
+            for sn, sp in self.specs:
+                out.append(Scenario(index=len(out), row=r, workload=w,
+                                    n_chips=n, config=c, spec_name=sn,
+                                    spec=sp, seed=s))
+        return out
+
+    def scenario_key(self, row: int) -> Optional[torch.Tensor]:
+        """The key pipeline row ``row`` draws mitigation randomness from:
+        int64 ``[2]`` on the CPU, or None without a root key."""
+        if self.key is None:
+            return None
+        return prng.fold_in(self.key, row)
+
     def describe(self) -> str:
         lens = sorted({len(phase_levels(tl, self.wave_cfg, self.hw))
                        for tl in self.workloads.values()})
@@ -296,18 +415,24 @@ class Study:
                 f"({len(self.specs)} specs -> {len(self)} records); "
                 f"waveform lengths {lens}, padding={self.padding}")
 
-    def run(self, *, padding: Optional[str] = None, stream=None,
+    def run(self, *, padding: Optional[str] = None,
+            stream: Union[None, bool, int] = None,
+            on_chunk: Optional[Callable[[int, int, float], None]] = None,
             resume: Optional[str] = None) -> "StudyResult":
-        """Run the whole grid as one batch per structure group (and per
-        length in bucket mode) on the study's device."""
-        if stream not in (None, False):
-            raise NotImplementedError(NOT_PORTED["stream"])
-        if resume is not None:
-            raise NotImplementedError(NOT_PORTED["resume"])
-        return run_rows(self.workloads, self.rows(), self.specs,
-                        wave_cfg=self.wave_cfg, hw=self.hw,
-                        padding=padding or self.padding,
-                        sample_chips=self.sample_chips, device=self.device)
+        """Run the grid on the study's device: one call stream per
+        structure group (and per length in bucket mode), each in one chunk
+        (``stream`` None or False), in chunks of ``DEFAULT_STREAM_CHUNK``
+        rows (True) or of ``stream`` rows, the same records bit for bit
+        either way.  ``on_chunk`` and ``resume`` as in ``run_rows``."""
+        rows = self.rows()
+        keys = (None if self.key is None else
+                list(prng.fold_in(self.key,
+                                  torch.arange(len(rows), dtype=torch.int64))))
+        return run_rows(self.workloads, rows, self.specs,
+                        wave_cfg=self.wave_cfg, hw=self.hw, keys=keys,
+                        padding=padding or self.padding, stream=stream,
+                        sample_chips=self.sample_chips, on_chunk=on_chunk,
+                        resume=resume, device=self.device)
 
     def optimize(self, **_):
         raise NotImplementedError(NOT_PORTED["optimize"])
@@ -416,6 +541,42 @@ class StudyResult:
         ok = self._field("spec_ok")
         return self._subset([i for i in range(self._n) if ok[i]])
 
+    def failing(self) -> "StudyResult":
+        ok = self._field("spec_ok")
+        return self._subset([i for i in range(self._n) if ok[i] is False])
+
+    def unique(self, field: str) -> List:
+        """A field's distinct values in first-seen order."""
+        seen: Dict = {}
+        for v in self._field(field):
+            seen.setdefault(_to_py(v), None)
+        return list(seen)
+
+    def best(self, by: str = "energy_overhead",
+             among_passing: bool = True) -> Optional[Dict]:
+        """The record of least ``by`` (among spec-passing ones by
+        default), or None."""
+        pool = self.passing() if among_passing else self
+        if not len(pool):
+            return None
+        vals = pool._field(by)
+        return pool._row(int(np.argmin([_to_py(v) for v in vals])))
+
+    def passing_configs(self, **where) -> List[str]:
+        """Names of the configs every matching record of which passes its
+        spec, ordered by worst-case energy overhead."""
+        sub = self.filter(**where)
+        configs, oks = sub._field("config"), sub._field("spec_ok")
+        overheads = sub._field("energy_overhead")
+        worst: Dict[str, float] = {}
+        ok: Dict[str, bool] = {}
+        for i in range(len(sub)):
+            c = configs[i]
+            ok[c] = ok.get(c, True) and bool(oks[i])
+            worst[c] = max(worst.get(c, -np.inf), overheads[i])
+        return sorted((c for c, good in ok.items() if good),
+                      key=lambda c: worst[c])
+
     def pivot(self, index: str, columns: str,
               values: str = "spec_ok") -> Dict:
         """Nested dict table: ``pivot("workload", "config",
@@ -453,4 +614,34 @@ class StudyResult:
 
     def to_records(self) -> List[Dict]:
         """JSON-safe copies (tuples -> lists) of every record."""
-        return json.loads(json.dumps(self.records, default=list))
+        return json.loads(self.to_json())
+
+    def to_json(self, path: Optional[str] = None) -> str:
+        """Every record as a JSON list (written to ``path`` if given)."""
+        text = json.dumps(self.records, indent=2, default=list)
+        if path is not None:
+            with open(path, "w") as fh:
+                fh.write(text + "\n")
+        return text
+
+    def to_csv(self, path: Optional[str] = None) -> str:
+        """Scalar record fields as CSV (violations joined by ``;``, the
+        metric dict flattened under a ``metrics.`` prefix)."""
+        rows = []
+        for r in self.records:
+            flat = {k: v for k, v in r.items()
+                    if not isinstance(v, (dict, tuple, list))}
+            flat["violations"] = ";".join(r.get("violations", ()))
+            for k, v in r.get("metrics", {}).items():
+                flat[f"metrics.{k}"] = v
+            rows.append(flat)
+        fields = list(dict.fromkeys(k for row in rows for k in row))
+        buf = io.StringIO()
+        writer = csv.DictWriter(buf, fieldnames=fields)
+        writer.writeheader()
+        writer.writerows(rows)
+        text = buf.getvalue()
+        if path is not None:
+            with open(path, "w") as fh:
+                fh.write(text)
+        return text

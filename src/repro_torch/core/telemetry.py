@@ -16,20 +16,22 @@ detect)``; sample indices are int64, so ``detect`` is exact at any trace
 length.  ``escalation_step`` is one amplitude-facing step on the carry
 as a tuple of tensors (the control plane's per-tick controller).
 
-``TelemetrySource`` is the host sensor model (sampling period, read-out
-latency, noise, quantization) on numpy, with the reference's numpy
-random draws.  Its traced mirror ``measure_jax`` is not ported yet
-(ROADMAP queue A, Firefly).
+``TelemetrySource`` is the sensor model (sampling period, read-out
+latency, noise, quantization): ``measure`` on numpy with the reference's
+numpy random draws, and ``measure_batch``, the reference's ``measure_jax``
+on a batch of rows ``[B, n]``, its noise drawn from per-row keys by
+``core/prng.py`` (the draws ``jax.random.normal`` gives for those keys).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels.build import CudaKernel, ptr, stream_of
 
 #: escalation sample classes.  CLS_PAD is the identity transition.
@@ -207,3 +209,47 @@ class TelemetrySource:
         if self.quantization_w > 0:
             m = np.round(m / self.quantization_w) * self.quantization_w
         return m
+
+    def measure_batch(self, w: torch.Tensor, dt: float,
+                      keys: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The sampled, delayed, noisy and quantized view ``[B, n]`` of true
+        power ``w`` ``[B, n]`` (float32), row ``b``'s noise drawn from
+        ``keys[b]`` (``[B, 2]``; None: every row draws from
+        ``prng_key(0)``, as the reference does without a key).
+
+        The sampling indices are static.  ``averaged=True`` is a causal
+        boxcar of ``k`` samples, summed in float64 as prefix sums and
+        rounded once (the reference convolves in float32: ROADMAP queue
+        C).  Rounding to ``quantization_w`` is half to even."""
+        w = w.to(torch.float32)
+        B, n = w.shape
+        k = max(int(round(self.period_s / dt)), 1)
+        lag = int(round(self.latency_s / dt))
+        if self.averaged and k > 1:
+            c = torch.cumsum(w.to(torch.float64), dim=-1)
+            c = torch.cat([torch.zeros_like(c[:, :1]), c], dim=-1)
+            i = torch.arange(1, n + 1, device=w.device)
+            kk = torch.tensor(float(k), dtype=torch.float64, device=w.device)
+            base = ((c[:, 1:] - c[:, torch.clamp(i - k, min=0)]) / kk
+                    ).to(torch.float32)
+        else:
+            base = w
+        idx = np.clip((np.arange(n) // k) * k - lag, 0, n - 1)
+        m = base[:, torch.as_tensor(idx, device=w.device)]
+        if self.noise_w > 0:
+            if keys is None:
+                z = prng.normal(prng.prng_key(0, w.device), n)[None]
+            else:
+                z = prng.normal(keys.to(w.device), n)
+            m = m + _f32(self.noise_w, w) * z
+        if self.quantization_w > 0:
+            q = _f32(self.quantization_w, w)
+            m = torch.round(m / q) * q
+        return m
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A float32 constant on ``like``'s device: a 0-dim device tensor, so a
+    division by it is a true division (a Python scalar divisor may run
+    as a multiplication by its reciprocal on the card)."""
+    return torch.tensor(v, dtype=torch.float32, device=like.device)

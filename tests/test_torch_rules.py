@@ -160,11 +160,14 @@ def test_model_entry_points_without_a_card_raise_unless_cpu_is_asked(
 def test_unported_options_raise():
     study = api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
                       wave_cfg=api.WaveformConfig(dt=0.01, steps=2))
-    for kw in ({"stream": 4}, {"stream": True}, {"resume": "ckpt"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            study.run(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         study.optimize()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
+                  plan=object())
+    from repro_torch.ckpt import restore_pytree
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        restore_pytree("ckpt", {}, shardings={})
     relaxed = api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
                         wave_cfg=api.WaveformConfig(dt=0.01, steps=2),
                         configs={"g": (api.GpuPowerSmoothing(smooth_tau=0.1),
@@ -190,13 +193,21 @@ def _reference_objects():
         "UtilitySpec": core.example_specs(12.0)["tight"],
         "GpuPowerSmoothing": gpu, "RackBattery": bat,
         "TelemetryBackstop": bs,
+        "TelemetrySource": core.TelemetrySource(period_s=0.004, noise_w=5.0,
+                                                averaged=True),
+        "Firefly": core.Firefly(engage_frac=0.9, threshold_frac=0.85,
+                                telemetry=core.TelemetrySource(
+                                    latency_s=0.004, noise_w=20.0),
+                                ballast_steps=16),
+        "CombinedMitigation": core.CombinedMitigation(gpu, bat, 4096),
     }
 
 
 @pytest.mark.parametrize("kind", ["WaveformConfig", "IterationTimeline",
                                   "Hardware", "UtilitySpec",
                                   "GpuPowerSmoothing", "RackBattery",
-                                  "TelemetryBackstop"])
+                                  "TelemetryBackstop", "TelemetrySource",
+                                  "Firefly", "CombinedMitigation"])
 def test_convert_carries_reference_objects_across(kind):
     ref = _reference_objects()[kind]
     fields = dataclasses.asdict(ref)
@@ -222,4 +233,4 @@ def test_convert_builds_a_stack_and_reads_numpy_fields():
         "amp_threshold_w": np.float32(1e5)})
     assert bs.critical_hz == (0.5, 9.0) and bs.amp_threshold_w == 1e5
     with pytest.raises(ValueError, match="unknown kind"):
-        from_reference_fields("Firefly", {})
+        from_reference_fields("ScenarioShardPlan", {})

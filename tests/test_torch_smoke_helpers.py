@@ -455,3 +455,39 @@ def test_bin_power_calls_keep_each_windows_call(monkeypatch):
         assert wnd.shape == (8, 1000) and coef.shape == (7,) and block_w == 8
         assert raw.shape == (8, 7) and got.shape == (5, 7)
     assert ops.goertzel_windows.__name__ == "goertzel_windows"
+
+
+def test_keyed_study_shape_and_structure_groups():
+    """Phase 16's Study: eight configs, 128 rows and 256 records, four
+    call streams (the noise-free Firefly rows and the baseline share one
+    with the Firefly + battery rows), and the CPU subset's 16 rows."""
+    from repro_torch import api
+    from repro_torch.core.study import _structure_groups
+    study = chip_smoke.build_keyed_study(api, device="cpu")
+    assert len(study.configs) == 8 and study.n_rows == 128
+    assert len(study) == 256 and study.key is not None
+    assert len(_structure_groups(study.rows())) == 4
+    sel = [r for r, (w, n, c, s) in enumerate(study.rows())
+           if w in chip_smoke.KEYED_CPU_ROWS["workloads"]
+           and n in chip_smoke.KEYED_CPU_ROWS["fleets"]
+           and c.name in chip_smoke.KEYED_CPU_ROWS["configs"]]
+    assert len(sel) == 16
+    assert chip_smoke.build_keyed_study(api, key=None,
+                                        device="cpu").scenario_key(0) is None
+
+
+def test_columns_equal_is_bitwise_with_nan():
+    import numpy as np
+    from repro_torch.core.study import StudyResult
+
+    def result(x, name="a"):
+        return StudyResult({"index": np.arange(2), "v": np.asarray(x),
+                            "config": np.asarray([name, "b"], object)})
+    assert chip_smoke.columns_equal(result([1.0, np.nan]),
+                                    result([1.0, np.nan])) == []
+    assert chip_smoke.columns_equal(result([1.0, np.nan]),
+                                    result([1.0, 2.0])) == ["v"]
+    assert chip_smoke.columns_equal(result([0.0, 1.0]),
+                                    result([-0.0, 1.0])) == []
+    assert chip_smoke.columns_equal(result([1.0, 1.0]),
+                                    result([1.0, 1.0], "c")) == ["config"]
