@@ -54,6 +54,26 @@ a restore that computes nothing and an extension by one configuration
 that computes only its rows; checks that two keys draw two noises and
 ``key=None`` one; and re-runs 16 rows (noisy ones among them) on the CPU
 at phase 6's tolerances, counting where card and CPU noise differ.
+Phases 17 and 18 run after 16 and before 15.  Phase 17, the serial
+reference: phase 5's Study again with ``keep_waveforms=True`` (its
+records equal to phase 5's), ``simulate`` and ``simulate_jit`` on eight
+of its rows against each other (bit for bit) and against the kept
+``sim_result`` (bit for bit on the unpadded rows), ``sweep`` over its
+grid against its records, and ``apply_batch`` and ``validate_many``
+against per-row calls.  Phase 18, the design path at full size: the
+grid, gradient (120 Adam steps through kernels J and K, forward and
+adjoint) and hybrid designs on phase 5's longest workload (90 000
+samples) at both fleets and both specs, with the gradient design passing
+its spec and the hybrid never worse than the grid; J and K against their
+plain versions, forward and gradient, each output, the trace's gradient
+and each parameter column's gradient against its own max |plain|: on the
+CPU at the full shape of their first and last design calls with the most
+rows (one worker process a call, ``--jk-plain``, running while the card
+goes on), and on the card on those rows cut to 3000 samples; J and K
+timed alone with their chains; ``Study.optimize`` on the four cells
+against the hybrid designs; the first three Adam steps on the CPU's
+plain versions (the trace's first 3000 samples) against the card; and
+no J or K launch on any other path.
 It prints:
 
   * the card's name and power limit (``nvidia-smi``);
@@ -100,6 +120,10 @@ It prints:
     run, ``prng.normal``'s device ms and share of that busy time, and the
     CPU subset's gaps with the noise samples where card and CPU differ
     (and their largest gap in ulps);
+  * for phases 17 and 18: each gate's gaps and walls; each design's
+    wall, ms per Adam step, starts, first and last losses and chosen
+    (MPF, capacity); J's and K's launches, event and device ms, chain
+    floors and errors against their plain versions;
   * one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again,
     and, last, ``{"ok": true, "device": {...}}``.
 
@@ -239,7 +263,7 @@ def study_configs(api):
 
 
 def build_study(api, workloads=None, fleets=FLEETS, configs=None,
-                device="cuda"):
+                device="cuda", keep_waveforms=False):
     periods = {"dense_1s": (1.0, False), "dense_1p5s": (1.5, False),
                "moe_2s": (2.0, True), "dense_3s": (3.0, False)}
     all_wl = {k: api.synthetic_timeline(p, 0.25, moe_notch=moe)
@@ -251,7 +275,7 @@ def build_study(api, workloads=None, fleets=FLEETS, configs=None,
         configs={k: cfgs[k] for k in (configs or cfgs)},
         specs=[specs[n] for n in SPEC_NAMES], seeds=list(SEEDS),
         wave_cfg=api.WaveformConfig(dt=DT, steps=30, jitter_s=0.002),
-        sample_chips=64, device=device)
+        sample_chips=64, keep_waveforms=keep_waveforms, device=device)
 
 
 class Capture:
@@ -260,10 +284,15 @@ class Capture:
     levels of every backstop row.  ``by="rows"`` keeps the first call
     with the most rows (the Study's batches); ``by="numel"`` the last call
     with the most elements (the control loop's one-row calls, whose
-    latest carry the most signal)."""
+    latest carry the most signal).  Kernels J and K (``RELAXED_KEPT``)
+    also keep, in ``last``, the last call with the most rows (a design's
+    late Adam step).  Every ``_design_descend`` is timed (synchronised)
+    into ``descend_s``, and every Adam step's gradients, as they reach
+    ``clip_by_global_norm``, are copied into ``grads``."""
 
     def __init__(self, torch, by="rows"):
         self.by = by
+        from repro_torch.core import engine
         from repro_torch.core.smoothing import battery, gpu_floor
         from repro_torch.kernels.goertzel import ops
         self.torch = torch
@@ -271,9 +300,16 @@ class Capture:
                       (battery, "battery_scan", "battery"),
                       (ops, "sliding_monitor", "monitor"),
                       (ops, "escalation_scan", "escalation"),
-                      (ops, "sliding_bin_power_v2", "sliding")]
+                      (ops, "sliding_bin_power_v2", "sliding"),
+                      (gpu_floor, "gpu_floor_relaxed", "gpu_floor_relaxed"),
+                      (battery, "battery_relaxed", "battery_relaxed"),
+                      (engine, "_design_descend", "_design_descend"),
+                      (engine, "clip_by_global_norm", "clip_by_global_norm")]
         self.args = {}
+        self.last = {}
         self.max_levels = []
+        self.descend_s = []
+        self.grads = []
 
     def __enter__(self):
         self.saved = [(mod, attr, getattr(mod, attr))
@@ -286,7 +322,25 @@ class Capture:
         for mod, attr, fn in self.saved:
             setattr(mod, attr, fn)
 
+    def _copy(self, args):
+        return tuple(a.detach().clone() if isinstance(a, self.torch.Tensor)
+                     else a for a in args)
+
     def _wrap(self, fn, name):
+        torch = self.torch
+        if name == "_design_descend":
+            def timed(*args, **kw):
+                out, s = timed_run(torch, lambda: fn(*args, **kw))
+                self.descend_s.append(s)
+                return out
+            return timed
+        if name == "clip_by_global_norm":
+            def logged(tree, *args, **kw):
+                self.grads.append({k: v.detach().clone()
+                                   for k, v in tree.items()})
+                return fn(tree, *args, **kw)
+            return logged
+
         def wrapped(*args, **kw):
             out = fn(*args, **kw)
             if self.by == "rows":
@@ -296,9 +350,9 @@ class Capture:
                 rows = args[0].numel()
                 bigger = name not in self.args or rows >= self.args[name][0]
             if bigger:
-                keep = tuple(a.clone() if isinstance(a, self.torch.Tensor)
-                             else a for a in args)
-                self.args[name] = (rows, keep, dict(kw))
+                self.args[name] = (rows, self._copy(args), dict(kw))
+            if name in RELAXED_KEPT and rows >= self.args[name][0]:
+                self.last[name] = (rows, self._copy(args), dict(kw))
             if name == "escalation":
                 self.max_levels += out[1].amax(-1).tolist()
             return out
@@ -2609,6 +2663,816 @@ def keyed_study_phase(torch, api, build):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the serial reference and the batch helpers on phase 5's rows
+# ---------------------------------------------------------------------------
+
+# rows of phase 5's Study that phase 17 re-runs serially: (workload, fleet,
+# config, seed); dense_3s is the longest workload, so its rows are unpadded
+# in the Study and equal to the serial run bit for bit; dense_1s is padded
+SERIAL_ROWS = (("dense_3s", 32768, "none", 1),
+               ("dense_3s", 32768, "mpf90", 0),
+               ("dense_3s", 8192, "bat8MJ", 1),
+               ("dense_3s", 8192, "mpf75+bat30MJ", 0),
+               ("dense_3s", 32768, "bs8", 0),
+               ("dense_3s", 32768, "bat2MJ+bs3", 1),
+               ("dense_3s", 8192, "mpf60+bat8MJ+bs8", 1),
+               ("dense_1s", 8192, "mpf90+bat2MJ", 0))
+SERIAL_PAD_TOL = 1e-5     # padded rows: Study against serial, of max |w|
+SWEEP_RTOL = 1e-4         # sweep against the Study, unpadded rows
+VALIDATE_RTOL = 1e-5      # validate_many against per-row calls: metrics
+
+
+METRIC_LIMIT = {"max_ramp_up_w_per_s": "ramp_up_w_per_s",
+                "max_ramp_down_w_per_s": "ramp_down_w_per_s",
+                "dynamic_range_w": "dynamic_range_w",
+                "band_energy_fraction": "max_energy_fraction",
+                "ac_rms_frac": "min_ac_rms_frac"}
+
+
+def near_limit(spec, metrics, rtol=STUDY_RTOL):
+    """True when a metric lies within ``rtol`` of its limit: two sums of
+    one waveform in another order may then judge it differently."""
+    lim = spec.limits()
+    return any(abs(v - lim[METRIC_LIMIT[k]]) <= rtol * abs(
+        lim[METRIC_LIMIT[k]]) for k, v in metrics.items()
+        if k in METRIC_LIMIT)
+
+
+def study_row_index(study, key):
+    """The pipeline row of ``(workload, fleet, config, seed)``."""
+    return next(r for r, (w, n, c, s) in enumerate(study.rows())
+                if (w, n, c.name, s) == key)
+
+
+def serial_rows(torch, api, study, kept):
+    """``simulate`` and ``simulate_jit`` on the card for each of
+    ``SERIAL_ROWS`` against each other (bit for bit) and against the kept
+    Study's ``sim_result`` (bit for bit on unpadded rows, within
+    ``SERIAL_PAD_TOL`` on padded ones)."""
+    import numpy as np
+    spec = dict(study.specs)["moderate"]
+    out, walls = [], {"simulate": 0.0, "simulate_jit": 0.0}
+    for key in SERIAL_ROWS:
+        r = study_row_index(study, key)
+        w, n, c, s = study.rows()[r]
+        kw = dict(device_mitigation=c.device, rack_mitigation=c.rack,
+                  spec=spec, seed=s, device=DEVICE)
+        one, t1 = timed_run(torch, lambda: api.simulate(
+            study.workloads[w], n, study.wave_cfg,
+            sample_chips=study.sample_chips, **kw))
+        jit, t2 = timed_run(torch, lambda: api.simulate_jit(
+            study.workloads[w], n, study.wave_cfg, **kw))
+        walls["simulate"] += t1
+        walls["simulate_jit"] += t2
+        for f in ("dc_raw", "dc_mitigated", "chip_raw"):
+            if not np.array_equal(getattr(one, f), getattr(jit, f)):
+                raise AssertionError(f"[serial] simulate and simulate_jit "
+                                     f"differ in {f} on {key}")
+        if (one.spec_report != jit.spec_report
+                or one.energy_overhead != jit.energy_overhead):
+            raise AssertionError(f"[serial] simulate and simulate_jit "
+                                 f"differ in their report on {key}")
+        kept_row = kept.sim_result(r)
+        padded = len(kept_row.t) < study_max_len(study)
+        err = float(np.abs(kept_row.dc_mitigated.astype(np.float64)
+                           - one.dc_mitigated).max())
+        scale = float(np.abs(one.dc_mitigated).max())
+        bitwise = bool(np.array_equal(kept_row.dc_mitigated,
+                                      one.dc_mitigated))
+        if not (bitwise if not padded else err <= SERIAL_PAD_TOL * scale):
+            raise AssertionError(f"[serial] sim_result({r}) differs from "
+                                 f"simulate on {key}: {err} of {scale}")
+        rec = kept.filter(row=r, spec="moderate")[0]
+        if (rec["spec_ok"] != one.spec_report.ok and not padded
+                and not near_limit(spec, rec["metrics"])):
+            raise AssertionError(f"[serial] the Study's verdict differs from "
+                                 f"simulate's on {key}")
+        out.append({"row": key, "padded": padded, "bitwise": bitwise,
+                    "max_abs_err": err, "scale": scale})
+    return out, walls
+
+
+def study_max_len(study):
+    from repro_torch.core.waveform import phase_levels
+    return max(len(phase_levels(tl, study.wave_cfg, study.hw))
+               for tl in study.workloads.values())
+
+
+def sweep_vs_study(torch, api, study, res):
+    """``engine.sweep`` over phase 5's grid (one call a mitigation
+    structure) against ``Study.run``'s records for the moderate spec: the
+    unpadded rows (the longest workload) equal
+    within ``SWEEP_RTOL`` with their verdicts; the padded ones counted
+    (the Study pads shorter workloads and its backstop counts the pad as
+    live, the sweep buckets them unpadded)."""
+    from repro_torch.core.engine import sweep
+    from repro_torch.core.smoothing.base import structure
+    spec = dict(study.specs)["moderate"]
+    # one sweep per mitigation structure, as each batch takes one
+    groups = {}
+    for c in study.configs:
+        key = tuple(None if m is None else structure(m)
+                    for m in (c.device, c.rack))
+        groups.setdefault(key, []).append(c)
+    got, wall, n_recs = {}, 0.0, 0
+    for cfgs in groups.values():
+        recs, t = timed_run(torch, lambda: sweep(
+            study.workloads, study.fleets, [(c.device, c.rack) for c in cfgs],
+            study.wave_cfg, spec=spec, seeds=study.seeds,
+            sample_chips=study.sample_chips, device=DEVICE))
+        wall += t
+        n_recs += len(recs)
+        got.update({(r["workload"], r["n_chips"], cfgs[r["config"]].name,
+                     r["seed"]): r for r in recs})
+    longest = max(study.workloads, key=lambda k: study.workloads[k].period_s)
+    worst, compared, padded_diff = 0.0, 0, 0
+    for rec in res.filter(spec="moderate"):
+        key = (rec["workload"], rec["n_chips"], rec["config"], rec["seed"])
+        g = got[key]
+        diffs = [abs(g[k] - rec[k]) / max(abs(rec[k]), 1e-30) for k in (
+            "mean_mw", "swing_mw", "swing_mitigated_mw", "paper_band_frac")]
+        diffs.append(abs(g["energy_overhead"] - rec["energy_overhead"]))
+        if rec["workload"] != longest:
+            padded_diff += max(diffs) > SWEEP_RTOL
+            continue
+        if max(diffs) > SWEEP_RTOL or (g["spec_ok"] != rec["spec_ok"]
+                                       and not near_limit(spec,
+                                                          rec["metrics"])):
+            raise AssertionError(f"[serial] sweep differs from the Study on "
+                                 f"{key}: {g} vs {rec}")
+        worst = max(worst, max(diffs))
+        compared += 1
+    return {"records": n_recs, "sweeps": len(groups), "wall_s": wall,
+            "compared": compared,
+            "worst_rel": worst, "padded_rows_past_rtol": int(padded_diff)}
+
+
+def batch_helpers(torch, api, study, kept):
+    """``apply_batch`` (three floors on one chip trace, three batteries on
+    one aggregate) bit for bit against one ``np_apply`` a config, and
+    ``validate_many`` of the serial rows against one call a row (verdicts
+    equal, metrics within ``VALIDATE_RTOL``: the reductions pick their
+    order by the row count)."""
+    import numpy as np
+    from repro_torch.core.engine import apply_batch, validate_many
+    from repro_torch.core.smoothing.base import np_apply
+    cfgs = study_configs(api)
+    one = api.simulate(study.workloads["dense_3s"], FLEETS[0],
+                       study.wave_cfg, seed=0, device=DEVICE)
+    out = {}
+    for tag, names, x in (("floors", ("mpf60", "mpf75", "mpf90"),
+                           one.chip_raw),
+                          ("batteries", ("bat2MJ", "bat8MJ", "bat30MJ"),
+                           one.dc_raw)):
+        mits = [cfgs[n][0] if tag == "floors" else cfgs[n][1] for n in names]
+        (outs, _), wall = timed_run(torch, lambda: apply_batch(
+            mits, x, DT, device=DEVICE))
+        for i, m in enumerate(mits):
+            row, _ = np_apply(m, x, DT, device=DEVICE)
+            if not np.array_equal(outs[i], row):
+                raise AssertionError(f"[serial] apply_batch row {i} of "
+                                     f"{tag} differs from np_apply")
+        out[tag] = {"rows": len(mits), "shape": list(outs.shape),
+                    "wall_s": wall, "bitwise": True}
+    spec = dict(study.specs)["moderate"]
+    rows = [kept.sim_result(study_row_index(study, k)).dc_mitigated
+            for k in SERIAL_ROWS if k[0] == "dense_3s"]
+    ws = np.stack(rows)
+    (ok, reports), wall = timed_run(torch, lambda: validate_many(
+        ws, spec, DT, device=DEVICE))
+    worst = 0.0
+    for i in range(len(ws)):
+        ok1, rep1 = validate_many(ws[i:i + 1], spec, DT, device=DEVICE)
+        if bool(ok1[0]) != bool(ok[i]) or rep1[0].violations != \
+                reports[i].violations:
+            raise AssertionError(f"[serial] validate_many row {i} differs "
+                                 "from its own call")
+        for k, v in rep1[0].metrics.items():
+            d = abs(reports[i].metrics[k] - v) / max(abs(v), 1e-30)
+            if d > VALIDATE_RTOL:
+                raise AssertionError(f"[serial] validate_many metric {k} of "
+                                     f"row {i}: {reports[i].metrics[k]} vs "
+                                     f"{v}")
+            worst = max(worst, d)
+    out["validate_many"] = {"rows": len(ws), "wall_s": wall,
+                            "passing": int(ok.sum()), "worst_rel": worst}
+    return out
+
+
+def serial_phase(torch, api, build, res):
+    """Phase 17: phase 5's Study again with ``keep_waveforms=True`` (its
+    records equal to phase 5's bit for bit), the serial reference on rows
+    of it, the sweep over its grid, and the batch helpers."""
+    t17 = time.perf_counter()
+    study = build_study(api, keep_waveforms=True)
+    build.reset_launch_counts()
+    kept, wall = timed_run(torch, study.run)
+    bad = columns_equal(kept, res)
+    if bad:
+        raise AssertionError(f"[serial] keep_waveforms changed the records: "
+                             f"{bad}")
+    kept_mb = sum(w["dc_raw"].nbytes + w["dc_mitigated"].nbytes
+                  for w in kept.waveforms) / 1e6
+    log(f"[serial] Study(keep_waveforms=True): {wall:.3f} s, "
+        f"{len(kept.waveforms)} rows, {kept_mb:.1f} MB of waveforms")
+    rows, walls = serial_rows(torch, api, study, kept)
+    log("[serial] simulate / simulate_jit / sim_result: " + json.dumps(rows)
+        + "; walls " + json.dumps(walls))
+    sw = sweep_vs_study(torch, api, study, res)
+    log("[serial] sweep against the Study: " + json.dumps(sw))
+    helpers = batch_helpers(torch, api, study, kept)
+    log("[serial] batch helpers: " + json.dumps(helpers))
+    return {"launches": build.launch_counts(), "keep_waveforms_s": wall,
+            "waveforms_mb": kept_mb, "rows": rows, "walls": walls,
+            "sweep": sw, "helpers": helpers,
+            "phase_s": time.perf_counter() - t17}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the design path at full size, kernels J and K
+# ---------------------------------------------------------------------------
+
+DESIGN_WORKLOAD = "dense_3s"      # phase 5's longest: 90 000 samples
+DESIGN_STEPS = 120                # the reference's default
+# J and K against their plain versions: each output, the trace's gradient
+# and each parameter column's gradient, over its own max |plain| (a column
+# whose plain gradient is 0 everywhere must be 0)
+JK_TOL = 1e-4
+JK_CHECK_N = 3000                 # the card's plain check: its first 3 s
+JK_WAIT_S = 600.0                 # the CPU's full-shape checks, all four
+CPU_STEPS = 3                     # the Adam steps re-run on the CPU
+CPU_N = 3000                      # their trace: the cell's first 3 s
+CPU_TOL = 1e-3                    # CPU against card, rtol (+1e-5 of max)
+PROBE_REPEATS = 5                 # chain probe readings, after a warm-up
+RELAXED = ("gpu_floor_relaxed", "gpu_floor_relaxed_adjoint",
+           "battery_relaxed", "battery_relaxed_adjoint")
+RELAXED_KEPT = ("gpu_floor_relaxed", "battery_relaxed")
+# f32 operations a sample, as written in the sources (a transcendental
+# counted as one)
+JK_OPS = {"gpu_floor_relaxed": 43, "gpu_floor_relaxed_adjoint": 85,
+          "battery_relaxed": 55, "battery_relaxed_adjoint": 205}
+# bytes a sample each function must move, its inputs read once and its
+# outputs written once: J w -> out, its adjoint (w, g_out) -> g_w; K
+# w -> (grid, soc), its adjoint (w, g_grid, g_soc) -> g_w.  The per-row
+# parameters add 4 bytes a column (read; the adjoint also writes g_p).
+JK_BYTES = {"gpu_floor_relaxed": 8, "gpu_floor_relaxed_adjoint": 12,
+            "battery_relaxed": 12, "battery_relaxed_adjoint": 16}
+# bytes a sample of the carries the forward saves for the adjoint (J: the
+# idle counter and its output; K: soc, target, mode and hold): written by
+# the forward (beyond its outputs) and read by the adjoint; reported, not
+# in the bound
+JK_SAVED_BYTES = {"gpu_floor_relaxed": 4, "gpu_floor_relaxed_adjoint": 8,
+                  "battery_relaxed": 12, "battery_relaxed_adjoint": 16}
+JK_DEVICE_NAME = {"gpu_floor_relaxed": "floor_forward_kernel",
+                  "gpu_floor_relaxed_adjoint": "floor_adjoint_kernel",
+                  "battery_relaxed": "battery_forward_kernel",
+                  "battery_relaxed_adjoint": "battery_adjoint_kernel"}
+
+
+def jk_columns(name):
+    from repro_torch.core.smoothing import battery, gpu_floor
+    return (gpu_floor.PARAM_COLUMNS if name == "gpu_floor_relaxed"
+            else battery.RELAXED_COLUMNS)
+
+
+def jk_bound(name, B, n, cols):
+    """(bound ms, "bytes" or "operations") of J's or K's forward or
+    adjoint entry (``name``) on ``B`` rows of ``n`` samples and ``cols``
+    parameter columns."""
+    moves = 2 if name.endswith("_adjoint") else 1
+    return bound(JK_BYTES[name] * B * n + 4 * moves * B * cols,
+                 JK_OPS[name] * B * n)
+
+
+def jk_grads(torch, name, shape):
+    """The output gradients of a check, on the CPU: one ``[B, n]`` for J,
+    two (grid and SoC) for K, from seed 18."""
+    gen = torch.Generator().manual_seed(18)
+    k = 1 if name == "gpu_floor_relaxed" else 2
+    return tuple(torch.randn(tuple(shape), generator=gen) for _ in range(k))
+
+
+def jk_pass(torch, name, args, grads, plain):
+    """Forward and gradient of J (``gpu_floor_relaxed``) or K
+    (``battery_relaxed``), the kernels or (``plain``) their plain versions,
+    on ``args`` for the loss ``sum(out * g)`` (K: plus ``sum(soc *
+    g_soc)``): ``(outputs, d/dw, d/dparams, forward s, backward s)``."""
+    from repro_torch.core.smoothing import battery, gpu_floor
+    fn = {("gpu_floor_relaxed", False): gpu_floor.gpu_floor_relaxed,
+          ("gpu_floor_relaxed", True): gpu_floor.gpu_floor_relaxed_plain,
+          ("battery_relaxed", False): battery.battery_relaxed,
+          ("battery_relaxed", True): battery.battery_relaxed_plain}[
+        (name, plain)]
+    w, params = (a.detach().clone().requires_grad_(True) for a in args[:2])
+    grads = tuple(g.to(w.device) for g in grads)
+    outs, fwd_s = timed_run(torch, lambda: fn(w, params, *args[2:]))
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o * g).to(torch.float64).sum() for o, g in zip(outs, grads))
+    (gw, gp), bwd_s = timed_run(torch, lambda: torch.autograd.grad(
+        loss, (w, params)))
+    return tuple(o.detach() for o in outs), gw, gp, fwd_s, bwd_s
+
+
+def jk_fields(torch, name, got, ref):
+    """Each field of a check, ``got`` against ``ref`` (``jk_pass``'s first
+    three items): every output, ``d_w`` and ``d_<column>`` for each
+    parameter column, with its largest error (``abs``), its max |ref|
+    (``max``) and their ratio (``rel``; 0 or inf where max |ref| is 0)."""
+    import math
+    outs = ("out",) if name == "gpu_floor_relaxed" else ("grid", "soc")
+    pairs = list(zip(outs, got[0], ref[0]))
+    pairs.append(("d_w", got[1], ref[1]))
+    pairs += [(f"d_{c}", got[2][:, i], ref[2][:, i])
+              for i, c in enumerate(jk_columns(name))]
+    fields = {}
+    for k, x, y in pairs:
+        x = x.detach().cpu().to(torch.float64)
+        y = y.detach().cpu().to(torch.float64)
+        a = float((x - y).abs().max())
+        m = float(y.abs().max())
+        rel = a / m if m > 0 else (0.0 if a == 0 else math.inf)
+        fields[k] = {"abs": a, "max": m, "rel": rel}
+    return fields
+
+
+def jk_summary(fields):
+    """The largest errors of a check's outputs and of its gradients, and
+    the gradient field with the largest ``rel``."""
+    outs = {k: f for k, f in fields.items() if not k.startswith("d_")}
+    grads = {k: f for k, f in fields.items() if k.startswith("d_")}
+    worst = max(grads, key=lambda k: grads[k]["rel"])
+    return {"out_abs": max(f["abs"] for f in outs.values()),
+            "out_rel": max(f["rel"] for f in outs.values()),
+            "grad_abs": max(f["abs"] for f in grads.values()),
+            "grad_rel": grads[worst]["rel"], "worst_grad": worst}
+
+
+def jk_gate(name, fields, where):
+    bad = {k: f for k, f in fields.items() if not f["rel"] <= JK_TOL}
+    if bad:
+        raise AssertionError(f"[design] {name} differs from its plain "
+                             f"version {where}: {bad} (tol {JK_TOL} of "
+                             f"each field's max |plain|)")
+
+
+def jk_check(torch, name, args):
+    """J or K against its plain version on the card, forward and
+    gradient, on the captured rows cut to their first ``JK_CHECK_N``
+    samples (the plain loop on the card is launch-bound): each field
+    (``jk_fields``) gated at ``JK_TOL``.  Returns the largest errors
+    (``jk_summary``), the fields, and the plain version's forward and
+    backward ms there."""
+    w, params = args[:2]
+    cut = (w[:, :JK_CHECK_N].contiguous(), params) + tuple(args[2:])
+    grads = jk_grads(torch, name, cut[0].shape)
+    got = jk_pass(torch, name, cut, grads, False)
+    ref = jk_pass(torch, name, cut, grads, True)
+    fields = jk_fields(torch, name, got, ref)
+    jk_gate(name, fields, f"on the card at {list(cut[0].shape)}")
+    return dict(jk_summary(fields), shape=list(cut[0].shape), fields=fields,
+                plain_fwd_ms=ref[3] * 1e3, plain_bwd_ms=ref[4] * 1e3)
+
+
+def jk_plain_job(torch, path_in, path_out):
+    """One CPU check's worker (``chip_smoke.py --jk-plain IN OUT``): J's or
+    K's plain version on one thread, forward and gradient (``jk_pass``),
+    on the inputs ``jk_full_start`` saved; saves its outputs, gradients
+    and seconds."""
+    global DEVICE
+    DEVICE = "cpu"
+    torch.set_num_threads(1)
+    job = torch.load(path_in, weights_only=True)
+    outs, gw, gp, fwd_s, bwd_s = jk_pass(torch, job["name"], job["args"],
+                                         job["grads"], True)
+    torch.save({"outs": outs, "gw": gw, "gp": gp, "fwd_s": fwd_s,
+                "bwd_s": bwd_s}, path_out)
+    return 0
+
+
+def jk_full_start(torch, calls, workdir):
+    """Start one CPU process a captured call (``calls``: {(name, tag):
+    args}), each running the plain version at the call's full shape
+    (``jk_plain_job``), and run the kernel on the same inputs here.
+    Returns the jobs for ``jk_full_finish``."""
+    os.makedirs(workdir, exist_ok=True)
+    jobs = []
+    try:
+        for (name, tag), args in calls.items():
+            grads = jk_grads(torch, name, args[0].shape)
+            host = tuple(a.detach().cpu() if isinstance(a, torch.Tensor)
+                         else a for a in args)
+            stem = os.path.join(workdir, f"{name}_{tag}")
+            torch.save({"name": name, "args": host, "grads": grads},
+                       stem + ".in.pt")
+            logf = open(stem + ".log", "w")
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--jk-plain",
+                 stem + ".in.pt", stem + ".out.pt"], cwd=HERE,
+                stdout=logf, stderr=subprocess.STDOUT)
+            jobs.append({"name": name, "tag": tag, "shape": list(
+                args[0].shape), "proc": proc, "log": logf, "stem": stem,
+                "t0": time.perf_counter()})
+            got = jk_pass(torch, name, args, grads, False)
+            jobs[-1]["got"] = tuple(
+                tuple(o.cpu() for o in x) if isinstance(x, tuple) else
+                x.cpu() for x in got[:3])
+    except BaseException:
+        jk_stop(jobs)
+        raise
+    return jobs
+
+
+def jk_stop(jobs):
+    for j in jobs:
+        if j["proc"].poll() is None:
+            j["proc"].kill()
+        j["proc"].wait()
+        j["log"].close()
+
+
+def jk_full_finish(torch, jobs, wait_s=JK_WAIT_S):
+    """Wait for ``jk_full_start``'s workers (``wait_s`` in all), stop
+    every worker whatever happens, log each full-shape check and then gate
+    them field by field (``jk_gate``).  Returns {(name, tag): the
+    check}."""
+    deadline = time.perf_counter() + wait_s
+    out = {}
+    try:
+        for j in jobs:
+            left = max(deadline - time.perf_counter(), 1.0)
+            try:
+                rc = j["proc"].wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"[design] the CPU's plain {j['name']} "
+                                     f"({j['tag']}) took more than "
+                                     f"{wait_s} s") from None
+            wall = time.perf_counter() - j["t0"]
+            if rc != 0:
+                j["log"].flush()
+                with open(j["stem"] + ".log") as f:
+                    tail = f.read()[-2000:]
+                raise AssertionError(f"[design] the CPU's plain {j['name']} "
+                                     f"({j['tag']}) exited {rc}: {tail}")
+            ref = torch.load(j["stem"] + ".out.pt", weights_only=True)
+            fields = jk_fields(torch, j["name"], j["got"],
+                               (ref["outs"], ref["gw"], ref["gp"]))
+            c = out[(j["name"], j["tag"])] = dict(
+                jk_summary(fields), shape=j["shape"], fields=fields,
+                plain_cpu_fwd_ms=ref["fwd_s"] * 1e3,
+                plain_cpu_bwd_ms=ref["bwd_s"] * 1e3, worker_wall_s=wall)
+            log(f"[design] {j['name']} ({j['tag']} call) against the CPU: "
+                + json.dumps(c))
+    finally:
+        jk_stop(jobs)
+    for (name, tag), c in out.items():
+        jk_gate(name, c["fields"], f"against the CPU at {c['shape']} "
+                                   f"({tag} call)")
+    return out
+
+
+def jk_probe(torch, fn, steps, repeat=PROBE_REPEATS):
+    """``repeat`` readings of a chain probe (``fn`` leaves the SM cycles of
+    ``steps`` dependent steps in its cycles tensor, returned by ``fn``),
+    each a launch timed by CUDA events after one warm-up launch: every
+    reading's (cycles a step, ns a step), and their medians."""
+    import statistics
+    fn()
+    torch.cuda.synchronize()
+    reads = []
+    for _ in range(repeat):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cycles = fn()
+        end.record()
+        torch.cuda.synchronize()
+        reads.append(chain_step(cycles.item(), start.elapsed_time(end),
+                                steps))
+    return {"readings": [list(r) for r in reads],
+            "cycles_per_step": statistics.median(r[0] for r in reads),
+            "ns_per_step": statistics.median(r[1] for r in reads)}
+
+
+def jk_timing(torch, name, args):
+    """J's or K's forward and adjoint entries timed alone at the captured
+    (design) shape: CUDA-event and device ms a launch, and the chains'
+    own time a step (the library's ``*_step_cycles`` probe, lane 0 over
+    the row's first 512 samples resident in shared memory:
+    ``PROBE_REPEATS`` readings and their median)."""
+    import ctypes
+    from repro_torch.core.smoothing import battery, gpu_floor
+    from repro_torch.kernels.build import ptr, stream_of
+    w, params = (a.contiguous() for a in args[:2])
+    B, n = w.shape
+    st = stream_of(w)
+    if name == "gpu_floor_relaxed":
+        mod, T = gpu_floor, float(args[2] * args[3])
+        scal = (float(args[2]), T)
+        outs = [torch.empty_like(w) for _ in range(2)]
+    else:
+        mod = battery
+        scal = (float(args[3]), float(args[2]))       # tau, dt
+        outs = [torch.empty_like(w) for _ in range(5)]
+    g_in = [torch.randn_like(w) for _ in range(1 if mod is gpu_floor
+                                               else 2)]
+    g_w, g_p = torch.empty_like(w), torch.empty_like(params)
+
+    def fwd():
+        mod.RELAXED_FORWARD.launch(ptr(w), ptr(params), *scal,
+                                   *(ptr(o) for o in outs), B, n, st)
+
+    def adj():
+        extra = [ptr(o) for o in (outs if mod is gpu_floor else outs[1:])]
+        mod.RELAXED_ADJOINT.launch(ptr(w), ptr(params), *scal, *extra,
+                                   *(ptr(g) for g in g_in), ptr(g_w),
+                                   ptr(g_p), B, n, st)
+
+    fwd()
+    out = {}
+    for tag, fn in (("forward", fwd), ("adjoint", adj)):
+        kname = name if tag == "forward" else name + "_adjoint"
+        out[tag] = {"ms": cuda_ms(torch, fn, 3),
+                    "device_ms": device_ms(torch, fn,
+                                           JK_DEVICE_NAME[kname], repeat=10)}
+    sym = ("gpu_floor_relaxed_step_cycles" if mod is gpu_floor
+           else "battery_relaxed_step_cycles")
+    probe = ctypes.CDLL(str(mod.RELAXED_FORWARD.library_path()))[sym]
+    probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                      ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+    cycles = torch.zeros(1, dtype=torch.int64, device=w.device)
+    sink = torch.zeros(1, device=w.device)
+    reps, steps = 100, 100 * min(n, 512)
+    for adj_flag, tag in ((0, "forward"), (1, "adjoint")):
+        def run():
+            err = probe(ptr(w), ptr(params), *scal, n, reps, adj_flag,
+                        ptr(cycles), ptr(sink), st)
+            if err:
+                raise RuntimeError(f"{sym}: CUDA error {err}")
+            return cycles
+        p = jk_probe(torch, run, steps)
+        out[tag].update(chain_cycles_per_step=p["cycles_per_step"],
+                        chain_ns_per_step=p["ns_per_step"],
+                        chain_readings=p["readings"],
+                        chain_floor_ms=p["ns_per_step"] * n / 1e6)
+    return out
+
+
+def design_cells(torch, api, study, build):
+    """``design`` on phase 5's longest workload at both fleets and both
+    specs: the grid, the gradient (``DESIGN_STEPS`` Adam steps, every start
+    a row of one batch through J and K) and the hybrid, with the gates:
+    the gradient design passes its spec under the hard semantics (its
+    ``mitigated`` trace re-judged by ``validate_many``), the hybrid is
+    never worse than the grid, every loss is finite.  Returns the cells,
+    the solutions, the traces, the ``Capture`` (J's and K's first and last
+    calls with the most rows) and the launch counts."""
+    import numpy as np
+    from repro_torch.core.engine import validate_many
+    from repro_torch.core.waveform import job_waveform
+    tl = study.workloads[DESIGN_WORKLOAD]
+    traces = {n: job_waveform(tl, n, study.wave_cfg, seed=study.seeds[0],
+                              sample_chips=study.sample_chips,
+                              device=DEVICE)[1] for n in study.fleets}
+    cap = Capture(torch)
+    cells, sols = [], {}
+    build.reset_launch_counts()
+    with cap:
+        for n, w in traces.items():
+            for spec_name, spec in study.specs:
+                cell = {"n_chips": n, "spec": spec_name, "n": len(w)}
+                for method in ("grid", "gradient", "hybrid"):
+                    before = len(cap.descend_s)
+                    sol, wall = timed_run(torch, lambda: api.design(
+                        spec, w, DT, n, method=method, device=DEVICE))
+                    if sol is None and method != "grid":
+                        raise AssertionError(f"[design] {method} found no "
+                                             f"design for {cell}")
+                    d = {"wall_s": wall}
+                    if sol is not None:
+                        d.update(mpf=sol["mpf_frac"],
+                                 cap_j=sol["battery_capacity_j"],
+                                 energy_overhead=sol["energy_overhead"],
+                                 ok=sol["report"].ok)
+                    if method != "grid":
+                        hist = sol["loss_history"]
+                        if not np.isfinite(hist).all():
+                            raise AssertionError(f"[design] non-finite loss "
+                                                 f"in {method} {cell}")
+                        desc = cap.descend_s[before:]
+                        d.update(starts=int(hist.shape[0]),
+                                 descend_s=sum(desc),
+                                 ms_per_step=sum(desc) / DESIGN_STEPS * 1e3,
+                                 loss_first=hist[:, 0].tolist(),
+                                 loss_last=hist[:, -1].tolist())
+                    cell[method] = d
+                    sols[(n, spec_name, method)] = sol
+                g = sols[(n, spec_name, "gradient")]
+                ok, _ = validate_many(g["mitigated"][None], spec, DT,
+                                      device=DEVICE)
+                if not (g["report"].ok and bool(ok[0])):
+                    raise AssertionError(f"[design] the gradient design "
+                                         f"fails its spec: {cell}")
+                grid = sols[(n, spec_name, "grid")]
+                hyb = sols[(n, spec_name, "hybrid")]
+                if grid is not None and hyb["energy_overhead"] > \
+                        grid["energy_overhead"] + 1e-6:
+                    raise AssertionError(f"[design] hybrid worse than the "
+                                         f"grid: {cell}")
+                log("[design] " + json.dumps(cell))
+                cells.append(cell)
+    counts = build.launch_counts()
+    return cells, sols, traces, cap, counts
+
+
+def optimize_cells(torch, api, study, sols):
+    """``Study.optimize(method="hybrid")`` on the same four cells: each
+    designed record's choice and overhead equal the direct hybrid
+    design's."""
+    st = api.Study({DESIGN_WORKLOAD: study.workloads[DESIGN_WORKLOAD]},
+                   fleets=list(study.fleets),
+                   specs=[s for _, s in study.specs], seeds=[study.seeds[0]],
+                   wave_cfg=study.wave_cfg, sample_chips=study.sample_chips,
+                   device=DEVICE)
+    res, wall = timed_run(torch, lambda: st.optimize(method="hybrid"))
+    if len(res) != 4 or len(res.filter(designed=True)) != 4:
+        raise AssertionError(f"[design] optimize gave {len(res)} records")
+    bitwise = 0
+    for r in res:
+        h = sols[(r["n_chips"], r["spec"], "hybrid")]
+        got = (r["mpf_frac"], r["battery_capacity_j"], r["energy_overhead"])
+        want = (h["mpf_frac"], h["battery_capacity_j"],
+                h["energy_overhead"])
+        bitwise += got == want
+        if any(abs(a - b) > 1e-6 * max(abs(b), 1.0)
+               for a, b in zip(got, want)) or not r["spec_ok"]:
+            raise AssertionError(f"[design] optimize's {r['spec']} record at "
+                                 f"{r['n_chips']} differs from the hybrid "
+                                 f"design: {got} vs {want}")
+    return {"records": len(res), "wall_s": wall, "bitwise": bitwise}
+
+
+def cpu_steps(torch, api, study, traces):
+    """The first ``CPU_STEPS`` Adam steps of the tight design at the first
+    fleet, on the card and on the CPU's plain versions, on the trace's
+    first ``CPU_N`` samples: loss histories and every step's gradients (as
+    they reach ``clip_by_global_norm``, ``Capture.grads``) within
+    ``CPU_TOL`` (plus 1e-5 of the largest), the same design chosen."""
+    import numpy as np
+    n = study.fleets[0]
+    spec = dict(study.specs)["tight"]
+    w = traces[n][:CPU_N]
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        cap = Capture(torch)
+        with cap:
+            sol, wall = timed_run(torch, lambda: api.design_gradient(
+                spec, w, DT, n, steps=CPU_STEPS, device=dev))
+        runs[dev] = (sol, [{k: v.cpu() for k, v in g.items()}
+                           for g in cap.grads], wall)
+    (a, la, wa), (b, lb, wb) = runs[DEVICE], runs["cpu"]
+    if len(la) != CPU_STEPS or len(lb) != CPU_STEPS:
+        raise AssertionError(f"[design] {len(la)} and {len(lb)} gradients "
+                             f"logged for {CPU_STEPS} Adam steps")
+    pairs = [(a["loss_history"], b["loss_history"])]
+    pairs += [(x[k].numpy(), y[k].numpy()) for x, y in zip(la, lb)
+              for k in ("mpf", "cap")]
+    worst = 0.0
+    for x, y in pairs:
+        tol = CPU_TOL * np.abs(y) + 1e-5 * np.abs(y).max()
+        if not np.all(np.abs(x - y) <= tol):
+            raise AssertionError(f"[design] card and CPU Adam steps differ: "
+                                 f"{x} vs {y}")
+        worst = max(worst, float((np.abs(x - y) / np.maximum(
+            np.abs(y), 1e-30)).max()))
+    if (a["mpf_frac"], a["battery_capacity_j"]) != (
+            b["mpf_frac"], b["battery_capacity_j"]) and abs(
+            a["energy_overhead"] - b["energy_overhead"]) > 1e-6:
+        raise AssertionError(f"[design] card and CPU chose differently: "
+                             f"{a['mpf_frac'], a['battery_capacity_j']} vs "
+                             f"{b['mpf_frac'], b['battery_capacity_j']}")
+    return {"n": len(w), "steps": CPU_STEPS, "starts": len(la[0]["mpf"]),
+            "card_s": wa, "cpu_s": wb, "worst_rel": worst}
+
+
+def design_phase(torch, api, build):
+    """Phase 18: the design path at full size with launch counts from 0
+    (J and K must run); J and K held against their plain versions on the
+    CPU at the full shape of their first and last design calls with the
+    most rows (one worker process each, running while the card goes on),
+    against the card's plain versions on ``JK_CHECK_N`` samples, and timed
+    alone; ``Study.optimize`` on the same cells; the first Adam steps on
+    the CPU."""
+    t18 = time.perf_counter()
+    study = build_study(api, workloads=[DESIGN_WORKLOAD])
+    cells, sols, traces, cap, counts = design_cells(torch, api, study,
+                                                    build)
+    log("[design] launches: " + json.dumps(counts))
+    for nm in RELAXED + ("gpu_floor", "battery"):
+        if counts[nm] <= 0:
+            raise AssertionError(f"[design] kernel {nm} was not launched")
+    calls = {(nm, tag): src[nm][1] for nm in RELAXED_KEPT
+             for tag, src in (("first", cap.args), ("last", cap.last))}
+    jobs = jk_full_start(torch, calls, os.path.join(HERE, "build",
+                                                    "jk_plain"))
+    try:
+        jk = {}
+        for nm in RELAXED_KEPT:
+            args = cap.args[nm][1]
+            jk[nm] = {"shape": list(args[0].shape),
+                      "check": jk_check(torch, nm, args),
+                      "timing": jk_timing(torch, nm, args)}
+            log(f"[design] {nm}: " + json.dumps(
+                {k: v for k, v in jk[nm].items() if k != "check"})
+                + "; on the card at " + json.dumps(jk[nm]["check"]))
+        opt = optimize_cells(torch, api, study, sols)
+        log("[design] Study.optimize: " + json.dumps(opt))
+        cpu = cpu_steps(torch, api, study, traces)
+    except BaseException:
+        jk_stop(jobs)
+        raise
+    full = jk_full_finish(torch, jobs)
+    for (nm, tag), c in full.items():
+        jk[nm].setdefault("full", {})[tag] = c
+    # an Adam step on the CPU at the full 90 000 samples runs J's and K's
+    # plain forward and backward once: their seconds in this run's checks
+    cpu["full_step_s_estimate"] = {
+        tag: sum((c["plain_cpu_fwd_ms"] + c["plain_cpu_bwd_ms"]) / 1e3
+                 for (_, t), c in full.items() if t == tag)
+        for tag in ("first", "last")}
+    log("[design] first Adam steps on the CPU: " + json.dumps(cpu))
+    return {"launches": counts, "cells": cells, "jk": jk, "optimize": opt,
+            "cpu": cpu, "phase_s": time.perf_counter() - t18}
+
+
+def jk_rows(design, late):
+    """The kernels line's rows of J and K (forward and adjoint): launches
+    on the design path (and 0 on every other path, gated by the caller),
+    device and event ms at the design's shape, the errors of the
+    full-shape checks against the CPU (the worst of the first and last
+    calls; the card's cut check beside them), the plain version's ms on
+    the card at the cut shape and on the CPU at the full shape, the bound
+    and the chain floor."""
+    rows = []
+    src = {"gpu_floor_relaxed": ("gpu_floor_relaxed.cu",
+                                 "src/repro/core/smoothing/gpu_floor.py:93"),
+           "battery_relaxed": ("battery_relaxed.cu",
+                               "src/repro/core/smoothing/battery.py:106")}
+    for base, d in design["jk"].items():
+        B, n = d["shape"]
+        cols = len(jk_columns(base))
+        chk = d["check"]
+        full = d["full"]
+        for tag in ("forward", "adjoint"):
+            name = base if tag == "forward" else base + "_adjoint"
+            t = d["timing"][tag]
+            b_ms, b_by = jk_bound(name, B, n, cols)
+            k_abs, k_rel = (("out_abs", "out_rel") if tag == "forward"
+                            else ("grad_abs", "grad_rel"))
+            worst = max(full.values(), key=lambda c: c[k_rel])
+            row = {
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/scans/csrc/"
+                          f"{src[base][0]}",
+                "replaces": src[base][1] + (" (lax.scan)" if tag == "forward"
+                                            else " (its jax.grad)"),
+                "launches": design["launches"][name],
+                "launches_by_path": {p: c[name] for p, c in late.items()},
+                "max_abs_err": max(c[k_abs] for c in full.values()),
+                "rel_err": worst[k_rel],
+                "tolerance": f"{JK_TOL} x max |plain| of each output, of "
+                             f"d/dw and of each parameter column, against "
+                             f"the CPU's plain version at the full shape of "
+                             f"the first and last design calls",
+                "full_checks": {tag_: {"shape": c["shape"],
+                                       k_abs: c[k_abs], k_rel: c[k_rel]}
+                                for tag_, c in full.items()},
+                "card_check": {"shape": chk["shape"], k_abs: chk[k_abs],
+                               k_rel: chk[k_rel]},
+                "shape": [B, n], "ms": t["ms"], "device_ms": t["device_ms"],
+                "plain_ms": chk["plain_fwd_ms" if tag == "forward"
+                                else "plain_bwd_ms"],
+                "plain_shape": chk["shape"],
+                "plain_cpu_ms": {tag_: c["plain_cpu_fwd_ms"
+                                         if tag == "forward"
+                                         else "plain_cpu_bwd_ms"]
+                                 for tag_, c in full.items()},
+                "bound_ms": b_ms, "bound_by": b_by,
+                "saved_carry_bytes": JK_SAVED_BYTES[name] * B * n,
+                "chain_ns_per_step": t["chain_ns_per_step"],
+                "chain_readings": t["chain_readings"],
+                "chain_floor_ms": t["chain_floor_ms"],
+                "library_ms": None,
+                "library_note": "no PyTorch call computes this recurrence"}
+            if tag == "adjoint":
+                row["worst_column"] = worst["worst_grad"]
+            rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 15: kernels G, H and I through the reference's own entry points
 # ---------------------------------------------------------------------------
 
@@ -3193,6 +4057,9 @@ def ad_main(torch) -> int:
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--jk-plain"] and len(sys.argv) == 4:
+        import_port()
+        return jk_plain_job(torch, *sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3446,6 +4313,18 @@ def main() -> int:
     log("keyed: " + json.dumps(keyed))
     log(f"phase 16: {keyed['phase_s']:.1f} s")
 
+    # 17. the serial reference and the batch helpers on phase 5's rows
+    serial = serial_phase(torch, api, build, res)
+    late["serial_reference"] = serial["launches"]
+    log(f"phase 17: {serial['phase_s']:.1f} s")
+    # 18. the design path at full size, through kernels J and K
+    design = design_phase(torch, api, build)
+    late["design"] = design["launches"]
+    log(f"phase 18: {design['phase_s']:.1f} s")
+    for k in kernels:
+        for p in ("serial_reference", "design"):
+            k["launches_by_path"][p] = late[p][COUNT_NAME[k["name"]]]
+
     # 15. kernels G, H and I through the reference's own entry points:
     # bin_power on four traces, the v1 sliding layout, ballast_burn
     t15 = time.perf_counter()
@@ -3479,6 +4358,21 @@ def main() -> int:
                              f" {off_path}")
     kernels.extend(late_rows)
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+    # kernels J and K: launched on the design path and on no other
+    paths = dict(late, entry_points=entry_counts)
+    off_design = {p: {nm: c[nm] for nm in RELAXED if c[nm]}
+                  for p, c in paths.items() if p != "design"}
+    if any(off_design.values()):
+        raise AssertionError(f"kernel J or K launched off the design path: "
+                             f"{off_design}")
+    for r in jk_rows(design, paths):
+        log(f"{r['name']}: {r['ms']:.4g} ms (device {r['device_ms']}, plain "
+            f"{r['plain_ms']:.4g} ms at {r['plain_shape']}, bound "
+            f"{r['bound_ms']:.4g} ms by {r['bound_by']}, chain floor "
+            f"{r['chain_floor_ms']:.4g} ms), launches "
+            + json.dumps(r["launches_by_path"]))
+        kernels.append(r)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,12 +16,17 @@ query), mirroring ``repro.api``.
 
     log = api.watch_trace(api.synthesize_ramp(), 0.002, n_chips=512,
                           spec=api.example_specs(500.0)["moderate"])
+
+    one = api.simulate(api.synthetic_timeline(2.0), 8192,
+                       rack_mitigation=api.RackBattery(4e7, 8e6, 8e6))
+    sol = api.design(api.example_specs(5.0)["tight"], one.dc_raw, 0.001,
+                     8192)                      # hybrid, as in repro
 """
 from repro_torch.control import (ControlLog, ControlLoop, GridController,
                                  InterventionLadder, OnlineGoertzelDetector,
                                  ReplaySource, synthesize_ramp, watch_trace)
-from repro_torch.core.engine import (StreamChunk, design, design_grid,
-                                     stream_batches)
+from repro_torch.core.engine import (StreamChunk, design, design_gradient,
+                                     design_grid, stream_batches)
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
 from repro_torch.core.phases import IterationTimeline, Phase, synthetic_timeline
 from repro_torch.core.smoothing import (CombinedMitigation, Firefly,
@@ -29,7 +34,7 @@ from repro_torch.core.smoothing import (CombinedMitigation, Firefly,
                                         TelemetryBackstop, design_mitigation)
 from repro_torch.core.spec import (FrequencyDomainSpec, SpecReport,
                                    TimeDomainSpec, UtilitySpec, example_specs)
-from repro_torch.core.stratosim import SimResult
+from repro_torch.core.stratosim import SimResult, simulate, simulate_jit
 from repro_torch.core.study import (MitigationConfig, Scenario, Study,
                                     StudyResult)
 from repro_torch.core.telemetry import TelemetrySource
@@ -38,6 +43,7 @@ from repro_torch.core.waveform import WaveformConfig
 __all__ = [
     "Study", "StudyResult", "MitigationConfig", "Scenario",
     "stream_batches", "StreamChunk", "design", "design_grid",
+    "design_gradient", "simulate", "simulate_jit",
     # the grid-interactive control plane
     "ControlLoop", "ControlLog", "GridController", "InterventionLadder",
     "OnlineGoertzelDetector", "ReplaySource", "synthesize_ramp",

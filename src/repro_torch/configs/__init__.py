@@ -19,8 +19,8 @@ _MODULES: Dict[str, str] = {
     "minitron-4b": "minitron_4b",
 }
 
-# arch id -> what it needs that the port lacks (ROADMAP.md queue A,
-# item 7, "The model zoo")
+# arch id -> what it needs that the port lacks (ROADMAP queue A, "The rest
+# of the model zoo")
 _NOT_PORTED: Dict[str, str] = {
     "nemotron-4-340b": "sharding its 680 GB of bf16 params (parallel/)",
     "qwen1.5-110b": "sharding its 220 GB of bf16 params (parallel/)",
@@ -38,8 +38,8 @@ ARCH_IDS = tuple(_MODULES) + tuple(_NOT_PORTED)
 def get_config(arch: str) -> ModelConfig:
     if arch in _NOT_PORTED:
         raise NotImplementedError(
-            f"{arch}: {_NOT_PORTED[arch]} is not ported yet (ROADMAP.md "
-            f"queue A, item 7, the model zoo)")
+            f"{arch}: {_NOT_PORTED[arch]} is not ported yet: ROADMAP queue "
+            f"A, the model zoo")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")

@@ -9,9 +9,20 @@ scenario rows, as a handful of whole-batch tensor passes on one device.
   ``stream_batches``  the executor behind ``Study.run``: fixed-size chunks
                       of ``simulate_batch`` reduced to per-row metrics,
                       analysis grouped by true length.
+  ``sweep``           cartesian (workload x fleet x config x seed) sweep,
+                      one ``simulate_batch`` per waveform length, flat
+                      records.
+  ``apply_batch``     one waveform through B configs of one structure.
+  ``validate_many``   spec verdicts and reports of B same-length waveforms.
   ``design``          the (MPF, battery capacity) design search on one
                       trace: ``method="grid"`` (``design_grid``) judges
-                      every candidate of the coarse grid in one batch.
+                      every candidate of the coarse grid in one batch;
+                      ``"gradient"`` (``design_gradient``) descends on the
+                      relaxed (``smooth_tau > 0``) gpu -> battery stack by
+                      Adam, every start a row of one batch, through kernels
+                      J and K; ``"hybrid"`` (the default) seeds it with the
+                      grid's best; ``"warmstart"`` (``design_warmstart``)
+                      starts from a predictor's seeds.
 
 Rows may mix enabled and disabled (None) stages: ``_normalize_mits``
 returns the enabled rows and an on-mask, the stage runs on the enabled
@@ -29,8 +40,7 @@ per unique (workload, fleet, seed).
 Per-row values do not depend on how rows are chunked: every operation
 on the path is row-wise, the float64 sums are of float32 terms, and the
 analysis runs on slices of a fixed row count (``ANALYSIS_ROWS``) in every
-run, one-shot or chunked.  Sharding and the gradient-based design solvers
-(``method`` gradient, hybrid, warmstart) are not ported yet.
+run, one-shot or chunked.  Sharding is not ported yet.
 """
 from __future__ import annotations
 
@@ -42,24 +52,57 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
+from repro_torch.core.optim import adam_init, adam_update, clip_by_global_norm
 from repro_torch.core.smoothing.base import (apply_mitigation,
-                                             energy_overhead, structure)
+                                             energy_overhead, materialize_aux,
+                                             structure)
 from repro_torch.core.smoothing.battery import RackBattery
 from repro_torch.core.smoothing.gpu_floor import GpuPowerSmoothing
 from repro_torch.core.spec import SpecReport, UtilitySpec, report_from_arrays
 from repro_torch.core.spectrum import critical_band_report
+from repro_torch.core.stratosim import SimResult, row_scalars
 from repro_torch.core.waveform import (WaveformConfig, aggregate,
                                        chip_waveform, jitter_shifts,
                                        phase_levels, swing_stats)
 from repro_torch.device import resolve_device
 
-DESIGN_NOT_PORTED = ("design(method={!r}) is not ported yet: ROADMAP queue "
-                     "A, the design path (only method='grid' runs)")
-
 # rows of one analysis call (tails repeat their last row): reductions on the
 # card and on the CPU pick their order by the number of rows they reduce,
 # so every row is analysed in a batch of this one size
 ANALYSIS_ROWS = 32
+
+
+def stack_mitigations(mitigations: Sequence) -> object:
+    """Mitigations of one structure (``base.structure``) as one object of
+    their class whose per-row fields are float32 tensors ``[B]`` (nested
+    mitigations and ``Stack`` stages stacked the same way): the port's
+    form of the reference's batched pytree."""
+    mits = list(mitigations)
+    if not mits:
+        raise ValueError("empty mitigation list")
+    if len({structure(m) for m in mits}) != 1:
+        raise ValueError("stack_mitigations: the mitigations must share one "
+                         "structure")
+    m0 = mits[0]
+    if hasattr(m0, "stages"):
+        return dataclasses.replace(m0, stages=tuple(
+            stack_mitigations([m.stages[i] for m in mits])
+            for i in range(len(m0.stages))))
+    cls = type(m0)
+    fixed = set(cls.STATIC_FIELDS)
+    nested = set(getattr(cls, "NESTED_FIELDS", ()))
+    kw = {}
+    for f in dataclasses.fields(m0):
+        if f.name in nested:
+            kw[f.name] = stack_mitigations([getattr(m, f.name) for m in mits])
+        elif f.name not in fixed:
+            kw[f.name] = torch.tensor([float(getattr(m, f.name))
+                                       for m in mits], dtype=torch.float32)
+    # the per-row values bypass the scalar checks of __post_init__
+    out = object.__new__(cls)
+    for f in dataclasses.fields(m0):
+        object.__setattr__(out, f.name, kw.get(f.name, getattr(m0, f.name)))
+    return out
 
 
 def _tile(values, B: int, what: str) -> list:
@@ -153,7 +196,9 @@ def _prepare_rows(timelines, n_chips, seeds, device_mitigation,
 class BatchResult:
     """One row per scenario on the engine's device: waveforms ``[B, n]``
     (row ``i`` valid in its first ``n_valid[i]`` samples), metrics
-    ``[B]``."""
+    ``[B]``.  ``aux["device"]`` and ``aux["rack"]`` hold the enabled rows
+    of their stage only (``dev_on``/``rack_on``, None when every row is
+    enabled)."""
     dc_raw: torch.Tensor
     dc_mitigated: torch.Tensor
     n_valid: torch.Tensor
@@ -161,14 +206,68 @@ class BatchResult:
     swing: Dict[str, torch.Tensor]
     swing_mitigated: Dict[str, torch.Tensor]
     aux: Dict
+    t: Optional[np.ndarray] = None
+    chip_raw: Optional[torch.Tensor] = None
+    chip_mitigated: Optional[torch.Tensor] = None
+    bands: Optional[Dict[str, torch.Tensor]] = None
+    bands_mitigated: Optional[Dict[str, torch.Tensor]] = None
+    spec_ok: Optional[torch.Tensor] = None
+    spec_flags: Optional[Dict[str, torch.Tensor]] = None
+    spec_metrics: Optional[Dict[str, torch.Tensor]] = None
+    dev_on: Optional[torch.Tensor] = None
+    rack_on: Optional[torch.Tensor] = None
+
+    def __len__(self) -> int:
+        return self.dc_raw.shape[0]
+
+    def length(self, i: int) -> int:
+        return int(self.n_valid[i])
+
+    def report(self, i: int) -> Optional[SpecReport]:
+        if self.spec_ok is None:
+            return None
+        return report_from_arrays(
+            self.spec_ok[i].item(),
+            {k: v[i].item() for k, v in self.spec_flags.items()},
+            {k: v[i].item() for k, v in self.spec_metrics.items()})
+
+    def scenario(self, i: int) -> SimResult:
+        """Row ``i`` as the serial reference's ``SimResult`` (host numpy,
+        sliced to its true length); a disabled stage leaves no aux and no
+        mitigated chip trace, as in ``stratosim.simulate``."""
+        n = self.length(i)
+        aux: Dict = {}
+        for stage, on in (("device", self.dev_on), ("rack", self.rack_on)):
+            if stage not in self.aux or (on is not None and not on[i]):
+                continue
+            pos = i if on is None else int(on[:i].sum())
+            aux[stage] = materialize_aux(self.aux[stage], pos)
+        on_dev = "device" in aux
+
+        def host(x):
+            return None if x is None else x[i, :n].cpu().numpy()
+
+        return SimResult(
+            t=self.t[:n], dc_raw=host(self.dc_raw),
+            dc_mitigated=host(self.dc_mitigated),
+            chip_raw=host(self.chip_raw),
+            chip_mitigated=host(self.chip_mitigated) if on_dev else None,
+            energy_overhead=float(self.energy_overhead[i]),
+            swing=row_scalars(self.swing, i),
+            swing_mitigated=row_scalars(self.swing_mitigated, i),
+            bands=row_scalars(self.bands, i),
+            bands_mitigated=row_scalars(self.bands_mitigated, i),
+            spec_report=self.report(i), aux=aux)
 
 
 def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
                    = None, *, device_mitigation=None, rack_mitigation=None,
+                   spec: Optional[UtilitySpec] = None,
                    hw: Hardware = DEFAULT_HW, seeds=0, keys=None,
                    sample_chips: int = 64,
                    levels: Optional[Sequence[np.ndarray]] = None,
-                   pad_to: Optional[int] = None,
+                   pad_to: Optional[int] = None, spectra: bool = True,
+                   chip_outputs: bool = True,
                    device="cuda") -> BatchResult:
     """Simulate a batch of scenario rows of one mitigation structure.
 
@@ -177,11 +276,19 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
     row, or one for all) feed the mitigations that draw noise; without
     them such a mitigation draws from ``prng_key(0)`` on every row.
     Without ``pad_to`` every row must expand to the same sample count;
-    with it, rows are edge-padded to ``pad_to`` and masked.
+    with it, rows are edge-padded to ``pad_to`` and masked, and the
+    frequency and spec analysis is left to ``analyze_batch`` on the sliced
+    rows (``spec`` must be None and ``spectra`` False).  ``spectra`` adds
+    the band reports of the raw and mitigated waveforms, ``spec`` its
+    verdicts, and ``chip_outputs`` the per-chip traces.
     """
     cfg = wave_cfg or WaveformConfig()
     dt = cfg.dt
     device = torch.device(device)
+    if pad_to is not None and (spec is not None or spectra):
+        raise ValueError(
+            "pad_to defers frequency/spec analysis to analyze_batch on the "
+            "sliced rows: call with spec=None, spectra=False")
     (_, chips, seed_list, dev_list, rack_list, level_rows,
      B) = _prepare_rows(timelines, n_chips, seeds, device_mitigation,
                         rack_mitigation, levels, cfg, hw)
@@ -230,6 +337,8 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
     dc_raw = dcraw_u[u_idx_t]
     dc = dc_raw
     aux: Dict = {}
+    chip_raw = chip_u[u_idx_t] if chip_outputs else None
+    chip_mit = None
 
     # -- device stage on the per-chip waveform, then re-aggregation
     devs, dev_on = _normalize_mits(dev_list, B, "device_mitigation")
@@ -241,6 +350,9 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
         chip_m = _mask_helpers(n, n_valid[on])[0](chip_m)
         dc = dc.clone()
         dc[on] = aggregate(chip_m, chips_t[on], shifts[on], hw)
+        if chip_outputs:
+            chip_mit = chip_raw.clone()
+            chip_mit[on] = chip_m
 
     # -- rack stage on the aggregate, pad filled with the valid mean
     racks, rack_on = _normalize_mits(rack_list, B, "rack_mitigation")
@@ -254,12 +366,20 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
     m = mask.to(torch.float64)
     e_in = (dc_raw.to(torch.float64) * m).sum(-1)
     e_out = (dc.to(torch.float64) * m).sum(-1)
-    return BatchResult(
+    res = BatchResult(
         dc_raw=dc_raw, dc_mitigated=dc, n_valid=n_valid,
         energy_overhead=((e_out - e_in) / torch.clamp(e_in, min=1e-12)
                          ).to(torch.float32),
         swing=swing_stats(dc_raw, n_valid),
-        swing_mitigated=swing_stats(dc, n_valid), aux=aux)
+        swing_mitigated=swing_stats(dc, n_valid), aux=aux,
+        t=np.arange(n) * dt, chip_raw=chip_raw, chip_mitigated=chip_mit,
+        dev_on=dev_on, rack_on=rack_on)
+    if spectra:
+        res.bands = critical_band_report(dc_raw, dt)
+        res.bands_mitigated = critical_band_report(dc, dt)
+    if spec is not None:
+        res.spec_ok, res.spec_flags, res.spec_metrics = spec.validate(dc, dt)
+    return res
 
 
 def analyze_batch(dc_mitigated: torch.Tensor, dt: float,
@@ -295,6 +415,8 @@ class StreamChunk:
     spec_ok: List[Optional[np.ndarray]]
     spec_flags: List[Optional[Dict[str, np.ndarray]]]
     spec_metrics: List[Optional[List[Dict[str, float]]]]
+    dc_raw: Optional[np.ndarray] = None      # [C, n] (keep_waveforms only)
+    dc_mitigated: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return self.stop - self.start
@@ -342,7 +464,8 @@ def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
                    levels: Optional[Sequence[np.ndarray]] = None,
                    pad_to: Optional[int] = None,
                    chunk_size: Optional[int] = None, bands: bool = True,
-                   skip_rows: int = 0, device="cuda"):
+                   skip_rows: int = 0, keep_waveforms: bool = False,
+                   device="cuda"):
     """Yield the metrics of a scenario batch as one ``StreamChunk`` per
     chunk of ``chunk_size`` rows (None: the whole batch in one chunk).
 
@@ -360,7 +483,8 @@ def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
 
     ``skip_rows`` skips every chunk whose rows all lie below it without
     dispatching it (the resume path restores those from disk); it must
-    fall on a chunk boundary.
+    fall on a chunk boundary.  ``keep_waveforms`` also brings each chunk's
+    raw and mitigated waveforms ``[C, n]`` to the host.
     """
     cfg = wave_cfg or WaveformConfig()
     (tls, chips, seed_list, dev_list, rack_list, level_rows,
@@ -394,6 +518,7 @@ def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
                              seeds=sl(seed_list), keys=ks,
                              sample_chips=sample_chips,
                              levels=sl(level_rows), pad_to=pad_to,
+                             spectra=False, chip_outputs=False,
                              device=device)
         groups: Dict[int, List[int]] = {}
         for i in range(C):
@@ -410,10 +535,13 @@ def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
                         None if sp is None and not do_bands else _to_host(
                             analyze_batch(mit, cfg.dt, sp, bands=do_bands)))
                 gres.append((part, per_spec))
-        direct = _to_host({"eo": res.energy_overhead[:C],
-                           "sw": {k: v[:C] for k, v in res.swing.items()},
-                           "swm": {k: v[:C] for k, v in
-                                   res.swing_mitigated.items()}})
+        direct = {"eo": res.energy_overhead[:C],
+                  "sw": {k: v[:C] for k, v in res.swing.items()},
+                  "swm": {k: v[:C] for k, v in res.swing_mitigated.items()}}
+        if keep_waveforms:
+            direct["raw"] = res.dc_raw[:C]
+            direct["mit"] = res.dc_mitigated[:C]
+        direct = _to_host(direct)
         done = None
         if res.dc_mitigated.is_cuda:
             done = torch.cuda.Event()
@@ -431,7 +559,8 @@ def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
             energy_overhead=direct["eo"], swing=direct["sw"],
             swing_mitigated=direct["swm"], bands_mitigated=None,
             spec_ok=[None] * S, spec_flags=[None] * S,
-            spec_metrics=[None] * S)
+            spec_metrics=[None] * S, dc_raw=direct.get("raw"),
+            dc_mitigated=direct.get("mit"))
         bands_cols: Dict[str, np.ndarray] = {}
         seen = set()
         for part, per_spec in gres:
@@ -476,6 +605,96 @@ def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
 
 
 # ---------------------------------------------------------------------------
+# cartesian sweep, config batches, batched validation
+# ---------------------------------------------------------------------------
+
+def sweep(workloads, n_chips: Sequence[int], configs: Sequence[Tuple],
+          wave_cfg: Optional[WaveformConfig] = None, *,
+          spec: Optional[UtilitySpec] = None, hw: Hardware = DEFAULT_HW,
+          seeds: Sequence[int] = (0,), sample_chips: int = 64,
+          device=None) -> List[Dict]:
+    """Cartesian (workload x fleet size x config x seed) sweep: one flat
+    record per scenario, in that order.  ``workloads`` is a dict name ->
+    timeline (or a sequence, named by index); each config a ``(device,
+    rack)`` pair, either side None.  Rows are bucketed by sample count and
+    each bucket runs as one ``simulate_batch`` on ``device`` (None: the
+    card)."""
+    dev = resolve_device(device)
+    cfg = wave_cfg or WaveformConfig()
+    if isinstance(workloads, dict):
+        names, tls = list(workloads.keys()), list(workloads.values())
+    else:
+        tls = list(workloads)
+        names = [f"workload{i}" for i in range(len(tls))]
+    combos = [(ti, ni, ci, si) for ti in range(len(tls)) for ni in n_chips
+              for ci in range(len(configs)) for si in seeds]
+    tl_levels = [phase_levels(tl, cfg, hw) for tl in tls]
+    buckets: Dict[int, List[Tuple[int, Tuple]]] = {}
+    for pos, combo in enumerate(combos):
+        buckets.setdefault(len(tl_levels[combo[0]]), []).append((pos, combo))
+    records: List[Optional[Dict]] = [None] * len(combos)
+    for _, items in sorted(buckets.items()):
+        idxs = [combo for _, combo in items]
+        res = simulate_batch(
+            [tls[ti] for ti, _, _, _ in idxs], [ni for _, ni, _, _ in idxs],
+            cfg, device_mitigation=[configs[ci][0] for _, _, ci, _ in idxs],
+            rack_mitigation=[configs[ci][1] for _, _, ci, _ in idxs],
+            spec=spec, hw=hw, seeds=[si for _, _, _, si in idxs],
+            sample_chips=sample_chips,
+            levels=[tl_levels[ti] for ti, _, _, _ in idxs],
+            chip_outputs=False, device=dev)
+        host = _numpy(_to_host({
+            "mean": res.swing["mean_w"], "swing": res.swing["swing_w"],
+            "swing_m": res.swing_mitigated["swing_w"],
+            "eo": res.energy_overhead,
+            "band": res.bands_mitigated["paper_band_0p2_3hz"]}))
+        for b, (pos, (ti, ni, ci, si)) in enumerate(items):
+            rec = {
+                "workload": names[ti], "n_chips": ni, "config": ci,
+                "seed": si, "period_s": tls[ti].period_s,
+                "mean_mw": float(host["mean"][b]) / 1e6,
+                "swing_mw": float(host["swing"][b]) / 1e6,
+                "swing_mitigated_mw": float(host["swing_m"][b]) / 1e6,
+                "energy_overhead": float(host["eo"][b]),
+                "paper_band_frac": float(host["band"][b]),
+            }
+            if res.spec_ok is not None:
+                report = res.report(b)
+                rec["spec_ok"] = report.ok
+                rec["violations"] = report.violations
+            records[pos] = rec
+    return records
+
+
+def apply_batch(mitigations: Sequence, w, dt: float, device=None
+                ) -> Tuple[np.ndarray, Dict]:
+    """B configs of one structure applied to ONE waveform ``w`` ``[n]`` in
+    one batch on ``device`` (None: the card): ``(outs [B, n], aux)``, aux
+    values as host numpy arrays with a leading B axis."""
+    mits = list(mitigations)
+    dev = resolve_device(device)
+    row = torch.as_tensor(np.asarray(w, np.float32), device=dev)
+    outs, aux = apply_mitigation(mits, row[None].expand(len(mits), -1)
+                                 .contiguous(), dt)
+    return outs.detach().cpu().numpy(), _numpy(_to_host(aux))
+
+
+def validate_many(ws, spec: UtilitySpec, dt: float, device=None
+                  ) -> Tuple[np.ndarray, List[SpecReport]]:
+    """Spec verdicts of B same-length waveforms ``ws`` ``[B, n]`` in one
+    batch on ``device`` (None: the card): ``(ok [B], per-row
+    SpecReports)``."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(np.asarray(ws, np.float32), device=dev)
+    ok, flags, metrics = _numpy(_to_host(dict(zip(
+        ("ok", "flags", "metrics"), spec.validate(x, dt))))).values()
+    reports = [report_from_arrays(ok[i], {k: v[i] for k, v in flags.items()},
+                                  {k: v[i] for k, v in metrics.items()})
+               for i in range(len(ok))]
+    return ok, reports
+
+
+# ---------------------------------------------------------------------------
 # batched (MPF x battery) design search
 # ---------------------------------------------------------------------------
 
@@ -493,32 +712,41 @@ def _rank_feasible(ok: np.ndarray, overhead: np.ndarray,
 
 
 def _design_pair(spec: UtilitySpec, mpf: float, cap: float, n_chips: int,
-                 swing: float, hw: Hardware
+                 swing: float, hw: Hardware,
+                 target_tau_s: Optional[float] = None
                  ) -> Tuple[Optional[GpuPowerSmoothing],
                             Optional[RackBattery]]:
     """The (device, rack) mitigations a candidate stands for; an ``mpf``
-    or ``cap`` of 0 turns its stage off."""
+    or ``cap`` of 0 turns its stage off.  ``target_tau_s`` overrides the
+    battery's grid-target horizon (a warm-start predictor's third
+    output)."""
     gpu = (GpuPowerSmoothing(
         mpf_frac=mpf, hw=hw,
         ramp_up_w_per_s=spec.time.ramp_up_w_per_s / n_chips,
         ramp_down_w_per_s=spec.time.ramp_down_w_per_s / n_chips)
         if mpf > 0 else None)
+    tau_kw = {} if target_tau_s is None else {
+        "target_tau_s": float(target_tau_s)}
     bat = (RackBattery(capacity_j=cap, max_discharge_w=swing,
-                       max_charge_w=swing) if cap > 0 else None)
+                       max_charge_w=swing, **tau_kw) if cap > 0 else None)
     return gpu, bat
 
 
 def _eval_candidates(spec: UtilitySpec, w: torch.Tensor, dt: float,
                      n_chips: int, candidates: Sequence[Tuple[float, float]],
-                     *, swing: float, hw: Hardware):
+                     *, swing: float, hw: Hardware,
+                     target_tau_s: Optional[Sequence[Optional[float]]] = None):
     """Every ``(mpf, cap)`` candidate applied to the trace ``w`` ``[n]``
-    and judged, as one batch: ``(outs [B, n], ok [B], overhead [B],
-    flags, metrics)`` on ``w``'s device.  The device stage runs on the
-    per-chip trace (``w / n_chips``) and is multiplied back; the rack
-    stage follows on the aggregate."""
+    and judged under the hard semantics, as one batch: ``(outs [B, n], ok
+    [B], overhead [B], flags, metrics)`` on ``w``'s device.  The device
+    stage runs on the per-chip trace (``w / n_chips``) and is multiplied
+    back; the rack stage follows on the aggregate.  ``target_tau_s``
+    carries one battery-horizon override per candidate (None: the
+    default)."""
     B = len(candidates)
-    pairs = [_design_pair(spec, m, c, n_chips, swing, hw)
-             for m, c in candidates]
+    taus = [None] * B if target_tau_s is None else list(target_tau_s)
+    pairs = [_design_pair(spec, m, c, n_chips, swing, hw, target_tau_s=t)
+             for (m, c), t in zip(candidates, taus)]
     outs = w[None].expand(B, -1).clone()
     gpus, gpu_on = _normalize_mits([g for g, _ in pairs], B,
                                    "design gpu candidates")
@@ -558,12 +786,94 @@ def design_grid(spec: UtilitySpec, w, dt: float, n_chips: int,
     ok = ok.cpu().numpy()
     if not ok.any():
         return None
-    idx = int(np.argmax(ok))
-    mpf, cap = candidates[idx]
     overhead = overhead.cpu().numpy()
-    ranked = _rank_feasible(ok, overhead, candidates)[:top_k]
-    gpu_sel, bat_sel = _design_pair(spec, mpf, cap, n_chips, swing, hw)
-    return {
+    sol = _solution(spec, candidates, outs, ok, overhead, flags, metrics,
+                    int(np.argmax(ok)), _rank_feasible(ok, overhead,
+                                                       candidates),
+                    top_k, n_chips, swing, hw, "grid")
+    sol["grid_ok"] = ok.reshape(len(mpf_grid), len(cap_grid))
+    return sol
+
+
+# ---------------------------------------------------------------------------
+# gradient-based (MPF x battery) design
+# ---------------------------------------------------------------------------
+
+# below this fraction of mpf_max the relaxed device stage is (mostly)
+# gated off and the hard re-validation snaps mpf to exactly 0 (stage off)
+_GPU_GATE_PIVOT = 0.15
+
+
+def _design_descend(x0: Dict[str, torch.Tensor], gpu_t: GpuPowerSmoothing,
+                    bat_t: RackBattery, w: torch.Tensor, n_chips: float,
+                    lo: Dict[str, float], hi: Dict[str, float],
+                    hyper: Dict[str, float], spec: UtilitySpec,
+                    limits: Dict[str, float], dt: float, steps: int
+                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Multi-start Adam descent on the smooth design objective, every
+    start a row of one batch.
+
+    ``x0`` is ``{"mpf": [S], "cap": [S]}`` (capacity in units of
+    ``hyper["cap_scale"]`` joules, so both coordinates are O(1));
+    ``gpu_t``/``bat_t`` are relaxed (``smooth_tau > 0``) templates whose
+    ``mpf_frac``/``capacity_j`` take the iterate each step.  The objective
+    is the spec's hinge loss (margin-shrunk limits) plus an energy-overhead
+    and an L1 sizing regularizer; each row's gradient is clipped to norm
+    100 over that row's {mpf, cap} alone, and each Adam step is followed by
+    a projection onto the box ``[lo, hi]``.  A sigmoid on-gate driven by
+    mpf (pivot ``_GPU_GATE_PIVOT`` of mpf_max) blends the device stage in,
+    so the battery-only design lies inside the search space.  Returns the
+    final iterates and the loss history ``[S, steps]``; nothing in the loss
+    mixes rows.
+    """
+    mpf_max = gpu_t.hw.chip.mpf_max
+    tau = gpu_t.smooth_tau
+    S = x0["mpf"].shape[0]
+    chips = torch.tensor(n_chips, dtype=torch.float32, device=w.device)
+    per_chip = (w / chips)[None].expand(S, -1)
+    w_rows = w[None].expand(S, -1)
+    zero = torch.zeros(S, dtype=torch.float32, device=w.device)
+
+    def objective(x):
+        gpus = [dataclasses.replace(gpu_t, mpf_frac=m) for m in
+                x["mpf"].unbind()]
+        bats = [dataclasses.replace(bat_t, capacity_j=c) for c in
+                (x["cap"] * hyper["cap_scale"]).unbind()]
+        smoothed, _ = GpuPowerSmoothing.apply_batch(gpus, per_chip, dt)
+        g_on = torch.sigmoid((x["mpf"] - _GPU_GATE_PIVOT * mpf_max)
+                             / (tau * mpf_max))[:, None]
+        chip_out = g_on * smoothed + (1.0 - g_on) * per_chip
+        out, _ = RackBattery.apply_batch(bats, chip_out * chips, dt)
+        viol, _ = spec.loss_jax(out, dt, margin=hyper["margin"],
+                                limits=limits)
+        overhead = energy_overhead(w_rows, out)
+        return (viol + hyper["overhead_weight"] * torch.maximum(overhead,
+                                                                zero)
+                + hyper["size_weight"] * (x["cap"] + 0.25 * x["mpf"]))
+
+    x = {k: v.detach() for k, v in x0.items()}
+    state = adam_init(x)
+    losses = []
+    for _ in range(steps):
+        xg = {k: v.clone().requires_grad_(True) for k, v in x.items()}
+        loss = objective(xg)
+        gm, gc = torch.autograd.grad(loss.sum(), (xg["mpf"], xg["cap"]))
+        g, _ = clip_by_global_norm({"mpf": gm, "cap": gc}, 100.0,
+                                   batch_dims=1)
+        x, state = adam_update(x, g, state, hyper["lr"])
+        x = {k: torch.clamp(v, lo[k], hi[k]) for k, v in x.items()}
+        losses.append(loss.detach())
+    return x, torch.stack(losses, dim=1)
+
+
+def _solution(spec, candidates, outs, ok, overhead, flags, metrics, idx,
+              ranked, top_k, n_chips, swing, hw, method, target_tau_s=None
+              ) -> Dict:
+    """The solution dict of candidate ``idx`` (host data)."""
+    mpf, cap = candidates[idx]
+    gpu_sel, bat_sel = _design_pair(spec, mpf, cap, n_chips, swing, hw,
+                                    target_tau_s=target_tau_s)
+    sol = {
         "mpf_frac": mpf,
         "battery_capacity_j": cap,
         "energy_overhead": float(overhead[idx]),
@@ -573,41 +883,235 @@ def design_grid(spec: UtilitySpec, w, dt: float, n_chips: int,
         "device_mitigation": gpu_sel,
         "rack_mitigation": bat_sel,
         "mitigated": outs[idx].cpu().numpy(),
-        "grid_ok": ok.reshape(len(mpf_grid), len(cap_grid)),
         "alternatives": [{
             "mpf_frac": candidates[i][0],
             "battery_capacity_j": candidates[i][1],
             "energy_overhead": float(overhead[i]),
-        } for i in ranked],
-        "method": "grid",
+        } for i in ranked[:top_k]],
+        "method": method,
         "aux": {},
     }
+    if target_tau_s is not None:
+        sol["target_tau_s"] = target_tau_s
+    return sol
+
+
+def design_gradient(spec: UtilitySpec, w, dt: float, n_chips: int, *,
+                    swing: Optional[float] = None, hw: Hardware = DEFAULT_HW,
+                    seeds: Optional[Sequence[Tuple[float, float]]] = None,
+                    steps: int = 120, lr: float = 0.08,
+                    smooth_tau: float = 0.05, margin: float = 0.05,
+                    overhead_weight: float = 0.5, size_weight: float = 0.02,
+                    period_hint_s: float = 2.0, top_k: int = 4,
+                    cap_scale: Optional[float] = None,
+                    mpf_bounds: Optional[Tuple[float, float]] = None,
+                    cap_bounds_j: Optional[Tuple[float, float]] = None,
+                    device=None) -> Optional[Dict]:
+    """Gradient descent on (MPF fraction, battery capacity).
+
+    The forward model is the gated gpu -> battery stack the grid search
+    evaluates, run through the mitigations' ``smooth_tau`` relaxation
+    (kernels J and K, forward and adjoint, on the card); the objective is
+    ``UtilitySpec.loss_jax`` plus an energy-overhead regularizer.
+    ``seeds`` are (mpf_frac, capacity_j) starts, augmented with a fixed
+    6-point lattice over the box; all starts descend as rows of one batch.
+
+    The answer is exact: every final iterate (with a capacity ladder around
+    it and its battery-only variant) and every seed is re-validated under
+    the hard semantics in one batch, and the minimal-overhead passing
+    candidate wins.  Returns ``design_grid``'s dict (plus
+    ``loss_history`` ``[S, steps]``), or None when nothing passes.  Runs
+    on ``device`` (None: the card).
+    """
+    dev = resolve_device(device)
+    w = np.asarray(w, np.float32)
+    swing = float(w.max() - w.min()) if swing is None else float(swing)
+    cap_scale = float(cap_scale or swing * period_hint_s)
+    mpf_lo, mpf_hi = mpf_bounds or (0.0, hw.chip.mpf_max)
+    cap_lo_j, cap_hi_j = cap_bounds_j or (0.0, 4.0 * cap_scale)
+    # caller seeds are augmented with a fixed lattice over the box: a
+    # degenerate seed set (only MPF-only configs with cap ~ 0, where the
+    # saturated battery's capacity gradient vanishes) cannot climb out
+    lattice = [(m, f * cap_scale) for m in (0.3, 0.6, 0.85)
+               for f in (0.25, 1.0)]
+    seeds = lattice if seeds is None else list(seeds) + lattice
+    seeds = list(dict.fromkeys(
+        (float(np.clip(m, mpf_lo, mpf_hi)),
+         float(np.clip(c, cap_lo_j, cap_hi_j))) for m, c in seeds))
+    # the descent stays above a small capacity floor: at cap -> 0 the SoC
+    # fraction's reverse-mode terms scale like 1/cap^2 and overflow f32;
+    # the raw (possibly cap = 0) seeds are still hard-validated below
+    cap_floor_j = max(cap_lo_j, 1e-3 * cap_scale)
+
+    gpu_t = GpuPowerSmoothing(
+        mpf_frac=0.5, hw=hw,
+        ramp_up_w_per_s=spec.time.ramp_up_w_per_s / n_chips,
+        ramp_down_w_per_s=spec.time.ramp_down_w_per_s / n_chips,
+        smooth_tau=smooth_tau)
+    bat_t = RackBattery(capacity_j=cap_scale, max_discharge_w=swing,
+                        max_charge_w=swing, smooth_tau=smooth_tau)
+    f32 = np.float32
+    x0 = {"mpf": torch.tensor([m for m, _ in seeds], dtype=torch.float32,
+                              device=dev),
+          "cap": torch.tensor([max(c, cap_floor_j) / cap_scale
+                               for _, c in seeds], dtype=torch.float32,
+                              device=dev)}
+    lo = {"mpf": float(f32(mpf_lo)), "cap": float(f32(cap_floor_j
+                                                      / cap_scale))}
+    hi = {"mpf": float(f32(mpf_hi)), "cap": float(f32(cap_hi_j / cap_scale))}
+    hyper = {"lr": float(f32(lr)), "margin": float(f32(margin)),
+             "overhead_weight": float(f32(overhead_weight)),
+             "size_weight": float(f32(size_weight)),
+             "cap_scale": float(f32(cap_scale))}
+    w_t = torch.as_tensor(w, device=dev)
+    xf, losses = _design_descend(x0, gpu_t, bat_t, w_t, float(n_chips), lo,
+                                 hi, hyper, spec, spec.limits(), dt, steps)
+
+    # hard re-validation: each final iterate with a geometric capacity
+    # ladder around it, its battery-only variant, and the seeds themselves
+    # (so a refined answer is never worse than its seed)
+    finals = list(zip(xf["mpf"].cpu().tolist(),
+                      (xf["cap"].cpu().numpy() * f32(cap_scale)).tolist()))
+    candidates: List[Tuple[float, float]] = []
+    for m, c in finals:
+        for f in (0.75, 0.8, 0.87, 0.93, 1.0, 1.08, 1.25, 1.6):
+            ck = float(np.clip(c * f, cap_lo_j, cap_hi_j))
+            candidates.append((m, ck))
+            candidates.append((0.0, ck))
+    candidates += seeds
+    # snap a mostly-gated-off device stage to an exactly-off one
+    candidates = [(0.0 if m < _GPU_GATE_PIVOT * hw.chip.mpf_max else m,
+                   0.0 if c < 1e-6 * cap_scale else c)
+                  for m, c in candidates]
+    candidates = list(dict.fromkeys(candidates))
+    outs, ok, overhead, flags, metrics = _eval_candidates(
+        spec, w_t, dt, n_chips, candidates, swing=swing, hw=hw)
+    ok = ok.cpu().numpy()
+    if not ok.any():
+        return None
+    overhead = overhead.cpu().numpy()
+    ranked = _rank_feasible(ok, overhead, candidates)
+    sol = _solution(spec, candidates, outs, ok, overhead, flags, metrics,
+                    int(ranked[0]), ranked, top_k, n_chips, swing, hw,
+                    "gradient")
+    sol["loss_history"] = losses.cpu().numpy()
+    return sol
+
+
+# capacity rungs the warm-start fast path walks around a predicted seed:
+# sub-1.0 rungs reclaim an over-provisioned prediction, the >1.0 rungs
+# rescue an under-provisioned one without falling back to the polisher
+_WARMSTART_CAP_LADDER = (0.8, 0.9, 1.0, 1.15, 1.4, 2.0)
+
+
+def design_warmstart(spec: UtilitySpec, w, dt: float, n_chips: int, *,
+                     predictor, swing: Optional[float] = None,
+                     hw: Hardware = DEFAULT_HW, features=None,
+                     period_hint_s: float = 2.0, top_k: int = 4,
+                     polish_steps: int = 40, device=None,
+                     **gradient_kwargs) -> Optional[Dict]:
+    """(MPF, capacity, battery horizon) design from a predictor's seeds.
+
+    ``predictor(spec, w, dt, n_chips, features=features)`` returns
+    ``[(mpf_frac, capacity_j, target_tau_s), ...]``; any callable does.
+    The fast path expands each seed into a capacity ladder (plus
+    battery-only variants) and judges them all under the hard semantics
+    in one batch; a passing rung wins by the solvers' (overhead, capacity,
+    mpf) order.  If none passes, a short gradient polish from the seeds,
+    then the full ``hybrid`` solver, so the verdict matches the solver
+    this path stands in for.  ``aux["warmstart_path"]`` says which tier
+    answered ("fast", "polish" or "hybrid_fallback").
+    """
+    dev = resolve_device(device)
+    w = np.asarray(w, np.float32)
+    swing = float(w.max() - w.min()) if swing is None else float(swing)
+    preds = predictor(spec, w, dt, n_chips, features=features)
+    dedup: Dict[Tuple[float, float], float] = {}
+    for mpf, cap, tau in preds:
+        mpf = float(np.clip(mpf, 0.0, hw.chip.mpf_max))
+        if mpf < _GPU_GATE_PIVOT * hw.chip.mpf_max:
+            mpf = 0.0                       # snap a gated-off device stage
+        cap = max(float(cap), 0.0)
+        tau = float(tau)
+        for f in _WARMSTART_CAP_LADDER:
+            ck = round(cap * f, 3)
+            if mpf == 0.0 and ck <= 0.0:
+                continue            # no-mitigation rung: nothing to verify
+            dedup.setdefault((mpf, ck), tau)
+            if mpf > 0 and ck > 0:          # battery-only variant
+                dedup.setdefault((0.0, ck), tau)
+    candidates = list(dedup)
+    taus = [dedup[c] for c in candidates]
+    if candidates:
+        outs, ok, overhead, flags, metrics = _eval_candidates(
+            spec, torch.as_tensor(w, device=dev), dt, n_chips, candidates,
+            swing=swing, hw=hw, target_tau_s=taus)
+        ok = ok.cpu().numpy()
+        if ok.any():
+            overhead = overhead.cpu().numpy()
+            ranked = _rank_feasible(ok, overhead, candidates)
+            idx = int(ranked[0])
+            sol = _solution(spec, candidates, outs, ok, overhead, flags,
+                            metrics, idx, ranked, top_k, n_chips, swing, hw,
+                            "warmstart", target_tau_s=taus[idx])
+            sol["aux"] = {"warmstart_path": "fast"}
+            return sol
+    # the ladder missed: a short polish from the predicted seeds, then the
+    # full solver
+    sol = design_gradient(spec, w, dt, n_chips, swing=swing, hw=hw,
+                          seeds=[(m, c) for m, c, _ in preds] or None,
+                          steps=polish_steps, period_hint_s=period_hint_s,
+                          top_k=top_k, device=dev, **gradient_kwargs)
+    path = "polish"
+    if sol is None:
+        sol = design(spec, w, dt, n_chips, method="hybrid", hw=hw,
+                     period_hint_s=period_hint_s, top_k=top_k, device=dev,
+                     **gradient_kwargs)
+        path = "hybrid_fallback"
+    if sol is None:
+        return None
+    sol = dict(sol)
+    sol["method"] = "warmstart"
+    sol["aux"] = dict(sol.get("aux") or {}, warmstart_path=path)
+    return sol
 
 
 def design(spec: UtilitySpec, w, dt: float, n_chips: int, *,
-           method: str = "grid", hw: Hardware = DEFAULT_HW,
+           method: str = "hybrid", hw: Hardware = DEFAULT_HW,
            period_hint_s: float = 2.0,
            mpf_grid: Optional[Sequence[float]] = None,
            cap_grid: Optional[Sequence[float]] = None, top_k: int = 4,
-           warmstart=None, device=None, **unported) -> Optional[Dict]:
+           warmstart=None, features=None, polish_steps: int = 40,
+           device=None, **gradient_kwargs) -> Optional[Dict]:
     """The (MPF, battery-capacity) design entry point.
 
-    ``method="grid"`` is the batched coarse grid search (``design_grid``)
-    over MPF floors up to the chip's cap and battery capacities of
-    ``swing * period_hint_s`` times 0 and 1/8 to 2.  The gradient-based
-    methods (``gradient``, ``hybrid``, ``warmstart``) and their options
-    (``warmstart=``, the gradient keywords) are not ported yet and raise
-    ``NotImplementedError``.  The reference
-    defaults to ``hybrid``; the port to the one method it has.
+    method="grid"      the batched coarse grid search (``design_grid``)
+                       over MPF floors up to the chip's cap and battery
+                       capacities of ``swing * period_hint_s`` times 0 and
+                       1/8 to 2;
+    method="gradient"  Adam through the relaxed pipeline
+                       (``design_gradient``), lattice-seeded;
+    method="hybrid"    the grid first, then the gradient refinement seeded
+                       from its top-k feasible configs: never worse than
+                       the grid, and finds the compliance frontier between
+                       grid points (the default, as in the reference);
+    method="warmstart" ``design_warmstart`` from the predictor passed as
+                       ``warmstart=`` (and optional ``features=``).
+
+    Runs on ``device`` (None: the card).
     """
-    if (method in ("gradient", "hybrid", "warmstart")
-            or warmstart is not None or unported):
-        raise NotImplementedError(DESIGN_NOT_PORTED.format(method))
-    if method != "grid":
-        raise ValueError(f"method must be grid|gradient|hybrid|warmstart, "
-                         f"got {method!r}")
     w = np.asarray(w, np.float32)
     swing = float(w.max() - w.min())
+    if method == "warmstart":
+        if warmstart is None:
+            raise ValueError(
+                "method='warmstart' needs a predictor: design(..., "
+                "warmstart=predictor)")
+        return design_warmstart(spec, w, dt, n_chips, predictor=warmstart,
+                                swing=swing, hw=hw, features=features,
+                                period_hint_s=period_hint_s, top_k=top_k,
+                                polish_steps=polish_steps, device=device,
+                                **gradient_kwargs)
     if mpf_grid is None:
         # the hardware caps how high a floor is programmable
         mpf_grid = [m for m in (0.0, 0.5, 0.65, 0.8, 0.9)
@@ -615,5 +1119,34 @@ def design(spec: UtilitySpec, w, dt: float, n_chips: int, *,
     if cap_grid is None:
         cap_grid = [0.0] + [swing * period_hint_s * f for f in
                             (0.125, 0.25, 0.5, 1.0, 2.0)]
-    return design_grid(spec, w, dt, n_chips, mpf_grid, cap_grid,
-                       swing=swing, hw=hw, top_k=top_k, device=device)
+    if method == "grid":
+        return design_grid(spec, w, dt, n_chips, mpf_grid, cap_grid,
+                           swing=swing, hw=hw, top_k=top_k, device=device)
+    if method == "gradient":
+        return design_gradient(spec, w, dt, n_chips, swing=swing, hw=hw,
+                               period_hint_s=period_hint_s, top_k=top_k,
+                               device=device, **gradient_kwargs)
+    if method != "hybrid":
+        raise ValueError(f"method must be grid|gradient|hybrid|warmstart, "
+                         f"got {method!r}")
+    grid_sol = design_grid(spec, w, dt, n_chips, mpf_grid, cap_grid,
+                           swing=swing, hw=hw, top_k=top_k, device=device)
+    seeds = None
+    if grid_sol is not None:
+        seeds = [(a["mpf_frac"], a["battery_capacity_j"])
+                 for a in grid_sol["alternatives"]]
+        seeds.append((grid_sol["mpf_frac"], grid_sol["battery_capacity_j"]))
+    grad_sol = design_gradient(spec, w, dt, n_chips, swing=swing, hw=hw,
+                               period_hint_s=period_hint_s, seeds=seeds,
+                               top_k=top_k, device=device, **gradient_kwargs)
+    sols = [s for s in (grad_sol, grid_sol) if s is not None]
+    if not sols:
+        return None
+    # the rounded (overhead, capacity, mpf) order _rank_feasible applies:
+    # raw-float overhead would let 1e-7 noise hand the win back to the
+    # grid's bigger battery
+    best = min(sols, key=lambda s: (round(s["energy_overhead"], 6),
+                                    s["battery_capacity_j"], s["mpf_frac"]))
+    best = dict(best)
+    best["method"] = "hybrid"
+    return best

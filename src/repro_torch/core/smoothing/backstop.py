@@ -18,8 +18,15 @@ The monitor is the fused one (``kernels/goertzel/ops.
 sliding_monitor_fused``: kernel A, then the escalation machine on kernel
 D).  ``use_pallas`` and ``fused_scan`` are kept for configuration parity
 with the reference and select the same fused monitor; the reference's
-cumsum oracle path is not ported.  The relaxed design path
-(``smooth_tau > 0``) is not ported yet.
+cumsum oracle path is not ported.
+
+``smooth_tau > 0`` keeps the hard forward and adds a straight-through
+term, ``(soft - soft.detach()) * (resp - w)``, whose value is 0 and whose
+gradient carries the engagement margin's sigmoid to ``amp_threshold_w``
+(the response gains get theirs through the selected branches).  The
+worst-bin amplitude comes from kernel A, which has no backward, so it is
+detached: unlike the reference's, the port's gradient does not reach
+``w`` through the monitor (ROADMAP queue C).
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.smoothing.base import (RELAXED_NOT_PORTED, mean64, stack_params)
+from repro_torch.core.smoothing.base import mean64, stack_params
+from repro_torch.core.smoothing.relax import sigmoid_gate
 from repro_torch.kernels.goertzel.ops import sliding_monitor_fused
 
 
@@ -60,13 +68,12 @@ class TelemetryBackstop:
                     w: torch.Tensor, dt: float
                     ) -> Tuple[torch.Tensor, Dict]:
         m0 = mits[0]
-        if m0.smooth_tau:
-            raise NotImplementedError(RELAXED_NOT_PORTED)
         w = w.to(torch.float32)
         win = max(int(m0.window_s / dt), 8)
         p = stack_params(mits, cls.PARAMS, w.device)
         worst, levels, detect, _peaks = sliding_monitor_fused(
-            w, dt, m0.critical_hz, win=win, threshold=p["amp_threshold_w"],
+            w.detach(), dt, m0.critical_hz, win=win,
+            threshold=p["amp_threshold_w"].detach(),
             sustain_n=max(int(m0.sustain_s / dt), 1),
             cool_n=max(int(m0.cooldown_s / dt), 1))
         mean = mean64(w)[:, None]
@@ -77,6 +84,15 @@ class TelemetryBackstop:
                           out)
         out = torch.where(levels == 3, (p["idle_frac"][:, None] * mean)
                           .expand_as(w), out)
+        if m0.smooth_tau:
+            # forward: the hard response (the added term is 0); backward:
+            # the sigmoid's margin to the threshold, with the level-1
+            # throttle as the response of samples that did not escalate
+            thr = p["amp_threshold_w"][:, None]
+            resp = torch.where(levels > 0, out, r1)
+            soft = sigmoid_gate(worst - thr, m0.smooth_tau,
+                                torch.maximum(thr, torch.ones_like(thr)))
+            out = out + (soft - soft.detach()) * (resp - w)
         return out, {
             "max_level": levels.amax(-1),
             "detect_latency_s": torch.where(

@@ -23,15 +23,11 @@ import dataclasses
 import inspect
 from typing import Dict, Optional, Protocol, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng
-
-# the ROADMAP queue A item that brings each relaxation / mitigation the
-# port does not run yet
-RELAXED_NOT_PORTED = ("smooth_tau > 0 (the differentiable design path) is "
-                      "not ported yet: ROADMAP queue A, the design slice")
-
+from repro_torch.device import resolve_device
 
 class Mitigation(Protocol):
     STATIC_FIELDS: Tuple[str, ...]
@@ -85,10 +81,51 @@ def apply_mitigation(mits: Sequence, w: torch.Tensor, dt: float,
 
 def stack_params(mits: Sequence, names: Sequence[str], device
                  ) -> Dict[str, torch.Tensor]:
-    """Per-row float32 parameter tensors ``[B]`` of the named fields."""
-    return {name: torch.tensor([float(getattr(m, name)) for m in mits],
-                               dtype=torch.float32, device=device)
-            for name in names}
+    """Per-row float32 parameter tensors ``[B]`` of the named fields.  A
+    field may hold a 0-d tensor (the design's iterate): its rows are then
+    stacked with ordinary torch ops, so gradients reach it."""
+    out = {}
+    for name in names:
+        vals = [getattr(m, name) for m in mits]
+        if any(isinstance(v, torch.Tensor) for v in vals):
+            out[name] = torch.stack([torch.as_tensor(
+                v, dtype=torch.float32, device=device).reshape(())
+                for v in vals])
+        else:
+            out[name] = torch.tensor([float(v) for v in vals],
+                                     dtype=torch.float32, device=device)
+    return out
+
+
+def materialize_aux(aux: Dict, row: int = 0) -> Dict:
+    """Row ``row`` of an aux tree of per-row tensors as host values: a
+    python int or float for a scalar, a numpy array otherwise."""
+    out: Dict = {}
+    for k, v in aux.items():
+        if isinstance(v, dict):
+            out[k] = materialize_aux(v, row)
+        elif isinstance(v, torch.Tensor):
+            a = v[row].detach().cpu().numpy()
+            if a.ndim == 0:
+                out[k] = int(a) if a.dtype.kind in "iub" else float(a)
+            else:
+                out[k] = a
+        else:
+            out[k] = v
+    return out
+
+
+def np_apply(mit, w, dt: float, key=None, device=None
+             ) -> Tuple[np.ndarray, Dict]:
+    """One mitigation on one trace ``w`` ``[n]`` (numpy in, numpy out),
+    on ``device`` (None: the card): ``(out [n], aux)`` with host aux
+    values.  ``key`` (a key or an int seed, ``prng.as_key``) feeds a
+    mitigation that draws noise."""
+    dev = resolve_device(device)
+    row = torch.as_tensor(np.asarray(w, np.float32), device=dev)[None]
+    keys = None if key is None else prng.as_key(key)[None].to(dev)
+    out, aux = apply_mitigation([mit], row, dt, keys)
+    return out[0].cpu().numpy(), materialize_aux(aux)
 
 
 def mean64(w: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,10 @@ waveform ``w / n_chips``, re-aggregates, and runs the battery (kernel C)
 on the aggregate.  Its nested ``gpu`` and ``battery`` fix its batching
 structure (``base.structure``); ``n_chips`` is a per-row parameter.
 
-``design_mitigation`` is the spec -> configuration solver over the
-batched grid search (``engine.design``, ``method="grid"``), confirming
-its winner with one ``apply_batch`` row for the exact aux.
+``design_mitigation`` is the spec -> configuration solver over
+``engine.design`` (the grid search by default, as in the reference, or
+the gradient solvers), confirming its winner with one ``apply_batch`` row
+for the exact aux.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
-from repro_torch.core.smoothing.base import energy_overhead, stack_params
+from repro_torch.core.smoothing.base import (energy_overhead,
+                                             materialize_aux, stack_params)
 from repro_torch.core.smoothing.battery import RackBattery
 from repro_torch.core.smoothing.gpu_floor import GpuPowerSmoothing
 from repro_torch.core.spec import UtilitySpec
@@ -49,18 +51,6 @@ class CombinedMitigation:
                      "energy_overhead": energy_overhead(w, out)}
 
 
-def _host_aux(aux: Dict) -> Dict:
-    """An aux tree of one row as Python numbers and numpy arrays."""
-    out: Dict = {}
-    for k, v in aux.items():
-        if isinstance(v, dict):
-            out[k] = _host_aux(v)
-        else:
-            a = v[0].cpu().numpy()
-            out[k] = (a.item() if a.ndim == 0 else a)
-    return out
-
-
 def design_mitigation(spec: UtilitySpec, w, dt: float, n_chips: int,
                       hw: Hardware = DEFAULT_HW, period_hint_s: float = 2.0,
                       method: str = "grid", device=None,
@@ -68,7 +58,8 @@ def design_mitigation(spec: UtilitySpec, w, dt: float, n_chips: int,
     """The smallest-overhead (MPF, battery) pair that passes ``spec`` on
     the trace ``w``, by ``engine.design`` (``method="grid"``: the coarse
     candidate grid in one batch, the first passing configuration in (MPF,
-    capacity) order; the gradient methods raise).  The winner is applied
+    capacity) order; ``"gradient"``, ``"hybrid"`` and ``"warmstart"``: the
+    gradient solvers, their keywords passed through).  The winner is applied
     once more as one row (``CombinedMitigation``, or the battery alone)
     for its exact aux, under ``"aux"``.  Runs on ``device`` (None: the
     card)."""
@@ -88,5 +79,5 @@ def design_mitigation(spec: UtilitySpec, w, dt: float, n_chips: int,
         _, aux = RackBattery.apply_batch([bat], row, dt)
     else:
         aux = None
-    sol["aux"] = {} if aux is None else _host_aux(aux)
+    sol["aux"] = {} if aux is None else materialize_aux(aux)
     return sol

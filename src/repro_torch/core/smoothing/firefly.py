@@ -16,8 +16,11 @@ primary ramps up:
 The ballast is modelled as arithmetic, as in the reference: this module
 never runs the GEMM burner (``kernels/ballast``).  The per-row parameters
 are ``engage_frac``, ``threshold_frac`` and ``interference``; telemetry
-and back-off timing fix sampling indices and are static.  The relaxed
-design path (``smooth_tau > 0``) is not ported yet.
+and back-off timing fix sampling indices and are static.
+
+``smooth_tau > 0`` is the reference's relaxation: the quantizer stays
+hard forward with an identity backward (``relax.ste_ceil``), and the
+engage gate becomes a sigmoid at temperature tau.
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
-from repro_torch.core.smoothing.base import (RELAXED_NOT_PORTED,
-                                             energy_overhead, stack_params)
+from repro_torch.core.smoothing.base import energy_overhead, stack_params
+from repro_torch.core.smoothing.relax import sigmoid_gate, ste_ceil
 from repro_torch.core.telemetry import TelemetrySource
 
 
@@ -57,8 +60,6 @@ class Firefly:
                     dt: float, keys: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Dict]:
         m0 = mits[0]
-        if m0.smooth_tau:
-            raise NotImplementedError(RELAXED_NOT_PORTED)
         w = w.to(torch.float32)
         dev = w.device
         p = stack_params(mits, cls.PARAMS, dev)
@@ -73,13 +74,21 @@ class Firefly:
         bdur = max(int(m0.backoff_dur_s / dt), 1)
         backoff = torch.as_tensor((np.arange(n) % every) < bdur, device=dev)
 
-        raw = torch.clamp(target - meas, min=0.0)
         step_w = target / torch.tensor(float(m0.ballast_steps),
                                        dtype=torch.float32, device=dev)
-        eps = torch.tensor(1e-9, dtype=torch.float32, device=dev)
-        ballast = torch.ceil(raw / step_w - eps) * step_w
         zero = torch.zeros((), dtype=torch.float32, device=dev)
-        ballast = torch.where(meas < thresh, ballast, zero)
+        if m0.smooth_tau:
+            # forward quantized (straight-through ceil); the engage gate
+            # relaxes to a sigmoid
+            raw = torch.maximum(target - meas, zero)
+            ballast = ste_ceil(raw / step_w) * step_w
+            ballast = ballast * sigmoid_gate(thresh - meas, m0.smooth_tau,
+                                             m0.hw.chip.tdp_w)
+        else:
+            raw = torch.clamp(target - meas, min=0.0)
+            eps = torch.tensor(1e-9, dtype=torch.float32, device=dev)
+            ballast = torch.ceil(raw / step_w - eps) * step_w
+            ballast = torch.where(meas < thresh, ballast, zero)
         ballast = torch.where(backoff, zero, ballast)
         out = torch.minimum(w + ballast, tdp)
 

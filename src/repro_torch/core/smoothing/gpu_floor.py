@@ -11,8 +11,17 @@ Feature model:
 
 The per-sample recursion runs as kernel B (``kernels/scans/csrc/
 gpu_floor.cu``) on a CUDA tensor and as ``gpu_floor_scan_plain``, a
-Python loop over samples, on a CPU tensor.  The relaxed design path
-(``smooth_tau > 0``) is not ported yet.
+Python loop over samples, on a CPU tensor.
+
+``smooth_tau > 0`` selects the design-time relaxation (reference
+``_apply_smooth``): the activity gate, the idle counter's reset, the
+stop-delay gate and the floor and cap selects become sigmoid blends and
+logaddexp maxima at temperature tau; the ramp clip stays hard.  It runs as
+kernel J (``kernels/scans/csrc/gpu_floor_relaxed.cu``), a forward and an
+adjoint behind one ``torch.autograd.Function``, on a CUDA tensor, and as
+``gpu_floor_relaxed_plain`` (a Python loop that autograd differentiates)
+on a CPU tensor.  The parameter columns are built from the fields with
+ordinary torch ops, so a field that holds a tensor gets its gradient.
 """
 from __future__ import annotations
 
@@ -23,7 +32,9 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
-from repro_torch.core.smoothing.base import (RELAXED_NOT_PORTED, energy_overhead, stack_params)
+from repro_torch.core.smoothing.base import energy_overhead, stack_params
+from repro_torch.core.smoothing.relax import (per_sample, sigmoid_gate,
+                                             smooth_max)
 from repro_torch.kernels.build import CudaKernel, ptr, stream_of
 
 GPU_FLOOR_KERNEL = CudaKernel(
@@ -32,7 +43,20 @@ GPU_FLOOR_KERNEL = CudaKernel(
                              ctypes.c_void_p],
     extra_flags=("-fmad=false",))
 
-# column order of the per-row parameter matrix the kernel reads
+# kernel J: the relaxed recursion's forward and its adjoint, one library
+RELAXED_FLAGS = ("-fmad=false",)
+RELAXED_FORWARD = CudaKernel(
+    "scans/csrc/gpu_floor_relaxed.cu", "gpu_floor_relaxed_forward",
+    [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+    extra_flags=RELAXED_FLAGS)
+RELAXED_ADJOINT = CudaKernel(
+    "scans/csrc/gpu_floor_relaxed.cu", "gpu_floor_relaxed_adjoint",
+    [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+    extra_flags=RELAXED_FLAGS, name="gpu_floor_relaxed_adjoint")
+
+# column order of the per-row parameter matrix the kernels read
 PARAM_COLUMNS = ("mpf", "thresh", "ru", "rd", "stop_n", "cap")
 
 
@@ -76,6 +100,82 @@ def gpu_floor_scan(w: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gpu_floor_relaxed_plain(w: torch.Tensor, params: torch.Tensor,
+                            tau: float, tdp: float) -> torch.Tensor:
+    """Kernel J's plain version: the reference's relaxed step in torch ops
+    over the rows, a Python loop over the samples of ``w`` ``[B, n]``, with
+    ``params`` ``[B, 6]`` in ``PARAM_COLUMNS`` order; autograd gives its
+    gradient.  Maxima and minima are ``torch.maximum``/``minimum``, which
+    split a tie's gradient in halves, as JAX does.  Each sample takes its
+    own copy of ``params`` (``per_sample``), so their gradients are summed
+    in float64, as the kernel sums them."""
+    outs = []
+    # one unbind: a select a sample would make autograd add a zero
+    # [B, n] gradient for each of them
+    cols = w.unbind(-1)
+    o = cols[0]
+    idle = torch.zeros_like(o)
+    for p, prm in zip(cols, per_sample(params, len(cols))):
+        mpf, thresh, ru, rd, stop_n, cap = prm.unbind(-1)
+        active = sigmoid_gate(p - thresh, tau, tdp)
+        idle = (1.0 - active) * (idle + 1.0)
+        floor = mpf * sigmoid_gate(stop_n - idle, tau, stop_n + 1.0)
+        target = smooth_max(p, floor, tau, tdp)
+        target = -smooth_max(-target, -cap, tau, tdp)
+        o = torch.minimum(torch.maximum(target, o - rd), o + ru)
+        outs.append(o)
+    return torch.stack(outs, dim=-1)
+
+
+class _GpuFloorRelaxed(torch.autograd.Function):
+    """Kernel J on the card: the forward kernel keeps the idle counter's
+    trace, from which the adjoint kernel recomputes every step."""
+
+    @staticmethod
+    def forward(ctx, w, params, tau, tdp):
+        B, n = w.shape
+        out = torch.empty_like(w)
+        idle = torch.empty_like(w)
+        T = float(tau * tdp)
+        RELAXED_FORWARD.launch(ptr(w), ptr(params), float(tau), T, ptr(out),
+                               ptr(idle), B, n, stream_of(w))
+        ctx.save_for_backward(w, params, out, idle)
+        ctx.tau, ctx.T = float(tau), T
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        w, params, out, idle = ctx.saved_tensors
+        B, n = w.shape
+        g_out = g_out.to(torch.float32).contiguous()
+        g_w = torch.empty_like(w)
+        g_p = torch.empty_like(params)
+        RELAXED_ADJOINT.launch(ptr(w), ptr(params), ctx.tau, ctx.T, ptr(out),
+                               ptr(idle), ptr(g_out), ptr(g_w), ptr(g_p), B,
+                               n, stream_of(w))
+        return g_w, g_p, None, None
+
+
+def gpu_floor_relaxed(w: torch.Tensor, params: torch.Tensor, tau: float,
+                      tdp: float) -> torch.Tensor:
+    """The relaxed smoothed chip power ``[B, n]`` of ``w`` ``[B, n]`` (f32)
+    with per-row ``params`` ``[B, 6]`` (f32, ``PARAM_COLUMNS`` order), at
+    temperature ``tau``: kernel J (differentiable in ``w`` and ``params``)
+    on a CUDA tensor, its plain version on a CPU tensor."""
+    B, n = w.shape
+    if w.dtype != torch.float32 or params.shape != (B, len(PARAM_COLUMNS)):
+        raise ValueError("gpu_floor_relaxed: w must be f32 [B, n], params "
+                         f"[B, {len(PARAM_COLUMNS)}]")
+    if w.device.type == "cpu":
+        return gpu_floor_relaxed_plain(w, params.to(torch.float32), tau, tdp)
+    if w.device.type != "cuda" or params.device != w.device:
+        raise ValueError("gpu_floor_relaxed: w and params must share one "
+                         "CUDA device")
+    return _GpuFloorRelaxed.apply(w.contiguous(),
+                                  params.to(torch.float32).contiguous(),
+                                  float(tau), float(tdp))
+
+
 @dataclasses.dataclass(frozen=True)
 class GpuPowerSmoothing:
     mpf_frac: float = 0.9               # floor as fraction of TDP (<= 0.9)
@@ -95,7 +195,9 @@ class GpuPowerSmoothing:
               "stop_delay_s", "activity_threshold_frac", "edp_cap_frac")
 
     def __post_init__(self):
-        if self.mpf_frac > self.hw.chip.mpf_max + 1e-9:
+        # a tensor field (the design's iterate) is projected by its caller
+        if (not isinstance(self.mpf_frac, torch.Tensor)
+                and self.mpf_frac > self.hw.chip.mpf_max + 1e-9):
             raise ValueError(
                 f"GB200 feature caps MPF at {self.hw.chip.mpf_max:.0%} TDP")
 
@@ -103,8 +205,6 @@ class GpuPowerSmoothing:
     def apply_batch(cls, mits: Sequence["GpuPowerSmoothing"],
                     w: torch.Tensor, dt: float
                     ) -> Tuple[torch.Tensor, Dict]:
-        if mits[0].smooth_tau:
-            raise NotImplementedError(RELAXED_NOT_PORTED)
         hw = mits[0].hw
         tdp = hw.chip.tdp_w
         p = stack_params(mits, cls.PARAMS, w.device)
@@ -123,6 +223,8 @@ class GpuPowerSmoothing:
             p["stop_delay_s"] / dt32,
             cap], dim=-1)
         w = w.to(torch.float32)
-        out = gpu_floor_scan(w, params)
+        tau = mits[0].smooth_tau
+        out = (gpu_floor_relaxed(w, params, tau, tdp) if tau
+               else gpu_floor_scan(w, params))
         return out, {"energy_overhead": energy_overhead(w, out),
                      "floor_w": mpf}

@@ -163,6 +163,57 @@ class UtilitySpec:
         return ok, flags, m
 
 
+    def loss_jax(self, w: torch.Tensor, dt: float, *, margin: float = 0.0,
+                 limits: Optional[Dict[str, float]] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Smooth compliance objective of ``w`` ``[B, n]``: ``(total [B],
+        components)``, differentiable with respect to ``w``.
+
+        Each component is the squared hinge of a ``validate`` metric's
+        normalized excess over its ``(1 - margin)``-shrunk limit: zero on
+        (margin-)compliant rows, positive and differentiable outside,
+        keyed like the violation flags.  The band-energy materiality gate
+        relaxes to a sigmoid, hard-zeroed far below materiality; the
+        reductions upstream are ``amax``/``amin``, which share a tie's
+        gradient evenly, as ``jnp.max`` does.  ``limits`` overrides the
+        thresholds (another same-family spec's ``limits()``).  Rows never
+        mix: the gradient of row b's total reaches only row b.
+        """
+        lims = self.limits() if limits is None else limits
+        m = self._metrics(w, dt)
+        zero = torch.zeros(w.shape[0], dtype=torch.float32, device=w.device)
+
+        def hinge(metric, limit):
+            lim = max(float(np.float32(limit)), 1e-30)
+            return torch.square(torch.maximum(
+                metric / lim - (1.0 - margin), zero))
+
+        comps: Dict[str, torch.Tensor] = {
+            "ramp_up": (hinge(m["max_ramp_up_w_per_s"],
+                              lims["ramp_up_w_per_s"])
+                        if "max_ramp_up_w_per_s" in m else zero),
+            "ramp_down": (hinge(m["max_ramp_down_w_per_s"],
+                                lims["ramp_down_w_per_s"])
+                          if "max_ramp_down_w_per_s" in m else zero),
+            "dynamic_range": (hinge(m["dynamic_range_w"],
+                                    lims["dynamic_range_w"])
+                              if "dynamic_range_w" in m else zero),
+        }
+        min_frac = max(float(np.float32(lims["min_ac_rms_frac"])), 1e-9)
+        material = torch.sigmoid((m["ac_rms_frac"] / min_frac - 1.0) / 0.25)
+        # far below materiality the sigmoid's tail would still leak a loss
+        # on numerically flat waveforms; the gradient matters near the gate
+        material = torch.where(m["ac_rms_frac"] < 0.5 * min_frac, zero,
+                               material)
+        comps["band_energy"] = material * hinge(m["band_energy_fraction"],
+                                                lims["max_energy_fraction"])
+        comps["band_amplitude"] = (hinge(m["band_bin_amplitude_w"],
+                                         lims["max_bin_amplitude_w"])
+                                   if "band_bin_amplitude_w" in m else zero)
+        total = sum(comps[v] for v in VIOLATION_ORDER)
+        return total, comps
+
+
 @dataclasses.dataclass(frozen=True)
 class SpecReport:
     ok: bool

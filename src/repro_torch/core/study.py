@@ -28,10 +28,14 @@ equal to the one-shot run bit for bit, and ``resume=dir`` checkpoints
 each chunk there (``ckpt/resume.py``) so that a stopped or extended run
 computes only what is missing.
 
+``Study(keep_waveforms=True)`` also brings every row's raw and mitigated
+waveforms to the host (``StudyResult.sim_result``).  ``optimize()`` runs
+the engine's ``design`` per (workload, fleet, spec) cell and returns the
+solved configurations as ``designed=True`` records in the same schema.
+
 ``device=None`` means ``"cuda"``, and a run without a card raises unless
 the caller asked for ``device="cpu"`` (the kernels' plain versions).
-Scenario sharding (``plan=``), ``keep_waveforms`` and ``optimize()`` are
-not ported yet.
+Scenario sharding (``plan=``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -48,12 +52,15 @@ import torch
 
 from repro_torch.ckpt.resume import SweepCheckpoint
 from repro_torch.core import prng
-from repro_torch.core.engine import StreamChunk, stream_batches
+from repro_torch.core.engine import StreamChunk, design, stream_batches
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
 from repro_torch.core.phases import IterationTimeline
 from repro_torch.core.smoothing.base import structure
 from repro_torch.core.spec import UtilitySpec
-from repro_torch.core.waveform import WaveformConfig, phase_levels
+from repro_torch.core.spectrum import critical_band_report
+from repro_torch.core.stratosim import SimResult
+from repro_torch.core.waveform import (WaveformConfig, job_waveform,
+                                       phase_levels)
 from repro_torch.device import resolve_device
 
 PADDING_MODES = ("auto", "pad", "bucket")
@@ -64,8 +71,6 @@ DEFAULT_STREAM_CHUNK = 512
 NOT_PORTED = {
     "plan": "scenario sharding (plan=, shard_devices=) is not ported yet: "
             "ROADMAP queue A, parallel/",
-    "optimize": "Study.optimize() is not ported yet: ROADMAP queue A, the "
-                "differentiable design path",
 }
 
 
@@ -195,7 +200,8 @@ def run_rows(workloads: Mapping[str, IterationTimeline],
              padding: str = "auto", stream: Union[None, bool, int] = None,
              sample_chips: int = 64,
              on_chunk: Optional[Callable[[int, int, float], None]] = None,
-             resume: Optional[str] = None, device=None) -> "StudyResult":
+             resume: Optional[str] = None, keep_waveforms: bool = False,
+             device=None) -> "StudyResult":
     """Run an explicit list of pipeline rows ``(workload_name, n_chips,
     MitigationConfig, seed)`` and return the columnar ``StudyResult``
     (record ``r * len(specs) + si`` is row ``r`` under spec ``si``).
@@ -209,7 +215,9 @@ def run_rows(workloads: Mapping[str, IterationTimeline],
     in one leading ``on_chunk`` call per call stream) and computes only
     the rest, equal to an uninterrupted run.  A changed grid, chunk size
     or a corrupt checkpoint raises ``ResumeError``.  ``resume`` needs
-    ``stream``."""
+    ``stream`` and excludes ``keep_waveforms`` (waveforms are not
+    checkpointed), which keeps every row's waveforms for
+    ``StudyResult.sim_result``."""
     dev = resolve_device(device)
     cfg = wave_cfg or WaveformConfig()
     if padding not in PADDING_MODES:
@@ -232,12 +240,17 @@ def run_rows(workloads: Mapping[str, IterationTimeline],
             raise ValueError(
                 "resume= requires streaming (pass stream=True or stream=N): "
                 "chunk boundaries are the checkpoint points")
+        if keep_waveforms:
+            raise ValueError(
+                "resume= does not support keep_waveforms=True: waveforms "
+                "are not checkpointed, so a resumed result would miss them")
         ckpt = SweepCheckpoint(resume)
         ckpt.validate_or_init(workloads=workloads, rows=rows, specs=specs,
                               keys=keys, cfg=cfg, hw=hw, mode=mode,
                               sample_chips=sample_chips,
                               chunk_size=chunk_size)
     cols = _empty_columns(len(rows) * len(specs))
+    waveforms = [None] * len(rows) if keep_waveforms else None
     total, done = len(rows), 0
     t0 = time.perf_counter()
     for gi, sg_rows in enumerate(_structure_groups(rows)):
@@ -273,16 +286,24 @@ def run_rows(workloads: Mapping[str, IterationTimeline],
                     sample_chips=sample_chips,
                     levels=[levels[rows[r][0]] for r in idx],
                     pad_to=max(lens) if len(lens) > 1 else None,
-                    chunk_size=cs, bands=True, skip_rows=skip, device=dev):
+                    chunk_size=cs, bands=True, skip_rows=skip,
+                    keep_waveforms=keep_waveforms, device=dev):
                 _fill_chunk(cols, rows, row_len, idx, ch, specs=specs,
                             workloads=workloads)
+                if waveforms is not None:
+                    for j in range(len(ch)):
+                        r, L = idx[ch.start + j], row_len[idx[ch.start + j]]
+                        waveforms[r] = {
+                            "t": np.arange(L) * cfg.dt,
+                            "dc_raw": ch.dc_raw[j, :L],
+                            "dc_mitigated": ch.dc_mitigated[j, :L]}
                 if ckpt is not None:
                     ckpt.save_chunk(call_key, idx, ch.start, ch.stop, cols,
                                     len(specs))
                 done += len(ch)
                 if on_chunk is not None:
                     on_chunk(done, total, time.perf_counter() - t0)
-    return StudyResult(columns=cols)
+    return StudyResult(cols, waveforms)
 
 
 def _fill_chunk(cols: Dict[str, np.ndarray], rows, row_len, idx: List[int],
@@ -354,7 +375,8 @@ class Study:
                  specs=None, seeds=(0,),
                  wave_cfg: Optional[WaveformConfig] = None,
                  hw: Hardware = DEFAULT_HW, key=0, padding: str = "auto",
-                 sample_chips: int = 64, device=None, plan=None):
+                 sample_chips: int = 64, keep_waveforms: bool = False,
+                 device=None, plan=None):
         if padding not in PADDING_MODES:
             raise ValueError(f"padding must be one of {PADDING_MODES}")
         if plan is not None:
@@ -369,6 +391,7 @@ class Study:
         self.key = None if key is None else prng.as_key(key)
         self.padding = padding
         self.sample_chips = sample_chips
+        self.keep_waveforms = keep_waveforms
         self.device = device
         names = [c.name for c in self.configs]
         if len(set(names)) != len(names):
@@ -432,10 +455,74 @@ class Study:
                         wave_cfg=self.wave_cfg, hw=self.hw, keys=keys,
                         padding=padding or self.padding, stream=stream,
                         sample_chips=self.sample_chips, on_chunk=on_chunk,
-                        resume=resume, device=self.device)
+                        resume=resume, keep_waveforms=self.keep_waveforms,
+                        device=self.device)
 
-    def optimize(self, **_):
-        raise NotImplementedError(NOT_PORTED["optimize"])
+    def optimize(self, *, method: str = "hybrid", seed: Optional[int] = None,
+                 **design_kwargs) -> "StudyResult":
+        """A mitigation *design* per (workload, fleet, spec) cell.
+
+        Where ``run()`` judges the declared configs, ``optimize()`` asks
+        ``engine.design`` (``method`` grid, gradient, hybrid or warmstart)
+        for a minimal-overhead (MPF, battery) pair that passes each
+        declared spec on the cell's trace (the study's first seed's jitter
+        draw, or ``seed``'s), and returns one ``designed=True`` record per
+        cell, in ``run()``'s schema plus the solved ``mpf_frac`` and
+        ``battery_capacity_j``.  A cell with no feasible design comes back
+        ``spec_ok=False`` with ``violations=("infeasible",)``.  Extra
+        keywords go to ``design`` (``steps``, ``smooth_tau``, ``top_k``).
+        """
+        cfg, hw = self.wave_cfg, self.hw
+        dev = resolve_device(self.device)
+        seed = self.seeds[0] if seed is None else int(seed)
+        records: List[Dict] = []
+        for wname, tl in self.workloads.items():
+            for n_chips in self.fleets:
+                _, w = job_waveform(tl, n_chips, cfg, hw, seed=seed,
+                                    sample_chips=self.sample_chips,
+                                    device=dev)
+                w64 = w.astype(np.float64)
+                for spec_name, spec in self.specs:
+                    if spec is None:
+                        continue
+                    sol = design(spec, w, cfg.dt, n_chips, method=method,
+                                 hw=hw, device=dev, **design_kwargs)
+                    rec = {
+                        "index": len(records),
+                        "row": -1,           # no pipeline row backs a design
+                        "workload": wname, "n_chips": n_chips,
+                        "config": f"designed[{method}]", "spec": spec_name,
+                        "seed": seed, "period_s": float(tl.period_s),
+                        "n_samples": len(w),
+                        "mean_mw": float(np.mean(w64)) / 1e6,
+                        "swing_mw": float(w64.max() - w64.min()) / 1e6,
+                        "designed": True,
+                    }
+                    if sol is None:
+                        rec.update({
+                            "swing_mitigated_mw": rec["swing_mw"],
+                            "energy_overhead": 0.0, "paper_band_frac": None,
+                            "spec_ok": False, "violations": ("infeasible",),
+                            "metrics": {}, "mpf_frac": None,
+                            "battery_capacity_j": None})
+                    else:
+                        mit = np.asarray(sol["mitigated"])
+                        band = critical_band_report(torch.as_tensor(
+                            mit, device=dev)[None], cfg.dt)
+                        rec.update({
+                            "swing_mitigated_mw":
+                                float(mit.max() - mit.min()) / 1e6,
+                            "energy_overhead": float(sol["energy_overhead"]),
+                            "paper_band_frac":
+                                float(band["paper_band_0p2_3hz"][0]),
+                            "spec_ok": sol["report"].ok,
+                            "violations": sol["report"].violations,
+                            "metrics": sol["report"].metrics,
+                            "mpf_frac": sol["mpf_frac"],
+                            "battery_capacity_j": sol["battery_capacity_j"],
+                        })
+                    records.append(rec)
+        return StudyResult(records=records)
 
 
 # ---------------------------------------------------------------------------
@@ -472,20 +559,32 @@ def _to_py(v):
 
 
 class StudyResult:
-    """Flat scenario records with query helpers, stored columnar.
+    """Flat scenario records with query helpers.
 
     Each record is one (workload, fleet, config, seed, spec) cell:
     identity fields, swing/overhead/band metrics and, when a spec was
-    declared, ``spec_ok`` / ``violations`` / the spec's metric dict
-    (stored as ``metrics:<name>`` side columns, NaN where a record's spec
-    did not measure that key).  Record dicts are built on demand.
+    declared, ``spec_ok`` / ``violations`` / the spec's metric dict.  A
+    run's records are stored columnar (``columns=``; the metrics as
+    ``metrics:<name>`` side columns, NaN where a record's spec did not
+    measure that key) and built on demand; ``records=`` keeps a list of
+    dicts as given (``Study.optimize``'s, or concatenated results).
+    ``waveforms`` holds each row's waveforms where the Study kept them.
     """
 
-    def __init__(self, columns: Dict[str, np.ndarray]):
+    def __init__(self, columns: Optional[Dict[str, np.ndarray]] = None,
+                 waveforms: Optional[List[Dict]] = None, *,
+                 records: Optional[List[Dict]] = None):
+        if columns is not None and records is not None:
+            raise ValueError("pass records= or columns=, not both")
         self._cols = columns
-        self._n = len(columns["index"])
+        self._rows = None if columns is not None else list(records or [])
+        self._n = (len(columns["index"]) if columns is not None
+                   else len(self._rows))
+        self.waveforms = waveforms
 
     def _row(self, i: int) -> Dict:
+        if self._rows is not None:
+            return self._rows[i]
         rec = {k: _to_py(col[i]) for k, col in self._cols.items()
                if not k.startswith("metrics:")}
         rec["metrics"] = {k[8:]: _to_py(col[i])
@@ -496,19 +595,27 @@ class StudyResult:
 
     @property
     def records(self) -> List[Dict]:
+        if self._rows is not None:
+            return self._rows
         return [self._row(i) for i in range(self._n)]
 
     @property
-    def columns(self) -> Dict[str, np.ndarray]:
+    def columns(self) -> Optional[Dict[str, np.ndarray]]:
         return self._cols
 
     def _field(self, name: str):
+        if self._rows is not None:
+            return [r.get(name) for r in self._rows]
         col = self._cols.get(name)
         return [None] * self._n if col is None else col
 
     def _subset(self, keep: Sequence[int]) -> "StudyResult":
+        if self._rows is not None:
+            return StudyResult(records=[self._rows[i] for i in keep],
+                               waveforms=self.waveforms)
         idx = np.asarray(keep, dtype=np.int64)
-        return StudyResult({k: col[idx] for k, col in self._cols.items()})
+        return StudyResult({k: col[idx] for k, col in self._cols.items()},
+                           self.waveforms)
 
     def __len__(self) -> int:
         return self._n
@@ -645,3 +752,17 @@ class StudyResult:
             with open(path, "w") as fh:
                 fh.write(text)
         return text
+
+    def sim_result(self, row: int) -> SimResult:
+        """Pipeline row ``row``'s waveforms as a ``SimResult`` (the Study
+        must have been run with ``keep_waveforms=True``)."""
+        if self.waveforms is None:
+            raise ValueError("run the Study with keep_waveforms=True")
+        w = self.waveforms[row]
+        rec = next(r for r in self.records if r["row"] == row)
+        return SimResult(
+            t=w["t"], dc_raw=w["dc_raw"], dc_mitigated=w["dc_mitigated"],
+            chip_raw=None, chip_mitigated=None,
+            energy_overhead=rec["energy_overhead"],
+            swing={}, swing_mitigated={}, bands={}, bands_mitigated={},
+            spec_report=None, aux={})

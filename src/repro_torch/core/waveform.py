@@ -12,7 +12,7 @@ the level array works on ``[..., n]`` tensors, batched over leading rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
 from repro_torch.core.phases import (CKPT, COMM, COMPUTE, IDLE, MEMORY,
                                      IterationTimeline, Phase)
+from repro_torch.device import resolve_device
 
 MODE_POWER_ATTR = {COMPUTE: "tdp_w", MEMORY: "hbm_bound_w", COMM: "comm_w",
                    IDLE: "idle_w", CKPT: "comm_w"}
@@ -143,3 +144,24 @@ def swing_stats(w: torch.Tensor, n_valid: Optional[torch.Tensor] = None
         "mean_w": mean.to(w.dtype),
         "swing_frac": (peak - trough) / torch.clamp(peak, min=1e-9),
     }
+
+
+def job_waveform(tl: IterationTimeline, n_chips: int,
+                 cfg: Optional[WaveformConfig] = None,
+                 hw: Hardware = DEFAULT_HW, *, seed: int = 0,
+                 sample_chips: int = 64, device=None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """``(t_seconds, watts)`` at the utility point of coupling: the chip
+    waveform of ``tl`` aggregated over ``n_chips`` with the jitter draw of
+    ``seed``, computed on ``device`` (None: the card), host float32."""
+    cfg = cfg or WaveformConfig()
+    dev = resolve_device(device)
+    levels = torch.as_tensor(phase_levels(tl, cfg, hw), dtype=torch.float32,
+                             device=dev)[None]
+    chip = chip_waveform(levels, cfg.dt, hw, edp_spikes=cfg.edp_spikes,
+                         include_host=cfg.include_host)
+    shifts = torch.as_tensor(jitter_shifts(cfg, seed, sample_chips),
+                             device=dev)[None]
+    chips = torch.tensor([float(n_chips)], dtype=torch.float32, device=dev)
+    w = aggregate(chip, chips, shifts, hw)[0].cpu().numpy()
+    return np.arange(len(w)) * cfg.dt, w

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel source ``kernels/<family>/csrc/<name>.cu`` exports a plain C
-entry point.  It is compiled by ``nvcc`` for ``sm_90a`` into its own
+entry point (or two, such as a forward and its adjoint: two
+``CudaKernel``s of one source, each with its own name and launch count).  It is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library, at first use, and loaded with ``ctypes``; pointers and
 the stream cross as Python ints.  The library's file name carries a hash
 of the source, the headers beside it and the flags, so an edited source
@@ -53,8 +54,9 @@ class CudaKernel:
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence,
-                 extra_flags: Sequence[str] = ()):
+                 extra_flags: Sequence[str] = (), name: Optional[str] = None):
         self.source = PACKAGE_ROOT / "kernels" / source
+        self._name = name
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.extra_flags = tuple(extra_flags)
@@ -66,7 +68,9 @@ class CudaKernel:
 
     @property
     def name(self) -> str:
-        return self.source.stem
+        """The launch-count name: the source's stem, or the name given for
+        a second entry point of one library."""
+        return self._name or self.source.stem
 
     def _flags(self) -> List[str]:
         return [*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo",
@@ -78,7 +82,7 @@ class CudaKernel:
         for header in sorted(self.source.parent.glob("*.cuh")):
             h.update(header.read_bytes())
         h.update(" ".join(self._flags()).encode())
-        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
+        return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:12]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start ``nvcc`` for this source unless its library exists;
@@ -135,7 +139,13 @@ def build_all() -> Dict[str, float]:
     """Build every kernel's library at once (one ``nvcc`` per source, all
     started together) and load them; returns build seconds by kernel
     (0.0 for a library that was already built)."""
-    procs = [(k, k.start_build()) for k in KERNELS]
+    started = set()
+    procs = []
+    for k in KERNELS:
+        # entry points of one library share its one nvcc
+        path = k.library_path()
+        procs.append((k, None if path in started else k.start_build()))
+        started.add(path)
     for k, proc in procs:
         k.finish_build(proc)
         k._load()

@@ -146,8 +146,8 @@ def _repeat_kv(k, r, ctx):
         return k
     raise NotImplementedError(
         "kv-head duplication (kv_repeat > 1) serves tensor-parallel "
-        "sharding, which is not ported yet (ROADMAP.md queue A, item 7, "
-        "parallel/ sharding)")
+        "sharding, which is not ported yet: ROADMAP queue A, parallel/ on "
+        "torch.distributed")
 
 
 def _project(p, x, a):

@@ -51,8 +51,7 @@ class Ctx:
 
 def _not_ported(kind: str):
     return NotImplementedError(
-        f"{kind} is not ported yet (ROADMAP.md queue A, item 7, the model "
-        f"zoo)")
+        f"{kind} is not ported yet: ROADMAP queue A, the model zoo")
 
 
 # ---------------------------------------------------------------------------

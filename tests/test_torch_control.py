@@ -90,15 +90,27 @@ def test_design_grid_matches_reference(job_mw, n_chips, peak, name):
 
 
 def test_unported_design_methods_raise():
+    """Every design method runs now; the ones the reference refuses raise
+    as there: ``warmstart`` without a predictor and an unknown method."""
     spec = api.example_specs(500.0)["moderate"]
-    h = _history()[:500]
-    for kw in ({"method": "hybrid"}, {"method": "gradient"},
-               {"method": "warmstart"}, {"warmstart": object()},
-               {"steps": 10}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            tengine.design(spec, h, DT, N_CHIPS, device="cpu", **kw)
+    h = _history()[:300]
+    with pytest.raises(ValueError, match="warmstart"):
+        tengine.design(spec, h, DT, N_CHIPS, method="warmstart",
+                       device="cpu")
     with pytest.raises(ValueError, match="method must be"):
         tengine.design(spec, h, DT, N_CHIPS, method="anneal", device="cpu")
+    for method in ("hybrid", "gradient"):
+        sol = tengine.design(spec, h, DT, N_CHIPS, method=method, steps=1,
+                             device="cpu")
+        assert sol is None or sol["method"] == method
+    # the grid ignores the gradient keywords, as the reference's does
+    a = tengine.design(spec, h, DT, N_CHIPS, method="grid", steps=10,
+                       device="cpu")
+    b = tengine.design(spec, h, DT, N_CHIPS, method="grid", device="cpu")
+    assert (a is None) == (b is None)
+    if a is not None:
+        assert (a["mpf_frac"], a["battery_capacity_j"]) == (
+            b["mpf_frac"], b["battery_capacity_j"])
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +235,8 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
             lambda d: control.InterventionLadder(
                 spec=spec, n_chips=N_CHIPS, dt=DT, release_amp_w=1.0,
                 device=d),
-            lambda d: tengine.design(spec, w, DT, N_CHIPS, device=d),
+            lambda d: tengine.design(spec, w, DT, N_CHIPS, method="grid",
+                                     device=d),
             lambda d: tops.sliding_carry_init(DT, (9.0,), win=8, device=d),
             lambda d: tops.monitor_carry_init(DT, (9.0,), win=8, device=d)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -187,9 +187,17 @@ def test_firefly_rows_draw_their_own_noise():
 
 
 def test_firefly_relaxed_raises():
-    port = Firefly(smooth_tau=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        apply_mitigation([port], torch.zeros(1, 100), DT)
+    """The relaxed Firefly runs now (it raised before the design path was
+    ported): its forward on one row equals the reference's relaxed
+    forward (tests/test_torch_relaxed_scans.py holds its gradient)."""
+    w = (np.repeat(np.random.default_rng(9).uniform(
+        DEFAULT_HW.chip.idle_w, DEFAULT_HW.chip.tdp_w, 10), 40)
+         ).astype(np.float32)
+    out, _ = apply_mitigation([Firefly(smooth_tau=0.1)],
+                              torch.tensor(w[None]), DT)
+    ref, _ = core.Firefly(smooth_tau=0.1).apply_jax(jnp.asarray(w), DT)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-5 * DEFAULT_HW.chip.tdp_w)
 
 
 def _wave(seed, n=4000):

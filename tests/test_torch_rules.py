@@ -3,6 +3,7 @@ it never runs on the CPU unless asked to, and ``convert.py`` carries
 every configuration dataclass of the slice across unchanged."""
 import ast
 import dataclasses
+import re
 from pathlib import Path
 
 import numpy as np
@@ -54,7 +55,8 @@ def test_rules_cover_the_control_slice():
 def test_build_registers_all_nine_kernels():
     """Once the API and the modules of F, G, H and I are imported (as
     ``chip_smoke.py`` imports them), ``launch_counts`` names every kernel
-    A-I, each source once."""
+    A-I and both entry points of J and K (forward and adjoint, one source
+    each): thirteen counts over eleven sources."""
     from repro_torch.kernels import build
     from repro_torch.kernels.ballast import ballast  # noqa: F401
     from repro_torch.kernels.flash import flash  # noqa: F401
@@ -62,10 +64,17 @@ def test_build_registers_all_nine_kernels():
     counts = build.launch_counts()
     assert set(counts) == {"monitor", "gpu_floor", "battery", "escalation",
                            "sliding", "flash_fwd", "ballast", "windows",
-                           "sliding_v1"}
+                           "sliding_v1", "gpu_floor_relaxed",
+                           "gpu_floor_relaxed_adjoint", "battery_relaxed",
+                           "battery_relaxed_adjoint"}
     sources = [k.source for k in build.KERNELS]
-    assert len(sources) == len(set(sources)) == 9
+    assert len(sources) == 13 and len(set(sources)) == 11
     assert all(p.exists() for p in sources)
+    # the two entry points of one source share one library
+    by_source = {}
+    for k in build.KERNELS:
+        by_source.setdefault(k.source, set()).add(k.library_path())
+    assert all(len(v) == 1 for v in by_source.values())
 
 
 # kernels G, H and I and their entry points: reached only through their
@@ -158,22 +167,114 @@ def test_model_entry_points_without_a_card_raise_unless_cpu_is_asked(
 
 
 def test_unported_options_raise():
-    study = api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
-                      wave_cfg=api.WaveformConfig(dt=0.01, steps=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        study.optimize()
+    """Sharding still raises, naming its queue item by title;
+    ``Study.optimize`` and a relaxed (``smooth_tau > 0``) Study, which
+    raised before the design path was ported, run."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
                   plan=object())
     from repro_torch.ckpt import restore_pytree
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         restore_pytree("ckpt", {}, shardings={})
+    study = api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
+                      wave_cfg=api.WaveformConfig(dt=0.01, steps=2))
+    assert len(study.optimize()) == 0          # no spec: no design cell
     relaxed = api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
                         wave_cfg=api.WaveformConfig(dt=0.01, steps=2),
                         configs={"g": (api.GpuPowerSmoothing(smooth_tau=0.1),
                                        None)})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        relaxed.run()
+    assert len(relaxed.run()) == 1
+
+
+def test_no_message_names_a_queue_item_by_number():
+    """Queue items are named by title ("ROADMAP queue A, the model zoo"):
+    the queues are renumbered as items land."""
+    pattern = re.compile(r"(queue [A-C][,:]? item \d|item \d+[,)])")
+    bad = [(p.relative_to(ROOT).as_posix(), i + 1)
+           for p in _port_files()
+           for i, line in enumerate(p.read_text().splitlines())
+           if pattern.search(line)]
+    assert not bad, bad
+
+
+def test_design_defaults_match_the_reference():
+    """``design()`` and ``Study.optimize`` default to the reference's
+    solver (``hybrid``); ``design_mitigation`` to its (``grid``)."""
+    import inspect
+    from repro.core import engine as rengine
+    from repro_torch.core import engine
+    pairs = [(engine.design, rengine.design),
+             (api.Study.optimize, core.Study.optimize),
+             (api.design_mitigation, core.design_mitigation),
+             (engine.design_gradient, rengine.design_gradient),
+             (engine.design_warmstart, rengine.design_warmstart)]
+    for port, ref in pairs:
+        got = inspect.signature(port).parameters
+        want = inspect.signature(ref).parameters
+        for name, p in want.items():
+            if p.default is inspect.Parameter.empty:
+                continue
+            a, b = got[name].default, p.default
+            if dataclasses.is_dataclass(b):      # DEFAULT_HW, two classes
+                a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+            assert a == b, (port.__name__, name)
+    assert inspect.signature(engine.design).parameters[
+        "method"].default == "hybrid"
+
+
+def test_hard_paths_never_reach_kernels_j_k(monkeypatch):
+    """``smooth_tau == 0`` paths (the Study, the serial reference, the
+    sweep, the grid design) never reach kernels J and K."""
+    from repro_torch.core.smoothing import battery, gpu_floor
+
+    def boom(*_a, **_k):
+        raise AssertionError("a smooth_tau == 0 path reached J or K")
+
+    monkeypatch.setattr(gpu_floor, "gpu_floor_relaxed", boom)
+    monkeypatch.setattr(battery, "battery_relaxed", boom)
+    gpu = api.GpuPowerSmoothing(mpf_frac=0.7)
+    bat = api.RackBattery(capacity_j=1e5, max_discharge_w=1e4,
+                          max_charge_w=1e4)
+    cfg = api.WaveformConfig(dt=0.01, steps=2)
+    tl = api.synthetic_timeline(1.0)
+    spec = api.example_specs(0.05)["moderate"]
+    api.Study({"w": tl}, fleets=[64], configs={"g": (gpu, bat)}, specs=spec,
+              wave_cfg=cfg, device="cpu").run()
+    api.simulate(tl, 64, cfg, device_mitigation=gpu, rack_mitigation=bat,
+                 device="cpu")
+    from repro_torch.core.engine import design, sweep
+    sweep({"w": tl}, [64], [(gpu, bat)], cfg, device="cpu")
+    w = api.simulate(tl, 64, cfg, device="cpu").dc_raw
+    design(spec, w, 0.01, 64, method="grid", device="cpu")
+
+
+@pytest.mark.parametrize("name", ["simulate", "simulate_jit", "sweep",
+                                  "design_gradient", "optimize",
+                                  "validate_many"])
+def test_design_and_serial_entry_points_without_a_card_raise(monkeypatch,
+                                                             name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.core import engine
+    tl = api.synthetic_timeline(1.0)
+    cfg = api.WaveformConfig(dt=0.01, steps=2)
+    spec = api.example_specs(0.05)["moderate"]
+    w = np.linspace(1e4, 2e4, 200, dtype=np.float32)
+    calls = {
+        "simulate": lambda d: api.simulate(tl, 64, cfg, device=d),
+        "simulate_jit": lambda d: api.simulate_jit(tl, 64, cfg, device=d),
+        "sweep": lambda d: engine.sweep({"w": tl}, [64], [(None, None)],
+                                        cfg, device=d),
+        "design_gradient": lambda d: api.design_gradient(
+            spec, w, 0.01, 64, steps=1, device=d),
+        "optimize": lambda d: api.Study({"w": tl}, fleets=[64], specs=spec,
+                                        wave_cfg=cfg, device=d).optimize(
+            method="grid"),
+        "validate_many": lambda d: engine.validate_many(w[None], spec, 0.01,
+                                                        device=d),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[name](None)
+    calls[name]("cpu")
 
 
 def _reference_objects():

@@ -491,3 +491,257 @@ def test_columns_equal_is_bitwise_with_nan():
                                     result([-0.0, 1.0])) == []
     assert chip_smoke.columns_equal(result([1.0, 1.0]),
                                     result([1.0, 1.0], "c")) == ["config"]
+
+
+# ---------------------------------------------------------------------------
+# phases 17 and 18: the serial reference and the design path
+# ---------------------------------------------------------------------------
+
+def test_near_limit_reads_each_metric_against_its_limit():
+    from repro_torch import api
+    spec = api.example_specs(1.0)["moderate"]
+    lim = spec.limits()
+    assert chip_smoke.near_limit(
+        spec, {"max_ramp_up_w_per_s": lim["ramp_up_w_per_s"] * (1 + 5e-5)})
+    assert not chip_smoke.near_limit(
+        spec, {"max_ramp_up_w_per_s": lim["ramp_up_w_per_s"] * 1.01,
+               "band_bin_amplitude_w": 1.0})
+    assert chip_smoke.near_limit(spec, {"ac_rms_frac": 0.005})
+
+
+def test_study_rows_of_the_serial_phase_exist_and_the_longest_is_unpadded():
+    from repro_torch import api
+    study = chip_smoke.build_study(api, device="cpu")
+    assert chip_smoke.study_max_len(study) == 90_000
+    seen = set()
+    for key in chip_smoke.SERIAL_ROWS:
+        r = chip_smoke.study_row_index(study, key)
+        w, n, c, s = study.rows()[r]
+        assert (w, n, c.name, s) == key
+        seen.add(r)
+    assert len(seen) == len(chip_smoke.SERIAL_ROWS)
+    longest = max(study.workloads, key=lambda k: study.workloads[k].period_s)
+    assert longest == chip_smoke.DESIGN_WORKLOAD == "dense_3s"
+    assert chip_smoke.build_study(api, device="cpu",
+                                  keep_waveforms=True).keep_waveforms
+
+
+def test_relaxed_capture_keeps_the_first_call_and_times_descents():
+    """``Capture`` keeps J's first and last calls with the most rows, times
+    ``_design_descend`` and copies the gradients that reach
+    ``clip_by_global_norm``; it puts every wrapped function back."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.smoothing import gpu_floor
+    cap = chip_smoke.Capture(torch)
+    w = torch.rand(2, 50) * 700
+    params = torch.tensor([[350.0, 245.0, 2.0, 2.0, 100.0, 700.0]] * 3)
+    saved = {a: getattr(m, a) for m, a, _ in cap.sites}
+    with cap:
+        a = gpu_floor.gpu_floor_relaxed(w, params[:2], 0.05, 700.0)
+        gpu_floor.gpu_floor_relaxed(torch.cat([w, w]) [:3] * 2, params,
+                                    0.05, 700.0)
+        gpu_floor.gpu_floor_relaxed(w[:1], params[:1], 0.05, 700.0)
+        gpu_floor.gpu_floor_relaxed(torch.cat([w, w])[:3] * 3, params,
+                                    0.05, 700.0)
+        assert engine._design_descend is not saved["_design_descend"]
+        g = {"mpf": torch.tensor([3.0, 0.0]), "cap": torch.tensor([4.0, 1.0])}
+        clipped, _ = engine.clip_by_global_norm(g, 1.0, batch_dims=1)
+        g["mpf"] += 1.0
+    for m, attr, _ in cap.sites:
+        assert getattr(m, attr) is saved[attr]
+    rows, got, _ = cap.args["gpu_floor_relaxed"]
+    assert rows == 3 and torch.equal(got[0], torch.cat([w, w])[:3] * 2)
+    assert got[2:] == (0.05, 700.0)
+    rows, got, _ = cap.last["gpu_floor_relaxed"]
+    assert rows == 3 and torch.equal(got[0], torch.cat([w, w])[:3] * 3)
+    assert [list(x) for x in cap.grads] == [["mpf", "cap"]]
+    assert cap.grads[0]["mpf"].tolist() == [3.0, 0.0]
+    assert torch.allclose(clipped["mpf"], torch.tensor([0.6, 0.0]))
+    assert torch.equal(a, gpu_floor.gpu_floor_relaxed_plain(
+        w, params[:2], 0.05, 700.0))
+
+
+def _jk_args(torch, name, rows=3, n=40):
+    gen = torch.Generator().manual_seed(5)
+    w = 500.0 + 300.0 * torch.rand(rows, n, generator=gen)
+    if name == "gpu_floor_relaxed":
+        params = torch.tensor([[350.0, 245.0, 2.0, 2.0, 100.0, 700.0]] * rows)
+        return (w, params, 0.05, 700.0)
+    params = torch.tensor([[0.01, 2.0, 1e3, 100.0, 100.0, 300.0, 250.0,
+                            0.95, 500.0, 650.0, 275.0]] * rows)
+    return (w, params, 0.01, 0.05)
+
+
+@pytest.mark.parametrize("name", ["gpu_floor_relaxed", "battery_relaxed"])
+def test_jk_fields_gate_each_parameter_column_on_its_own_scale(
+        name, monkeypatch):
+    """A column 1e-5 of the largest gradient that is wholly wrong fails the
+    gate, though a gate on the whole gradient's max would pass it (2e-5
+    of that max, under ``JK_TOL``); a zero column must stay exactly
+    zero."""
+    import torch
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    args = _jk_args(torch, name)
+    grads = chip_smoke.jk_grads(torch, name, args[0].shape)
+    ref = chip_smoke.jk_pass(torch, name, args, grads, True)
+    cols = chip_smoke.jk_columns(name)
+    fields = chip_smoke.jk_fields(torch, name, ref[:3], ref[:3])
+    assert set(fields) == ({"out"} if name == "gpu_floor_relaxed" else
+                           {"grid", "soc"}) | {"d_w"} | {f"d_{c}"
+                                                        for c in cols}
+    assert all(f["abs"] == 0.0 and f["rel"] == 0.0 for f in fields.values())
+    chip_smoke.jk_gate(name, fields, "here")
+    top = float(ref[2].abs().max())
+    small = torch.zeros_like(ref[2])
+    small[:, 1] = top * 1e-5       # the second column: small, all wrong
+    for c in range(ref[2].shape[1]):
+        if c != 1:
+            small[:, c] = ref[2][:, c]
+    bad = (ref[0], ref[1], small)
+    wrong = (ref[0], ref[1], small.clone())
+    wrong[2][:, 1] = -wrong[2][:, 1]
+    f = chip_smoke.jk_fields(torch, name, wrong, bad)
+    assert f[f"d_{cols[1]}"]["rel"] == 2.0
+    assert chip_smoke.jk_summary(f)["worst_grad"] == f"d_{cols[1]}"
+    whole = float((wrong[2] - bad[2]).abs().max()) / float(
+        bad[2].abs().max())
+    assert whole < chip_smoke.JK_TOL   # a whole-gradient gate passes it
+    with pytest.raises(AssertionError, match=f"d_{cols[1]}"):
+        chip_smoke.jk_gate(name, f, "here")
+    zero = (ref[0], ref[1], small.clone())
+    zero[2][:, 1] = 0.0
+    tiny = (ref[0], ref[1], zero[2].clone())
+    tiny[2][0, 1] = 1e-30
+    f = chip_smoke.jk_fields(torch, name, tiny, zero)
+    assert f[f"d_{cols[1]}"]["rel"] == float("inf")
+    with pytest.raises(AssertionError):
+        chip_smoke.jk_gate(name, f, "here")
+
+
+def test_jk_bound_counts_inputs_and_outputs_only():
+    """J moves 8 bytes a sample forward and 12 back, K 12 and 16, each
+    plus the parameters (read, and written back by the adjoint); the
+    carries the forward saves are reported apart."""
+    B, n = 6, 90_000
+    for name, per, cols in (("gpu_floor_relaxed", 8, 6),
+                            ("gpu_floor_relaxed_adjoint", 12, 6),
+                            ("battery_relaxed", 12, 11),
+                            ("battery_relaxed_adjoint", 16, 11)):
+        moves = 2 if name.endswith("_adjoint") else 1
+        assert chip_smoke.jk_bound(name, B, n, cols) == chip_smoke.bound(
+            per * B * n + 4 * moves * B * cols,
+            chip_smoke.JK_OPS[name] * B * n)
+        assert chip_smoke.JK_SAVED_BYTES[name] > 0
+
+
+@pytest.mark.parametrize("name", ["gpu_floor_relaxed", "battery_relaxed"])
+def test_jk_full_checks_run_the_plain_version_in_a_worker(name, tmp_path):
+    """``jk_full_start`` saves a call's inputs and starts ``chip_smoke.py
+    --jk-plain`` on them; ``jk_full_finish`` gates its result field by
+    field and leaves no process running.  On CPU tensors both sides are
+    the plain version, so they agree exactly."""
+    import torch
+    old = chip_smoke.DEVICE
+    chip_smoke.DEVICE = "cpu"
+    try:
+        args = _jk_args(torch, name, rows=2, n=30)
+        jobs = chip_smoke.jk_full_start(torch, {(name, "first"): args},
+                                        str(tmp_path))
+        out = chip_smoke.jk_full_finish(torch, jobs, wait_s=120.0)
+    finally:
+        chip_smoke.DEVICE = old
+    assert all(j["proc"].poll() is not None for j in jobs)
+    c = out[(name, "first")]
+    assert c["shape"] == [2, 30] and c["out_abs"] == c["grad_abs"] == 0.0
+    assert c["plain_cpu_fwd_ms"] > 0 and c["plain_cpu_bwd_ms"] > 0
+    assert c["worst_grad"].startswith("d_")
+
+
+def test_jk_full_finish_reports_a_failed_worker(tmp_path):
+    import torch
+    old = chip_smoke.DEVICE
+    chip_smoke.DEVICE = "cpu"
+    try:
+        args = _jk_args(torch, "gpu_floor_relaxed", rows=2, n=10)
+        jobs = chip_smoke.jk_full_start(
+            torch, {("gpu_floor_relaxed", "first"): args}, str(tmp_path))
+        jobs[0]["proc"].wait()
+        (tmp_path / "gpu_floor_relaxed_first.out.pt").unlink()
+        jobs[0]["stem"] = str(tmp_path / "missing")
+        with pytest.raises(Exception):
+            chip_smoke.jk_full_finish(torch, jobs, wait_s=60.0)
+    finally:
+        chip_smoke.DEVICE = old
+    assert jobs[0]["proc"].poll() is not None
+
+
+@pytest.mark.parametrize("name", ["gpu_floor_relaxed", "battery_relaxed"])
+def test_jk_check_on_the_cpu_compares_the_plain_version_with_itself(name):
+    """On CPU tensors the wrapper takes the plain version, so the check's
+    two sides agree exactly; its cut, shapes and fields are the ones the
+    card's run reports."""
+    import torch
+    old = chip_smoke.DEVICE
+    chip_smoke.DEVICE = "cpu"
+    try:
+        w = 500.0 + 300.0 * torch.rand(3, 40)
+        if name == "gpu_floor_relaxed":
+            params = torch.tensor([[350.0, 245.0, 2.0, 2.0, 100.0,
+                                    700.0]] * 3)
+            args = (w, params, 0.05, 700.0)
+        else:
+            params = torch.tensor([[0.01, 0.0, 1e3, 100.0, 100.0, 300.0,
+                                    250.0, 0.95, 500.0, 650.0, 275.0]] * 3)
+            args = (w, params, 0.01, 0.05)
+        got = chip_smoke.jk_check(torch, name, args)
+    finally:
+        chip_smoke.DEVICE = old
+    assert got["shape"] == [3, 40]
+    assert got["out_abs"] == got["grad_abs"] == 0.0
+    assert got["plain_fwd_ms"] > 0 and got["plain_bwd_ms"] > 0
+
+
+def test_jk_rows_carry_every_key_of_the_kernels_line():
+    timing = {"ms": 1.0, "device_ms": 0.9, "chain_ns_per_step": 30.0,
+              "chain_floor_ms": 2.7, "chain_cycles_per_step": 55.0,
+              "chain_readings": [[55.0, 30.0]] * 5}
+    check = {"shape": [6, 3000], "out_abs": 1e-3, "out_rel": 1e-7,
+             "grad_abs": 2e-3, "grad_rel": 2e-7, "plain_fwd_ms": 100.0,
+             "plain_bwd_ms": 300.0, "worst_grad": "d_w"}
+    full = {"first": dict(check, shape=[6, 90_000], out_abs=4e-3,
+                          grad_rel=3e-6, worst_grad="d_cap",
+                          plain_cpu_fwd_ms=9e3, plain_cpu_bwd_ms=3e4),
+            "last": dict(check, shape=[6, 90_000], grad_abs=5e-3,
+                         plain_cpu_fwd_ms=8e3, plain_cpu_bwd_ms=2e4)}
+    design = {"jk": {nm: {"shape": [6, 90_000], "check": check,
+                          "full": full,
+                          "timing": {"forward": timing, "adjoint": timing}}
+                     for nm in ("gpu_floor_relaxed", "battery_relaxed")},
+              "launches": {nm: 120 for nm in chip_smoke.RELAXED}}
+    paths = {"study": {nm: 0 for nm in chip_smoke.RELAXED},
+             "design": design["launches"]}
+    rows = chip_smoke.jk_rows(design, paths)
+    assert [r["name"] for r in rows] == ["gpu_floor_relaxed",
+                                         "gpu_floor_relaxed_adjoint",
+                                         "battery_relaxed",
+                                         "battery_relaxed_adjoint"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for r in rows:
+        assert keys <= set(r) and r["route"] == "cuda"
+        assert r["library_ms"] is None and r["launches"] == 120
+        assert r["launches_by_path"] == {"study": 0, "design": 120}
+        assert (Path(__file__).resolve().parents[1] / r["source"]).exists()
+        # bytes bind: 8-16 bytes a sample against 43-205 operations
+        cols = len(chip_smoke.jk_columns(r["name"].replace("_adjoint", "")))
+        b_ms, b_by = chip_smoke.jk_bound(r["name"], 6, 90_000, cols)
+        assert (r["bound_ms"], r["bound_by"]) == (b_ms, b_by) and \
+            b_by == "bytes"
+        assert r["chain_readings"] == timing["chain_readings"]
+    # the errors are the full-shape checks' worst; the card's cut beside
+    assert rows[0]["max_abs_err"] == 4e-3 and rows[1]["max_abs_err"] == 5e-3
+    assert rows[1]["rel_err"] == 3e-6 and rows[1]["worst_column"] == "d_cap"
+    assert rows[1]["card_check"]["grad_abs"] == 2e-3
+    assert rows[1]["plain_ms"] == 300.0
+    assert rows[1]["plain_cpu_ms"] == {"first": 3e4, "last": 2e4}
