@@ -70,10 +70,16 @@ and each parameter column's gradient against its own max |plain|: on the
 CPU at the full shape of their first and last design calls with the most
 rows (one worker process a call, ``--jk-plain``, running while the card
 goes on), and on the card on those rows cut to 3000 samples; J and K
-timed alone with their chains; ``Study.optimize`` on the four cells
-against the hybrid designs; the first three Adam steps on the CPU's
-plain versions (the trace's first 3000 samples) against the card; and
-no J or K launch on any other path.
+timed alone with their chains and the serial part their walks leave
+(how the segmented walks merged on the first and last calls);
+``Study.optimize`` on the four cells against the hybrid designs; the
+first three Adam steps on the CPU's plain versions (the trace's first
+3000 samples) against the card; and no J or K launch on any other path.
+Phase 19, after 18: the relaxed backstop's gradient with respect to the
+trace on ten rows of phase 18's workload, through kernel A forward and
+kernel E and A's adjoint backward, and A's adjoint against its plain
+version (float64 torch) at [10 x 90 000 x 4 bins], timed alone; no
+launch of A's adjoint on any other path.
 It prints:
 
   * the card's name and power limit (``nvidia-smi``);
@@ -122,8 +128,10 @@ It prints:
     (and their largest gap in ulps);
   * for phases 17 and 18: each gate's gaps and walls; each design's
     wall, ms per Adam step, starts, first and last losses and chosen
-    (MPF, capacity); J's and K's launches, event and device ms, chain
-    floors and errors against their plain versions;
+    (MPF, capacity); J's and K's launches, event and device ms, merges
+    per segment, chain floors and errors against their plain versions;
+  * for phase 19: launches, the backward's wall, and A's adjoint's error,
+    ms, device ms, plain ms and bound;
   * one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again,
     and, last, ``{"ok": true, "device": {...}}``.
 
@@ -142,8 +150,11 @@ its routes, E at the loop's, the replay's and A's shapes (A against E
 there), I at phase 15's shape (against E) and H at phase 15's four
 shapes (bit for bit against its plain version on the three traces, the
 600 s windows tiled at "day", its route and chain probe where the tree
-has them), with event and device ms (run this script from the root of
-each tree; it prints one ``{"ad": ...}`` line).
+has them), with event and device ms, and J and K forward and adjoint at
+the design's shapes with the sha256 of each forward's outputs (saved
+under ``chiprun_out/ad_jk/``) and A's adjoint where the tree has it (run
+this script from the root of each tree; it prints one ``{"ad": ...}``
+line).
 """
 from __future__ import annotations
 
@@ -3153,14 +3164,79 @@ def jk_probe(torch, fn, steps, repeat=PROBE_REPEATS):
             "ns_per_step": statistics.median(r[1] for r in reads)}
 
 
-def jk_timing(torch, name, args):
-    """J's or K's forward and adjoint entries timed alone at the captured
-    (design) shape: CUDA-event and device ms a launch, and the chains'
-    own time a step (the library's ``*_step_cycles`` probe, lane 0 over
-    the row's first 512 samples resident in shared memory:
-    ``PROBE_REPEATS`` readings and their median)."""
-    import ctypes
+def sm_clock_ghz():
+    """The card's SM clock now (``nvidia-smi``), in GHz: the chain probes
+    count SM cycles."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) / 1e3
+
+
+def jk_merges(torch, name, args):
+    """How the forward's segmented walks merged on one call's inputs (the
+    ``*_merges`` diagnostic of J's or K's module, whose output must equal
+    the call's own): for each recurrence, the segments, how many walked
+    again once their chunk's start came in, how many of those did not meet
+    their kept walk, the share that merged (the rest walked their whole
+    segment from their true start), and the steps walked after the starts
+    came in on the row that walked most (the serial part left)."""
     from repro_torch.core.smoothing import battery, gpu_floor
+    w, params = (a.contiguous() for a in args[:2])
+    if name == "gpu_floor_relaxed":
+        out, stats = gpu_floor.gpu_floor_relaxed_merges(w, params, *args[2:])
+        chains = gpu_floor.RELAXED_CHAINS
+        with torch.no_grad():
+            ref = gpu_floor.gpu_floor_relaxed(w, params, *args[2:])
+        same = torch.equal(out, ref)
+    else:
+        grid, soc, stats = battery.battery_relaxed_merges(w, params,
+                                                          *args[2:])
+        chains = battery.RELAXED_CHAINS
+        with torch.no_grad():
+            ref = battery.battery_relaxed(w, params, *args[2:])
+        same = torch.equal(grid, ref[0]) and torch.equal(soc, ref[1])
+    if not same:
+        raise AssertionError(f"[design] {name}'s merge diagnostic differs "
+                             f"from its forward")
+    st = stats.to(torch.int64).cpu()
+    segs = w.shape[0] * st.shape[1] * 32
+    out = {}
+    for c, chain in enumerate(chains):
+        walks, unmerged = int(st[:, :, c, 0].sum()), int(st[:, :, c, 1].sum())
+        out[chain] = {"segments": segs, "walked_again": walks,
+                      "unmerged": unmerged,
+                      "merged_share": 1.0 - unmerged / segs,
+                      "serial_steps_max_row": int(st[:, :, c, 2].sum(1).max())}
+    return out
+
+
+# the recurrences of J's and K's forward probes, in the order of the
+# probe's cycle counts (the ``*_step_cycles`` entries), and the scans of
+# their adjoints
+JK_PROBE_CHAINS = {"gpu_floor_relaxed": ("o", "idle"),
+                   "battery_relaxed": ("soc", "hold", "target")}
+JK_SCANS = {"gpu_floor_relaxed": 2, "battery_relaxed": 3}
+
+
+def jk_timing(torch, name, args, merges=None):
+    """J's or K's forward and adjoint entries timed alone at the captured
+    (design) shape: CUDA-event and device ms a launch, and the chains' own
+    time a step (the library's ``*_step_cycles`` probe: the warp walks each
+    forward recurrence in step with the merge test over the row's first
+    512 samples, as the kernel's resolve does, or the adjoint's float64
+    affine composition; SM cycles, and ns
+    at the clock ``nvidia-smi`` reads; ``PROBE_REPEATS`` readings, their
+    median).  The forward's chain floor is the serial part that is left:
+    the most steps any row walked after its chunks' starts came in
+    (``merges``, from ``jk_merges``) times that recurrence's ns a step,
+    the largest over the recurrences; the adjoint's, each lane composing
+    and applying its segment's maps once a scan (the chunks' handoffs are
+    not in it)."""
+    import ctypes
+    import statistics
+    from repro_torch.core.smoothing import battery, gpu_floor
+    from repro_torch.core.smoothing.relax import chain_scratch
     from repro_torch.kernels.build import ptr, stream_of
     w, params = (a.contiguous() for a in args[:2])
     B, n = w.shape
@@ -3176,16 +3252,18 @@ def jk_timing(torch, name, args):
     g_in = [torch.randn_like(w) for _ in range(1 if mod is gpu_floor
                                                else 2)]
     g_w, g_p = torch.empty_like(w), torch.empty_like(params)
+    scratch = chain_scratch(B, n, w.device)
 
     def fwd():
         mod.RELAXED_FORWARD.launch(ptr(w), ptr(params), *scal,
-                                   *(ptr(o) for o in outs), B, n, st)
+                                   *(ptr(o) for o in outs), B, n,
+                                   ptr(scratch), None, st)
 
     def adj():
         extra = [ptr(o) for o in (outs if mod is gpu_floor else outs[1:])]
         mod.RELAXED_ADJOINT.launch(ptr(w), ptr(params), *scal, *extra,
                                    *(ptr(g) for g in g_in), ptr(g_w),
-                                   ptr(g_p), B, n, st)
+                                   ptr(g_p), B, n, ptr(scratch), st)
 
     fwd()
     out = {}
@@ -3202,21 +3280,39 @@ def jk_timing(torch, name, args):
                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_void_p]
     probe.restype = ctypes.c_int
-    cycles = torch.zeros(1, dtype=torch.int64, device=w.device)
+    cycles = torch.zeros(4, dtype=torch.int64, device=w.device)
     sink = torch.zeros(1, device=w.device)
-    reps, steps = 100, 100 * min(n, 512)
+    reps, steps = 20, 20 * (min(n, 512) // 32 * 32)
+    ghz = sm_clock_ghz()
+    chains = JK_PROBE_CHAINS[name]
     for adj_flag, tag in ((0, "forward"), (1, "adjoint")):
-        def run():
+        names = chains if adj_flag == 0 else ("compose",)
+        reads = {c: [] for c in names}
+        for _ in range(PROBE_REPEATS + 1):
             err = probe(ptr(w), ptr(params), *scal, n, reps, adj_flag,
                         ptr(cycles), ptr(sink), st)
             if err:
                 raise RuntimeError(f"{sym}: CUDA error {err}")
-            return cycles
-        p = jk_probe(torch, run, steps)
-        out[tag].update(chain_cycles_per_step=p["cycles_per_step"],
-                        chain_ns_per_step=p["ns_per_step"],
-                        chain_readings=p["readings"],
-                        chain_floor_ms=p["ns_per_step"] * n / 1e6)
+            got = cycles.tolist()
+            for k, c in enumerate(names):
+                reads[c].append(got[k] / steps)
+        chain = {c: {"cycles_per_step": statistics.median(r[1:]),
+                     "readings": r[1:]} for c, r in reads.items()}
+        for c in chain.values():
+            c["ns_per_step"] = c["cycles_per_step"] / ghz
+        out[tag]["chain"] = chain
+        out[tag]["sm_clock_ghz"] = ghz
+        if adj_flag == 0:
+            floors = {c: (merges[c]["serial_steps_max_row"]
+                          * chain[c]["ns_per_step"] / 1e6)
+                      for c in names if merges is not None}
+            out[tag]["chain_floor_ms"] = max(floors.values()) if floors \
+                else None
+            out[tag]["chain_floors_ms"] = floors
+        else:
+            out[tag]["chain_floor_ms"] = (2 * 32 * JK_SCANS[name]
+                                          * chain["compose"]["ns_per_step"]
+                                          / 1e6)
     return out
 
 
@@ -3381,11 +3477,18 @@ def design_phase(torch, api, build):
         jk = {}
         for nm in RELAXED_KEPT:
             args = cap.args[nm][1]
-            jk[nm] = {"shape": list(args[0].shape),
+            merges = {tag: jk_merges(torch, nm, src[nm][1])
+                      for tag, src in (("first", cap.args),
+                                       ("last", cap.last))}
+            log(f"[design] {nm} merges per segment (first and last "
+                f"calls): " + json.dumps(merges))
+            jk[nm] = {"shape": list(args[0].shape), "merges": merges,
                       "check": jk_check(torch, nm, args),
-                      "timing": jk_timing(torch, nm, args)}
+                      "timing": jk_timing(torch, nm, args,
+                                          merges["first"])}
             log(f"[design] {nm}: " + json.dumps(
-                {k: v for k, v in jk[nm].items() if k != "check"})
+                {k: v for k, v in jk[nm].items()
+                 if k not in ("check", "merges")})
                 + "; on the card at " + json.dumps(jk[nm]["check"]))
         opt = optimize_cells(torch, api, study, sols)
         log("[design] Study.optimize: " + json.dumps(opt))
@@ -3413,8 +3516,8 @@ def jk_rows(design, late):
     device and event ms at the design's shape, the errors of the
     full-shape checks against the CPU (the worst of the first and last
     calls; the card's cut check beside them), the plain version's ms on
-    the card at the cut shape and on the CPU at the full shape, the bound
-    and the chain floor."""
+    the card at the cut shape and on the CPU at the full shape, the bound,
+    the chain floor and (forward) the walks' merges."""
     rows = []
     src = {"gpu_floor_relaxed": ("gpu_floor_relaxed.cu",
                                  "src/repro/core/smoothing/gpu_floor.py:93"),
@@ -3461,15 +3564,141 @@ def jk_rows(design, late):
                                  for tag_, c in full.items()},
                 "bound_ms": b_ms, "bound_by": b_by,
                 "saved_carry_bytes": JK_SAVED_BYTES[name] * B * n,
-                "chain_ns_per_step": t["chain_ns_per_step"],
-                "chain_readings": t["chain_readings"],
+                "chain": t["chain"], "sm_clock_ghz": t["sm_clock_ghz"],
                 "chain_floor_ms": t["chain_floor_ms"],
                 "library_ms": None,
                 "library_note": "no PyTorch call computes this recurrence"}
             if tag == "adjoint":
                 row["worst_column"] = worst["worst_grad"]
+            else:
+                row["chain_floors_ms"] = t["chain_floors_ms"]
+                row["merges"] = d["merges"]
             rows.append(row)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the relaxed backstop's gradient, through kernel A's adjoint
+# ---------------------------------------------------------------------------
+
+BACKSTOP_ROWS = 10                # phase 18's hybrid rows
+BACKSTOP_SEEDS = 5                # jitter draws a fleet: 2 x 5 rows
+BACKSTOP_TAU = 0.05               # design_gradient's smooth_tau
+BACKSTOP_THRESHOLD_W = 8e5        # phase 5's middle backstop (bs8)
+MONITOR_ADJ_TOL = 1e-4            # kernel against plain, of max |plain|
+# float64 operations a sample and bin of the adjoint as written (a phase
+# counted as one), and the card's float64 peak outside the tensor cores
+# (NVIDIA's H100 SXM data sheet: 34 TFLOP/s at 700 W)
+MONITOR_ADJ_OPS = 30
+PEAK_F64_OPS_S = 34e12
+
+
+def backstop_traces(torch, study):
+    """``[BACKSTOP_ROWS, 90 000]``: phase 5's longest workload at both
+    fleets and ``BACKSTOP_SEEDS`` jitter draws each, on the card."""
+    import numpy as np
+    from repro_torch.core.waveform import job_waveform
+    tl = study.workloads[DESIGN_WORKLOAD]
+    rows = [np.asarray(job_waveform(tl, n, study.wave_cfg, seed=sd,
+                                    sample_chips=study.sample_chips,
+                                    device=DEVICE)[1])
+            for n in study.fleets for sd in range(BACKSTOP_SEEDS)]
+    return torch.as_tensor(np.stack(rows), dtype=torch.float32,
+                           device=DEVICE)
+
+
+def monitor_adjoint_operands(torch, w, bs):
+    """Kernel A's adjoint's operands on rows ``w``: the centred trace,
+    kernel E's amplitudes (what the backward recomputes) and a seeded
+    ``g``; and the bins and window."""
+    from repro_torch.kernels.goertzel import ops
+    B, n = w.shape
+    freqs = tuple(bs.critical_hz)
+    win = max(int(bs.window_s / DT), 8)
+    cosp, sinp, rot = ops._tables(freqs, DT, win, w.device)
+    zeros = torch.zeros((B, len(freqs), win), device=w.device)
+    xc = ops.centre(w)
+    amps = ops.sliding_bin_power_v2(
+        ops.segments(xc, win), cosp, sinp, rot,
+        torch.zeros(B, dtype=torch.int64, device=w.device), zeros,
+        zeros)[0].reshape(B, -1, len(freqs))[:, :n].contiguous()
+    gen = torch.Generator(device=w.device).manual_seed(19)
+    g = torch.randn((B, n), generator=gen, device=w.device)
+    return (xc, amps, g, freqs, DT, win)
+
+
+def backstop_gradient_phase(torch, api, build):
+    """Phase 19: the relaxed backstop (phase 5's bs8, ``smooth_tau`` 0.05)
+    on ``BACKSTOP_ROWS`` rows of 90 000 samples through ``apply_batch`` and
+    its gradient with respect to the trace, with launch counts from 0
+    (kernel A forward, E and A's adjoint backward); then A's adjoint
+    against its plain version (float64 torch, on the card) on the same
+    kind of operands, within ``MONITOR_ADJ_TOL`` of max |plain|, and timed
+    alone.  Returns the launches and the kernels line's row."""
+    from repro_torch.core.smoothing import apply_mitigation
+    from repro_torch.kernels.goertzel import monitor
+    t19 = time.perf_counter()
+    study = build_study(api, workloads=[DESIGN_WORKLOAD])
+    w = backstop_traces(torch, study)
+    B, n = w.shape
+    bs = api.TelemetryBackstop(amp_threshold_w=BACKSTOP_THRESHOLD_W,
+                               smooth_tau=BACKSTOP_TAU)
+    weight = torch.cos(torch.arange(n, device=DEVICE,
+                                    dtype=torch.float64) / 9.0)
+    build.reset_launch_counts()
+    x = w.clone().requires_grad_(True)
+    out, aux = apply_mitigation([bs] * B, x, DT)
+    loss = (out.to(torch.float64) * weight).sum() / 1e9
+    (gx,), wall = timed_run(torch, lambda: torch.autograd.grad(loss, (x,)))
+    counts = build.launch_counts()
+    for nm in ("monitor", "sliding", "monitor_adjoint"):
+        if counts[nm] <= 0:
+            raise AssertionError(f"[backstop gradient] kernel {nm} was not "
+                                 f"launched")
+    if not bool(torch.isfinite(gx).all()):
+        raise AssertionError("[backstop gradient] a non-finite gradient")
+    levels = aux["max_level"].tolist()
+    args = monitor_adjoint_operands(torch, w, bs)
+    got = monitor.monitor_adjoint(*args)
+    ref = monitor.monitor_adjoint_plain(*args)
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= MONITOR_ADJ_TOL * scale:
+        raise AssertionError(f"[backstop gradient] kernel A's adjoint "
+                             f"differs from its plain version: {err} of "
+                             f"{scale} (tol {MONITOR_ADJ_TOL})")
+    K = len(args[3])
+    b_ms, b_by = bound(4 * B * n * (3 + K), 0)
+    ops_ms = MONITOR_ADJ_OPS * B * n * K / PEAK_F64_OPS_S * 1e3
+    if ops_ms > b_ms:
+        b_ms, b_by = ops_ms, "operations"
+    row = {"name": "monitor_adjoint", "route": "cuda",
+           "source": "src/repro_torch/kernels/goertzel/csrc/"
+                     "monitor_adjoint.cu",
+           "replaces": "src/repro/core/smoothing/backstop.py:124 (jax.grad "
+                       "through sliding_bin_power_jnp, "
+                       "src/repro/kernels/goertzel/ref.py:62)",
+           "launches": counts["monitor_adjoint"],
+           "max_abs_err": err, "rel_err": err / scale,
+           "tolerance": f"{MONITOR_ADJ_TOL} x max |plain| (float64 torch "
+                        f"on the card, same operands)",
+           "shape": [B, n, K], "win": args[5],
+           "ms": cuda_ms(torch, lambda: monitor.monitor_adjoint(*args), 5),
+           "device_ms": device_ms(torch,
+                                  lambda: monitor.monitor_adjoint(*args),
+                                  "monitor_adjoint_kernel", repeat=5),
+           "plain_ms": cuda_ms(torch,
+                               lambda: monitor.monitor_adjoint_plain(*args),
+                               2),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "library_note": "no PyTorch call computes the windowed DFT's "
+                           "worst-bin adjoint"}
+    res = {"launches": counts, "max_level": levels,
+           "backward_wall_s": wall, "row": row,
+           "phase_s": time.perf_counter() - t19}
+    log("[backstop gradient] " + json.dumps(
+        {k: v for k, v in res.items() if k != "row"}))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3989,19 +4218,141 @@ def loop_summary(clog):
             "detection_lead_s": clog.summary()["detection_lead_s"]}
 
 
+def ad_design_calls(torch, api):
+    """J's and K's first calls of the tight design at phase 5's first
+    fleet on phase 18's trace (one Adam step, stopped at K's forward): the
+    same inputs in any tree whose J precedes them."""
+    import numpy as np
+    from repro_torch.core.smoothing import battery, gpu_floor
+    from repro_torch.core.waveform import job_waveform
+
+    class Stop(Exception):
+        pass
+
+    study = build_study(api, workloads=[DESIGN_WORKLOAD])
+    n_chips = study.fleets[0]
+    w = job_waveform(study.workloads[DESIGN_WORKLOAD], n_chips,
+                     study.wave_cfg, seed=study.seeds[0],
+                     sample_chips=study.sample_chips, device=DEVICE)[1]
+    got = {}
+    fj, fk = gpu_floor.gpu_floor_relaxed, battery.battery_relaxed
+
+    def keep(*a):
+        return tuple(x.detach().clone() if isinstance(x, torch.Tensor)
+                     else x for x in a)
+
+    def j(*a):
+        got["gpu_floor_relaxed"] = keep(*a)
+        return fj(*a)
+
+    def k(*a):
+        got["battery_relaxed"] = keep(*a)
+        raise Stop
+
+    gpu_floor.gpu_floor_relaxed, battery.battery_relaxed = j, k
+    try:
+        api.design_gradient(dict(study.specs)["tight"], np.asarray(w), DT,
+                            n_chips, steps=1, device=DEVICE)
+    except Stop:
+        pass
+    finally:
+        gpu_floor.gpu_floor_relaxed, battery.battery_relaxed = fj, fk
+    return got
+
+
+def ad_relaxed(torch, api):
+    """``--ad``'s rows of J and K (forward and adjoint, through their
+    public entries, at the design's first call tiled to 6 and 10 rows;
+    event and device ms), the sha256 of each forward's outputs (equal
+    digests in two trees: equal bits; the outputs are saved too, under
+    ``chiprun_out/ad_jk/``), and kernel A's adjoint at [10 x 90 000]
+    where the tree has it."""
+    import hashlib
+    from repro_torch.core.smoothing import battery, gpu_floor
+    calls = ad_design_calls(torch, api)
+    out, saved = {}, {}
+    fns = {"gpu_floor_relaxed": gpu_floor.gpu_floor_relaxed,
+           "battery_relaxed": battery.battery_relaxed}
+    for name, args in calls.items():
+        fn = fns[name]
+        for rows in (6, 10):
+            idx = torch.arange(rows, device=args[0].device) % args[0].shape[0]
+            w, params = args[0][idx].contiguous(), args[1][idx].contiguous()
+            rest = args[2:]
+            with torch.no_grad():
+                res = fn(w, params, *rest)
+            res = res if isinstance(res, tuple) else (res,)
+            digest = hashlib.sha256(b"".join(
+                r.contiguous().cpu().numpy().tobytes() for r in res))
+            saved[f"{name}_{rows}"] = tuple(r.cpu() for r in res)
+
+            def fwd():
+                with torch.no_grad():
+                    fn(w, params, *rest)
+            wq = w.clone().requires_grad_(True)
+            pq = params.clone().requires_grad_(True)
+            outs = fn(wq, pq, *rest)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            gen = torch.Generator(device=w.device).manual_seed(18)
+            gs = [torch.randn(w.shape, generator=gen, device=w.device)
+                  for _ in outs]
+
+            def adj():
+                torch.autograd.grad(outs, (wq, pq), gs, retain_graph=True)
+            out[f"{name}_{rows}"] = {
+                "shape": list(w.shape),
+                "forward_sha256": digest.hexdigest(),
+                "forward_ms": cuda_ms(torch, fwd, 5),
+                "forward_device_ms": device_ms(torch, fwd,
+                                               JK_DEVICE_NAME[name],
+                                               repeat=5),
+                "adjoint_ms": cuda_ms(torch, adj, 5),
+                "adjoint_device_ms": device_ms(
+                    torch, adj, JK_DEVICE_NAME[name + "_adjoint"], repeat=5)}
+            log(f"[ad] {name} at {list(w.shape)}: "
+                + json.dumps(out[f"{name}_{rows}"]))
+    tree = "parent" if "parent" in HERE else "change"
+    path = os.path.join(HERE, "chiprun_out", "ad_jk")
+    os.makedirs(path, exist_ok=True)
+    torch.save(saved, os.path.join(path, f"{tree}.pt"))
+    from repro_torch.kernels.goertzel import monitor
+    if hasattr(monitor, "monitor_adjoint"):
+        study = build_study(api, workloads=[DESIGN_WORKLOAD])
+        w = backstop_traces(torch, study)
+        bs = api.TelemetryBackstop(amp_threshold_w=BACKSTOP_THRESHOLD_W,
+                                   smooth_tau=BACKSTOP_TAU)
+        a = monitor_adjoint_operands(torch, w, bs)
+        got = monitor.monitor_adjoint(*a)
+        ref = monitor.monitor_adjoint_plain(*a)
+        out["monitor_adjoint"] = {
+            "shape": list(a[1].shape),
+            "rel_err": float((got - ref).abs().max() / ref.abs().max()),
+            "ms": cuda_ms(torch, lambda: monitor.monitor_adjoint(*a), 5),
+            "device_ms": device_ms(torch,
+                                   lambda: monitor.monitor_adjoint(*a),
+                                   "monitor_adjoint_kernel", repeat=5),
+            "plain_ms": cuda_ms(torch,
+                                lambda: monitor.monitor_adjoint_plain(*a), 2)}
+        log("[ad] monitor_adjoint: " + json.dumps(out["monitor_adjoint"]))
+    return out
+
+
 def ad_main(torch) -> int:
     """``--ad``: the walls that kernels A, B, D, E and G sit on, and
-    kernels A, B, D, E, G, H and I alone, for comparing two trees on one
-    card (run the script of the newer tree from the root of each): the
+    kernels A, B, D, E, G, H, I, J and K alone, for comparing two trees on
+    one card (run the script of the newer tree from the root of each): the
     warm Study, the canonical loop and the 600 s replay with their device
     busy shares, the two loops' dispatch latencies and detection leads,
     and B's device time in the replay (no gate beyond the loop's
     invariants), then ``ad_measure`` at the Study's and a tick's shapes,
     ``floor_measure`` at B's three paths' shapes (bitwise against the
     plain version at the Study's and the loop's), ``ballast_measure`` at
-    phase 15's burn and ``sliding_measure`` (E at its paths' shapes, A's
+    phase 15's burn, ``sliding_measure`` (E at its paths' shapes, A's
     Study shape and A's four variants, I and H at phase 15's shapes, H
-    with its chain probe).  Prints one ``{"ad": ...}`` JSON line."""
+    with its chain probe) and ``ad_relaxed`` (J and K forward and adjoint
+    at the design's shapes, their forwards' digests, and kernel A's
+    adjoint where the tree has it).  Prints one ``{"ad": ...}`` JSON
+    line."""
     from repro_torch import api, control
     from repro_torch.kernels import build
     from repro_torch.kernels.ballast import ballast  # noqa: F401
@@ -4050,6 +4401,7 @@ def ad_main(torch) -> int:
     out["ballast"] = ballast_measure(torch)
     out["sliding"] = sliding_measure(torch, cap.args["monitor"][1], w, dt,
                                      w_long, dt_long)
+    out["relaxed"] = ad_relaxed(torch, api)
     out["total_s"] = time.perf_counter() - t_start
     print(json.dumps({"ad": out}), flush=True)
     return 0
@@ -4321,8 +4673,12 @@ def main() -> int:
     design = design_phase(torch, api, build)
     late["design"] = design["launches"]
     log(f"phase 18: {design['phase_s']:.1f} s")
+    # 19. the relaxed backstop's gradient, through kernel A's adjoint
+    backstop = backstop_gradient_phase(torch, api, build)
+    late["backstop_gradient"] = backstop["launches"]
+    log(f"phase 19: {backstop['phase_s']:.1f} s")
     for k in kernels:
-        for p in ("serial_reference", "design"):
+        for p in ("serial_reference", "design", "backstop_gradient"):
             k["launches_by_path"][p] = late[p][COUNT_NAME[k["name"]]]
 
     # 15. kernels G, H and I through the reference's own entry points:
@@ -4373,6 +4729,21 @@ def main() -> int:
             f"{r['chain_floor_ms']:.4g} ms), launches "
             + json.dumps(r["launches_by_path"]))
         kernels.append(r)
+    # kernel A's adjoint: launched on the backstop's gradient and nowhere
+    # else
+    a_row = backstop["row"]
+    a_row["launches_by_path"] = {p: c["monitor_adjoint"]
+                                 for p, c in paths.items()}
+    off_backstop = {p: c for p, c in a_row["launches_by_path"].items()
+                    if c and p != "backstop_gradient"}
+    if off_backstop:
+        raise AssertionError(f"kernel A's adjoint launched off the relaxed "
+                             f"backstop's gradient: {off_backstop}")
+    log(f"monitor_adjoint: {a_row['ms']:.4g} ms (device "
+        f"{a_row['device_ms']}, plain {a_row['plain_ms']:.4g} ms, bound "
+        f"{a_row['bound_ms']:.4g} ms by {a_row['bound_by']}), launches "
+        + json.dumps(a_row["launches_by_path"]))
+    kernels.append(a_row)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

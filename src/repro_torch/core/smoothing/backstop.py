@@ -24,9 +24,12 @@ cumsum oracle path is not ported.
 term, ``(soft - soft.detach()) * (resp - w)``, whose value is 0 and whose
 gradient carries the engagement margin's sigmoid to ``amp_threshold_w``
 (the response gains get theirs through the selected branches).  The
-worst-bin amplitude comes from kernel A, which has no backward, so it is
-detached: unlike the reference's, the port's gradient does not reach
-``w`` through the monitor (ROADMAP queue C).
+worst-bin amplitude comes from kernel A, and when ``w`` requires a
+gradient it carries one (``ops.monitor_worst_grad``: kernel E recomputes
+the bins, ``csrc/monitor_adjoint.cu`` runs the adjoint), so the gradient
+with respect to ``w`` also flows through the monitor, as the reference's
+does through its jnp monitor.  The levels, the detection index and the
+peaks are discrete and carry none.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ import torch
 
 from repro_torch.core.smoothing.base import mean64, stack_params
 from repro_torch.core.smoothing.relax import sigmoid_gate
-from repro_torch.kernels.goertzel.ops import sliding_monitor_fused
+from repro_torch.kernels.goertzel.ops import (monitor_worst_grad,
+                                              sliding_monitor_fused)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +93,9 @@ class TelemetryBackstop:
             # the sigmoid's margin to the threshold, with the level-1
             # throttle as the response of samples that did not escalate
             thr = p["amp_threshold_w"][:, None]
+            if w.requires_grad:
+                worst = monitor_worst_grad(w, worst, dt, m0.critical_hz,
+                                           win=win)
             resp = torch.where(levels > 0, out, r1)
             soft = sigmoid_gate(worst - thr, m0.smooth_tau,
                                 torch.maximum(thr, torch.ones_like(thr)))

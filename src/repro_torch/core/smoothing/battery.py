@@ -15,8 +15,10 @@ mismatch, the latency hold engages in proportion to the mode flip, and the
 blocked gate is a sigmoid of the remaining hold; the taper widths are
 floored at two power-limit samples of energy, so that the reverse-mode
 factor stays bounded as the capacity goes to 0.  It runs as kernel K
-(``kernels/scans/csrc/battery_relaxed.cu``), a forward and an adjoint
-behind one ``torch.autograd.Function``, on a CUDA tensor, and as
+(``kernels/scans/csrc/battery_relaxed.cu``: each row cut into chunks of
+1024 samples, a warp a chunk, the target, hold and SoC in segmented walks
+with an exact merge test, the adjoint in float64 affine scans), a forward
+and an adjoint behind one ``torch.autograd.Function``, on a CUDA tensor, and as
 ``battery_relaxed_plain`` (a Python loop that autograd differentiates) on a
 CPU tensor.  ``lat_n`` carries no gradient, as in the reference; the
 target's start is ``mean64`` of the trace, so its gradient reaches every
@@ -32,7 +34,8 @@ import torch
 
 from repro_torch.core.smoothing.base import (energy_overhead, mean64,
                                              stack_params)
-from repro_torch.core.smoothing.relax import (per_sample, sigmoid_gate,
+from repro_torch.core.smoothing.relax import (chain_chunks, chain_scratch,
+                                             per_sample, sigmoid_gate,
                                              soft_sign)
 from repro_torch.kernels.build import CudaKernel, ptr, stream_of
 
@@ -52,13 +55,15 @@ RELAXED_FLAGS = ("-fmad=false",)
 RELAXED_FORWARD = CudaKernel(
     "scans/csrc/battery_relaxed.cu", "battery_relaxed_forward",
     [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5
-    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+    + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 3,
     extra_flags=RELAXED_FLAGS)
 RELAXED_ADJOINT = CudaKernel(
     "scans/csrc/battery_relaxed.cu", "battery_relaxed_adjoint",
     [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 8
-    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+    + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 2,
     extra_flags=RELAXED_FLAGS, name="battery_relaxed_adjoint")
+# the forward's recurrences, in the order of its merge statistics
+RELAXED_CHAINS = ("target", "hold", "soc")
 
 # column order of the relaxed kernel's per-row parameter matrix
 RELAXED_COLUMNS = ("alpha", "lat_n", "cap_j", "w_lo", "w_hi", "max_dis",
@@ -192,7 +197,9 @@ class _BatteryRelaxed(torch.autograd.Function):
         grid, soc, tgt, mode, hold = (torch.empty_like(w) for _ in range(5))
         RELAXED_FORWARD.launch(ptr(w), ptr(params), float(tau), float(dt),
                                ptr(grid), ptr(soc), ptr(tgt), ptr(mode),
-                               ptr(hold), B, n, stream_of(w))
+                               ptr(hold), B, n,
+                               ptr(chain_scratch(B, n, w.device)), None,
+                               stream_of(w))
         ctx.save_for_backward(w, params, soc, tgt, mode, hold)
         ctx.dt, ctx.tau = float(dt), float(tau)
         ctx.set_materialize_grads(False)
@@ -213,8 +220,33 @@ class _BatteryRelaxed(torch.autograd.Function):
             ptr(w), ptr(params), ctx.tau, ctx.dt, ptr(soc), ptr(tgt),
             ptr(mode), ptr(hold), ptr(g_grid),
             None if g_soc is None else ptr(g_soc), ptr(g_w), ptr(g_p), B,
-            n, stream_of(w))
+            n, ptr(chain_scratch(B, n, w.device)), stream_of(w))
         return g_w, g_p, None, None
+
+
+def battery_relaxed_merges(w: torch.Tensor, params: torch.Tensor,
+                           dt: float, tau: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Kernel K's forward on CUDA tensors ``w`` ``[B, n]`` and ``params``
+    ``[B, 11]`` (as ``battery_relaxed`` takes them), with its merge
+    statistics: ``(grid, soc, stats [B, chunks, 3, 3])``, for each chunk
+    and recurrence (``RELAXED_CHAINS``) the segments walked again once
+    the chunk's start came in, those among them that did not merge, and
+    the steps they walked.  A diagnostic: it counts a launch
+    of the forward like any call."""
+    B, n = w.shape
+    w = w.contiguous()
+    params = params.to(torch.float32).contiguous()
+    grid, soc, tgt, mode, hold = (torch.empty_like(w) for _ in range(5))
+    stats = torch.zeros((B, chain_chunks(n), len(RELAXED_CHAINS), 3),
+                        dtype=torch.int32, device=w.device)
+    RELAXED_FORWARD.launch(ptr(w), ptr(params), float(tau), float(dt),
+                           ptr(grid), ptr(soc), ptr(tgt), ptr(mode),
+                           ptr(hold), B, n,
+                           ptr(chain_scratch(B, n, w.device)), ptr(stats),
+                           stream_of(w))
+    return grid, soc, stats
 
 
 def battery_relaxed(w: torch.Tensor, params: torch.Tensor, dt: float,

@@ -17,8 +17,10 @@ Python loop over samples, on a CPU tensor.
 ``_apply_smooth``): the activity gate, the idle counter's reset, the
 stop-delay gate and the floor and cap selects become sigmoid blends and
 logaddexp maxima at temperature tau; the ramp clip stays hard.  It runs as
-kernel J (``kernels/scans/csrc/gpu_floor_relaxed.cu``), a forward and an
-adjoint behind one ``torch.autograd.Function``, on a CUDA tensor, and as
+kernel J (``kernels/scans/csrc/gpu_floor_relaxed.cu``: each row cut into
+chunks of 1024 samples, a warp a chunk, the recurrences in segmented walks
+with an exact merge test, the adjoint in float64 affine scans), a forward
+and an adjoint behind one ``torch.autograd.Function``, on a CUDA tensor, and as
 ``gpu_floor_relaxed_plain`` (a Python loop that autograd differentiates)
 on a CPU tensor.  The parameter columns are built from the fields with
 ordinary torch ops, so a field that holds a tensor gets its gradient.
@@ -33,7 +35,8 @@ import torch
 
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
 from repro_torch.core.smoothing.base import energy_overhead, stack_params
-from repro_torch.core.smoothing.relax import (per_sample, sigmoid_gate,
+from repro_torch.core.smoothing.relax import (chain_chunks, chain_scratch,
+                                             per_sample, sigmoid_gate,
                                              smooth_max)
 from repro_torch.kernels.build import CudaKernel, ptr, stream_of
 
@@ -48,13 +51,15 @@ RELAXED_FLAGS = ("-fmad=false",)
 RELAXED_FORWARD = CudaKernel(
     "scans/csrc/gpu_floor_relaxed.cu", "gpu_floor_relaxed_forward",
     [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
-    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+    + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 3,
     extra_flags=RELAXED_FLAGS)
 RELAXED_ADJOINT = CudaKernel(
     "scans/csrc/gpu_floor_relaxed.cu", "gpu_floor_relaxed_adjoint",
     [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5
-    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+    + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 2,
     extra_flags=RELAXED_FLAGS, name="gpu_floor_relaxed_adjoint")
+# the forward's recurrences, in the order of its merge statistics
+RELAXED_CHAINS = ("idle", "o")
 
 # column order of the per-row parameter matrix the kernels read
 PARAM_COLUMNS = ("mpf", "thresh", "ru", "rd", "stop_n", "cap")
@@ -138,7 +143,9 @@ class _GpuFloorRelaxed(torch.autograd.Function):
         idle = torch.empty_like(w)
         T = float(tau * tdp)
         RELAXED_FORWARD.launch(ptr(w), ptr(params), float(tau), T, ptr(out),
-                               ptr(idle), B, n, stream_of(w))
+                               ptr(idle), B, n,
+                               ptr(chain_scratch(B, n, w.device)), None,
+                               stream_of(w))
         ctx.save_for_backward(w, params, out, idle)
         ctx.tau, ctx.T = float(tau), T
         return out
@@ -152,8 +159,32 @@ class _GpuFloorRelaxed(torch.autograd.Function):
         g_p = torch.empty_like(params)
         RELAXED_ADJOINT.launch(ptr(w), ptr(params), ctx.tau, ctx.T, ptr(out),
                                ptr(idle), ptr(g_out), ptr(g_w), ptr(g_p), B,
-                               n, stream_of(w))
+                               n, ptr(chain_scratch(B, n, w.device)),
+                               stream_of(w))
         return g_w, g_p, None, None
+
+
+def gpu_floor_relaxed_merges(w: torch.Tensor, params: torch.Tensor,
+                             tau: float, tdp: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel J's forward on CUDA tensors ``w`` ``[B, n]`` and ``params``
+    ``[B, 6]`` (as ``gpu_floor_relaxed`` takes them), with its merge
+    statistics: ``(out [B, n], stats [B, chunks, 2, 3])``, for each chunk
+    and recurrence (``RELAXED_CHAINS``) the segments walked again once
+    the chunk's start came in, those among them that did not merge, and
+    the steps they walked.  A diagnostic: it counts a launch
+    of the forward like any call."""
+    B, n = w.shape
+    w = w.contiguous()
+    params = params.to(torch.float32).contiguous()
+    out, idle = torch.empty_like(w), torch.empty_like(w)
+    stats = torch.zeros((B, chain_chunks(n), len(RELAXED_CHAINS), 3),
+                        dtype=torch.int32, device=w.device)
+    RELAXED_FORWARD.launch(ptr(w), ptr(params), float(tau),
+                           float(tau * tdp), ptr(out), ptr(idle), B, n,
+                           ptr(chain_scratch(B, n, w.device)), ptr(stats),
+                           stream_of(w))
+    return out, stats
 
 
 def gpu_floor_relaxed(w: torch.Tensor, params: torch.Tensor, tau: float,

@@ -69,3 +69,24 @@ def per_sample(params: torch.Tensor, n: int):
     drifts by up to 1e-4 of a column."""
     return params.to(torch.float64)[..., None].expand(
         *params.shape, n).to(params.dtype).unbind(-1)
+
+
+# kernels J and K (scans/csrc/chain_walk.cuh): a row in chunks of
+# CHAIN_CHUNK samples, a warp a chunk; each (row, chunk) keeps
+# CHAIN_SLOT 8-byte scratch words (five mailboxes of two words and eleven
+# float64 partial sums), after one word for the blocks' ticket
+CHAIN_CHUNK = 1024
+CHAIN_SLOT = 21
+
+
+def chain_chunks(n: int) -> int:
+    """Chunks of a row of ``n`` samples in kernels J and K."""
+    return -(-int(n) // CHAIN_CHUNK)
+
+
+def chain_scratch(rows: int, n: int, device) -> torch.Tensor:
+    """The scratch words (int64, uninitialized: each entry zeroes them
+    before its launch) of one call of kernel J's or K's forward or
+    adjoint on ``rows`` rows of ``n`` samples."""
+    return torch.empty(1 + rows * chain_chunks(n) * CHAIN_SLOT,
+                       dtype=torch.int64, device=device)

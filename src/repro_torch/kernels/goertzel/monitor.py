@@ -33,12 +33,18 @@ block per bin, the segment staged in shared memory, the worst over bins
 reduced through the cluster's shared memory); on a CPU tensor it runs
 ``sliding_monitor_plain``, which walks the segments in order with
 ``torch.cumsum``.
+
+``monitor_adjoint`` is the worst-bin amplitude's adjoint, which the
+relaxed backstop's gradient runs through (``ops.monitor_worst_grad``): on
+a CUDA tensor the CUDA kernel ``csrc/monitor_adjoint.cu``, on a CPU tensor
+``monitor_adjoint_plain``, its float64 formula in torch.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.telemetry import escalation_classify, warmup_scale
@@ -47,6 +53,11 @@ from repro_torch.kernels.build import CudaKernel, ptr, stream_of
 MONITOR_KERNEL = CudaKernel(
     "goertzel/csrc/monitor.cu", "monitor_launch",
     [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+MONITOR_ADJOINT_KERNEL = CudaKernel(
+    "goertzel/csrc/monitor_adjoint.cu", "monitor_adjoint_launch",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p])
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                 torch.Tensor]
@@ -131,3 +142,78 @@ def sliding_monitor(xseg, cosp, sinp, rot, thr, rel, n, seg0, re0, im0
                           ptr(peaks), ptr(nre), ptr(nim), B, S, win, K,
                           stream_of(xseg))
     return worst, cls, peaks, nre, nim
+
+
+def phase_steps(freqs, dt: float) -> np.ndarray:
+    """``2 f_k dt`` per bin in float64: bin ``k``'s phase at sample ``j`` is
+    ``pi`` times it times ``j``."""
+    return 2.0 * np.asarray(freqs, np.float64) * float(dt)
+
+
+def monitor_adjoint_plain(xc, amps, g, freqs, dt: float, win: int
+                          ) -> torch.Tensor:
+    """The adjoint of the worst-bin amplitude in float64, straight from its
+    formula (``csrc/monitor_adjoint.cu``'s header): ``d L / d x`` ``[B, n]``
+    of the raw trace (through its centring) from ``g`` = ``d L / d worst``
+    ``[B, n]``, the centred trace ``xc`` ``[B, n]`` and the per-bin
+    amplitudes ``amps`` ``[B, n, K]`` whose maximum is the worst bin (a tie
+    splits the gradient equally; a bin with ``|S| = 0`` gets none, and no
+    bin of a sample whose worst amplitude is 2^-24 of the row's amplitude
+    scale ``max |xc|`` or less, the forward's rounding noise, does)."""
+    B, n = xc.shape
+    dev = xc.device
+    j = torch.arange(n, dtype=torch.float64, device=dev)
+    step = torch.as_tensor(phase_steps(freqs, dt), device=dev)
+    ph = torch.exp(-1j * torch.pi * step[:, None] * j[None, :])   # [K, n]
+    P = torch.cumsum(xc.to(torch.float64)[:, None, :] * ph, dim=-1)
+    S = P.clone()
+    S[..., win:] -= P[..., :-win]
+    top = amps.amax(-1, keepdim=True)
+    # where the worst amplitude is at the forward's f32 rounding noise (2^-24
+    # of the row's amplitude scale or less), no bin gets any: S there is
+    # noise, and so is its direction
+    noise = xc.abs().amax(-1, keepdim=True)[..., None] * 2.0 ** -24
+    mask = ((amps == top) & (top > noise)).to(torch.float64)
+    share = (mask / mask.sum(-1, keepdim=True).clamp(min=1.0)).transpose(
+        1, 2)                                                    # [B, K, n]
+    m = S.abs()
+    denom = torch.clamp(j + 1.0, max=float(win))
+    coef = torch.where(m > 0, g.to(torch.float64)[:, None, :] * share * 2.0
+                       / denom / torch.where(m > 0, m, 1.0), 0.0)
+    z = coef * S.conj()
+    R = torch.flip(torch.cumsum(torch.flip(z, [-1]), -1), [-1])
+    Z = R.clone()
+    Z[..., :-win] -= R[..., win:]
+    y = (ph * Z).real.sum(1)
+    return (y - y.mean(-1, keepdim=True)).to(torch.float32)
+
+
+def monitor_adjoint(xc, amps, g, freqs, dt: float, win: int
+                    ) -> torch.Tensor:
+    """``monitor_adjoint_plain``'s result on the card's kernel for CUDA
+    tensors (``xc``, ``g`` ``[B, n]`` and ``amps`` ``[B, n, K]``, all f32),
+    the plain version for CPU tensors."""
+    B, n = xc.shape
+    K = len(tuple(freqs))
+    for name, t, shape in (("xc", xc, (B, n)), ("g", g, (B, n)),
+                           ("amps", amps, (B, n, K))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"monitor_adjoint: {name} must be f32 {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != xc.device:
+            raise ValueError(f"monitor_adjoint: {name} is on {t.device}, xc "
+                             f"on {xc.device}")
+    if xc.device.type == "cpu":
+        return monitor_adjoint_plain(xc, amps, g, freqs, dt, win)
+    if xc.device.type != "cuda":
+        raise ValueError(f"monitor_adjoint: no kernel for {xc.device}")
+    xc, amps, g = (t.contiguous() for t in (xc, amps, g))
+    step = torch.as_tensor(phase_steps(freqs, dt), device=xc.device)
+    P = torch.empty((B, K, n, 2), dtype=torch.float64, device=xc.device)
+    R = torch.empty_like(P)
+    done = torch.empty(B, dtype=torch.int32, device=xc.device)
+    dw = torch.empty_like(xc)
+    MONITOR_ADJOINT_KERNEL.launch(ptr(xc), ptr(amps), ptr(g), ptr(step),
+                                  ptr(P), ptr(R), ptr(done), ptr(dw), B, n,
+                                  K, int(win), stream_of(xc))
+    return dw

@@ -11,7 +11,10 @@ on kernel E (``sliding.sliding_bin_power_v2``).  ``sliding_monitor_fused``
 reduces them to the per-sample worst bin and its escalation class on
 kernel A (``monitor.sliding_monitor``) and folds the escalation machine
 over the class stream on kernel D (``core.telemetry.escalation_scan``);
-the ``[n, K]`` matrix never exists.
+the ``[n, K]`` matrix never exists.  ``monitor_worst_grad`` gives the
+fused monitor's ``worst`` a gradient with respect to the trace: its
+backward recomputes the per-bin amplitudes on kernel E and runs
+``monitor.monitor_adjoint`` (the relaxed backstop's path).
 
 Both run offline on whole traces or online on a chunked stream: pass
 ``carry=`` (from ``sliding_carry_init`` or ``monitor_carry_init``) and
@@ -40,7 +43,8 @@ import torch
 from repro_torch.core.telemetry import (escalation_init, escalation_scan,
                                         warmup_scale)
 from repro_torch.device import resolve_device
-from repro_torch.kernels.goertzel.monitor import sliding_monitor
+from repro_torch.kernels.goertzel.monitor import (monitor_adjoint,
+                                                 sliding_monitor)
 from repro_torch.kernels.goertzel.sliding import sliding_bin_power_v2
 from repro_torch.kernels.goertzel.windows import goertzel_windows
 
@@ -417,3 +421,43 @@ def sliding_monitor_fused(x: torch.Tensor, dt: float, freqs: Sequence[float],
         escalation_init(B, dev), sustain_n=sustain_n, cool_n=cool_n,
         max_level=max_level)
     return worst.reshape(B, -1)[:, :n], levels, carry[:, 3], peaks
+
+
+class _MonitorWorst(torch.autograd.Function):
+    """The fused monitor's ``worst`` as a function of the trace ``w``: the
+    forward hands back the values kernel A computed; the backward
+    recomputes every bin's amplitude on kernel E (equal to A's bit for bit,
+    so its maximum marks A's worst bin) and runs the adjoint on them."""
+
+    @staticmethod
+    def forward(ctx, w, worst, dt, freqs, win):
+        ctx.save_for_backward(w)
+        ctx.dt, ctx.freqs, ctx.win = dt, freqs, win
+        return worst.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        B, n = w.shape
+        dev = w.device
+        cosp, sinp, rot = _tables(ctx.freqs, ctx.dt, ctx.win, dev)
+        K = cosp.shape[0]
+        xc = centre(w.detach().to(torch.float32))
+        zeros = torch.zeros((B, K, ctx.win), dtype=torch.float32, device=dev)
+        amps, _, _ = sliding_bin_power_v2(
+            segments(xc, ctx.win), cosp, sinp, rot,
+            torch.zeros(B, dtype=torch.int64, device=dev), zeros, zeros)
+        amps = amps.reshape(B, -1, K)[:, :n]
+        dw = monitor_adjoint(xc, amps, g.to(torch.float32), ctx.freqs,
+                             ctx.dt, ctx.win)
+        return dw.to(w.dtype), None, None, None, None
+
+
+def monitor_worst_grad(w: torch.Tensor, worst: torch.Tensor, dt: float,
+                       freqs: Sequence[float], *, win: int) -> torch.Tensor:
+    """``worst`` ``[B, n]`` from ``sliding_monitor_fused(w.detach(), ...)``
+    with a gradient with respect to ``w`` ``[B, n]``: that of the
+    reference's ``max`` over the jnp monitor's bins (the centring, the
+    windowed DFT, ``|.|`` and the max, a tie split equally)."""
+    return _MonitorWorst.apply(w, worst, float(dt),
+                               tuple(float(f) for f in freqs), int(win))

@@ -26,9 +26,9 @@
 // min(max(v, lo), hi).
 //
 // The forward writes the grid and SoC traces and the other three carries
-// (target, mode, hold) after each step.  The adjoint walks the row
-// backwards, recomputes each step from the carries before it with the
-// forward's own expressions, and carries the adjoints of the carries, plus
+// (target, mode, hold) after each step.  The adjoint recomputes each step
+// from the carries before it with the forward's own expressions, and
+// carries the adjoints of the carries back along the row, plus
 // the caller's gradient with respect to the SoC trace where it passes one.
 // It writes the gradient with respect to every sample and, summed in f64
 // over the row, with respect to each parameter (lat_n's stays 0: the
@@ -38,37 +38,147 @@
 // discharge limit has drained it, and the tapers sit at 0 and 1).
 //
 // Bound on this card: the serial chains.  Three recurrences are serial in
-// the forward: the target (two operations a step), the hold (four) and the
-// SoC (about twenty, five divisions among them); the mode's tanh, the
-// open gate's sigmoid and the power limits' inputs depend on the chains'
-// values but feed nothing back.  So one warp takes one row, in tiles of 32
-// samples: the lanes load a tile (coalesced) and compute every off-chain
-// term in parallel, lane 0 runs each recurrence over the tile out of shared
-// memory, and the lanes store the tile.  In the adjoint every carry's
-// adjoint is linear in the carry after it: the SoC's is A_i a_i + B_i with
-// A_i and B_i computed per sample by the lanes (the SoC step's adjoint
-// evaluated at (a, g) = (1, 0) and (0, g_i)), the hold's and the target's
-// are three-operation chains, and the mode's needs no chain (it
-// is -dq_{i+1} mode_{i+1}).  So lane 0 runs three short chains, the lanes
-// do the rest, and the parameters' sums are kept per lane in f64 and
-// reduced across the warp at the end.  battery_relaxed_step_cycles times
-// the lane-0 loops alone over a tile resident in shared memory.
+// the forward: the target (three operations a step), the hold (four) and
+// the SoC (about twenty, with five divisions, two of them in a row on its
+// path); the mode's tanh, the open gate's sigmoid and the power limits'
+// inputs depend on the chains' values but feed nothing back.  A design
+// call has 6 or 10 rows, so a warp a row leaves most of the card idle;
+// here each row is cut into chunks of 1024 samples, a warp a chunk, over
+// the whole card (chain_walk.cuh has the scheme).
+//
+//  * Forward, one launch: a chunk's warp runs the three recurrences one
+//    after the other, each as segmented walks with the exact merge test,
+//    handing its end to the next chunk before it starts the next one, so
+//    along a row the target's wave runs ahead of the hold's, and the hold's
+//    ahead of the SoC's.  The target never forgets (its walks never meet:
+//    it is the serial chain of three operations it was); the hold is
+//    exactly lat_n where the switch is 1 and 0 where it has run out; the
+//    SoC is exact after a clip to 0 or cap, and a battery that never
+//    reaches a bound walks its row serially.  Between them the lanes
+//    compute want, the mode, the switch and the open gate per sample, and
+//    the grid after the SoC from each sample's SoC before it.  The SoC step
+//    divides by div_rn (a correctly rounded division from a per-row
+//    reciprocal and one correction, kernel C's), falling back to the IEEE
+//    division for a group of 8 steps that leaves its range; two values a
+//    step, the SoC and dis dt, are checked, the others follow from a row's
+//    bounds (Bat::fast), so its bits are the IEEE division's.  The outputs
+//    equal a warp-a-row kernel's (every division IEEE) bit for bit.
+//  * Adjoint, one launch, chunks from the row's end: three float64 affine
+//    scans in their dependency order.  The SoC's carry is A_i (c_i + gs_i)
+//    + B_i (A_i and B_i the SoC step's adjoint at (1, 0) and (0, g_i), per
+//    sample from the saved carries); the hold's is (1 - sw_i) m_i (c_i -
+//    q_i), q_i what the open gate sends back; the target's is (1 - alpha)
+//    (c_i - dwant_i), with 1 - alpha exact in float64 (in f32 it would move
+//    a small alpha by up to 1e-3 of itself).  The mode needs no scan: its
+//    adjoint is -dq_{i+1} mode_{i+1}, the next chunk's first sample's
+//    passed in a mailbox.  Every other term is per sample; the parameter
+//    sums are f64, reduced across the warp and then, by chunk 0, across
+//    chunks in chunk order.
+//  * battery_relaxed_step_cycles times the chains' own steps: the warp
+//    walks the SoC, the hold and the target in step with the merge test,
+//    or the adjoint's f64 affine steps, over a row's first 512 samples.
 //
 // Built with -fmad=false, so that the operations are those written here.
 #include <cuda_runtime.h>
 
+#include "chain_walk.cuh"
+
 namespace {
 
-constexpr int kTile = 32;     // samples a tile: one a lane
+using namespace chain;
+
 constexpr int kCols = 11;
+
+// ---- a correctly rounded division without the IEEE division's reciprocal
+// and slow path: kernel C's div_rn (battery.cu; tests/
+// test_torch_battery_division.py checks it exactly).  With y = RN(1 / b),
+// q0 = RN(a y) and nr = RN(b q0 - a), RN(q0 - nr y) is RN(a / b) for b in
+// [2^-50, 2^50] and a zero or |a| in [2^-50, 2^50).
+__device__ __forceinline__ float div_rn(float a, float b, float y) {
+  const float q0 = __fmul_rn(a, y);
+  const float nr = __fmaf_rn(b, q0, -a);
+  return __fmaf_rn(-nr, y, q0);
+}
+
+// 1 if a is neither zero nor of a magnitude in [2^lo, 2^lo + span) by its
+// bits, else 0 (NaN and infinity give 1)
+__device__ __forceinline__ unsigned outside(float a, unsigned lo,
+                                            unsigned span) {
+  const unsigned u = __float_as_uint(a) & 0x7fffffffu;
+  return (u != 0u) & (u - lo >= span);
+}
+
+constexpr unsigned kBits50 = 0x26800000u;     // the bits of 2^-50
+constexpr unsigned kSpan50 = 0x58800000u - kBits50;   // to 2^50
+constexpr unsigned kBits40 = 0x2b800000u;     // the bits of 2^-40
+constexpr unsigned kSpan40 = 0x53800000u - kBits40;   // to 2^40
+
+__device__ __forceinline__ bool fast_divisor(float b) {
+  return b >= 0x1p-50f && b <= 0x1p50f;
+}
 
 struct Bat {
   float alpha, lat, cap, w_lo, w_hi, max_dis, max_chg, eff, Z, Y, dt, tau;
+  float r_lo, r_hi, r_eff, r_dt;   // RN32 reciprocals of the divisors
+  // div_rn may stand in for every division of a step whose SoC before it
+  // is 0 or in [2^-40, 2^40) and whose dis dt is 0 or in [2^-50, 2^50):
+  // the divisors are in range, eff in [2^-8, 2^8] and cap in [2^-16,
+  // 2^40], and every SoC a walk starts from lies in [0, cap] (soc0 does;
+  // every step clips to it), so soc, cap - soc (0, or at least 2^-40:
+  // exact where soc >= cap / 2, else at least cap / 2), soc eff and (cap -
+  // soc) / eff are all zero or in [2^-50, 2^50)
+  bool fast;
 
   __device__ void init(const float* p, float tau_, float dt_) {
     alpha = p[0]; lat = p[1]; cap = p[2]; w_lo = p[3]; w_hi = p[4];
     max_dis = p[5]; max_chg = p[6]; eff = p[7];
     Z = tau_ * p[10]; Y = tau_ * (lat + 1.0f); dt = dt_; tau = tau_;
+    r_lo = __frcp_rn(w_lo); r_hi = __frcp_rn(w_hi);
+    r_eff = __frcp_rn(eff); r_dt = __frcp_rn(dt);
+    fast = fast_divisor(w_lo) && fast_divisor(w_hi) && fast_divisor(eff) &&
+           fast_divisor(dt) && eff >= 0x1p-8f && eff <= 0x1p8f &&
+           cap >= 0x1p-16f && cap <= 0x1p40f && p[8] >= 0.0f &&
+           p[8] <= cap;
+  }
+
+  // a / b, by div_rn (kFast) or the IEEE division
+  template <bool kFast>
+  __device__ __forceinline__ float div(float a, float b, float y) const {
+    if constexpr (kFast)
+      return div_rn(a, b, y);
+    else
+      return a / b;
+  }
+
+  // the discharge and charge of a step from the SoC before it
+  template <bool kFast>
+  __device__ __forceinline__ void flows(float soc, float want, float of,
+                                        float& dis, float& chg) const {
+    const float tlo = fminf(fmaxf(div<kFast>(soc, w_lo, r_lo), 0.0f),
+                            1.0f);
+    const float thi = fminf(
+        fmaxf(div<kFast>(cap - soc, w_hi, r_hi), 0.0f), 1.0f);
+    dis = fminf(fmaxf(want, 0.0f), max_dis * tlo);
+    dis = fminf(dis, div<kFast>(soc * eff, dt, r_dt));
+    chg = fminf(fmaxf(-want, 0.0f), max_chg * thi);
+    chg = fminf(chg, div<kFast>(div<kFast>(cap - soc, eff, r_eff), dt,
+                                r_dt));
+    dis = of * dis;
+    chg = of * chg;
+  }
+
+  // one step; with kFast, `bad` turns nonzero where the step leaves the
+  // range in which div_rn stands in for the IEEE division
+  template <bool kFast>
+  __device__ __forceinline__ float soc_next(float soc, float want, float of,
+                                            unsigned& bad) const {
+    float dis, chg;
+    flows<kFast>(soc, want, of, dis, chg);
+    const float dd = dis * dt;
+    if constexpr (kFast)
+      bad |= outside(soc, kBits40, kSpan40) | outside(dd, kBits50, kSpan50);
+    const float s1 = soc - div<kFast>(dd, eff, r_eff) + chg * dt * eff;
+    return fminf(fmaxf(s1, 0.0f), cap);
   }
 };
 
@@ -84,46 +194,134 @@ __device__ __forceinline__ float wmin(float a, float b) {
   return a < b ? 1.0f : (a == b ? 0.5f : 0.0f);
 }
 
-// ---- the forward's serial chains, lane 0 over a tile of cnt samples
+// ---- the forward's recurrences, over a lane's segment in shared memory
 
-// sx[k] = x_k in, tgt_k out
-__device__ __forceinline__ void tgt_chain(const Bat& b, float* sx, int cnt,
-                                          float& tgt) {
-  for (int k = 0; k < cnt; ++k) {
-    tgt = tgt + b.alpha * (sx[k] - tgt);
-    sx[k] = tgt;
+// tgt' = tgt + alpha (x - tgt)
+struct TgtChain {
+  const float* x;
+  float alpha;
+  __device__ __forceinline__ TgtChain shift(int d) const {
+    return {x + d, alpha};
   }
-}
-
-// ss[k] = sw_k in, hold_k out
-__device__ __forceinline__ void hold_chain(const Bat& b, float* ss, int cnt,
-                                           float& hold) {
-  for (int k = 0; k < cnt; ++k) {
-    const float sw = ss[k];
-    hold = sw * b.lat + (1.0f - sw) * fmaxf(hold - 1.0f, 0.0f);
-    ss[k] = hold;
+  __device__ __forceinline__ float step(float s, int j) const {
+    return s + alpha * (x[j] - s);
   }
-}
+  __device__ __forceinline__ void run8(float& s, int j, float* v) const {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = s = step(s, j + q);
+  }
+};
 
-// sw_[k] = want_k, so[k] = open_k, sx[k] = x_k in; sw_[k] = grid_k and
-// so[k] = soc_k out
-__device__ __forceinline__ void soc_chain(const Bat& b, float* sw_, float* so,
-                                          const float* sx, int cnt,
-                                          float& soc) {
-  for (int k = 0; k < cnt; ++k) {
-    const float want = sw_[k], of = so[k];
-    const float tlo = fminf(fmaxf(soc / b.w_lo, 0.0f), 1.0f);
-    const float thi = fminf(fmaxf((b.cap - soc) / b.w_hi, 0.0f), 1.0f);
-    float dis = fminf(fmaxf(want, 0.0f), b.max_dis * tlo);
-    dis = fminf(dis, soc * b.eff / b.dt);
-    float chg = fminf(fmaxf(-want, 0.0f), b.max_chg * thi);
-    chg = fminf(chg, (b.cap - soc) / b.eff / b.dt);
-    dis = of * dis;
-    chg = of * chg;
-    sw_[k] = sx[k] - dis + chg;
-    const float s1 = soc - dis * b.dt / b.eff + chg * b.dt * b.eff;
-    soc = fminf(fmaxf(s1, 0.0f), b.cap);
-    so[k] = soc;
+// hold' = sw lat + (1 - sw) max(hold - 1, 0)
+struct HoldChain {
+  const float* sw;
+  float lat;
+  __device__ __forceinline__ HoldChain shift(int d) const {
+    return {sw + d, lat};
+  }
+  __device__ __forceinline__ float step(float s, int j) const {
+    return sw[j] * lat + (1.0f - sw[j]) * fmaxf(s - 1.0f, 0.0f);
+  }
+  __device__ __forceinline__ void run8(float& s, int j, float* v) const {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = s = step(s, j + q);
+  }
+};
+
+// soc' from want and the open gate; 8 steps by div_rn, again by the IEEE
+// division if a dividend left its range
+struct SocChain {
+  const float* want;
+  const float* of;
+  Bat b;
+  __device__ __forceinline__ SocChain shift(int d) const {
+    return {want + d, of + d, b};
+  }
+  __device__ __forceinline__ float step(float s, int j) const {
+    unsigned bad = 0;
+    return b.soc_next<false>(s, want[j], of[j], bad);
+  }
+  __device__ __forceinline__ void run8(float& s, int j, float* v) const {
+    if (b.fast) {
+      unsigned bad = 0;
+      float t = s;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        v[q] = t = b.soc_next<true>(t, want[j + q], of[j + q], bad);
+      if (bad == 0u) {
+        s = t;
+        return;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = s = step(s, j + q);
+  }
+};
+
+__global__ void __launch_bounds__(kLanes)
+battery_forward_kernel(const float* __restrict__ w,
+                       const float* __restrict__ params, float tau, float dt,
+                       float* __restrict__ grid, float* __restrict__ soc_out,
+                       float* __restrict__ tgt_out,
+                       float* __restrict__ mode_out,
+                       float* __restrict__ hold_out, int rows, long long n,
+                       unsigned long long* __restrict__ scratch,
+                       int* __restrict__ stats) {
+  __shared__ float sx[kWords], stg[kWords], ssw[kWords], shd[kWords],
+      swant[kWords], sof[kWords], ssc[kWords];
+  const Place p = place(scratch, rows, n, false);
+  const float* prm = params + kCols * (size_t)p.row;
+  Bat b;
+  b.init(prm, tau, dt);
+  const size_t base = (size_t)p.row * n + p.i0;
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes)
+    sx[at(idx)] = w[base + idx];
+  __syncwarp();
+  const int seg = p.lane * kStride;
+  // the target
+  float t0;
+  chain_chunk(TgtChain{sx + seg, b.alpha}, stg + seg, prm[9], prm[9],
+              scratch, p, 0, stats, 3, t0);
+  // want and the mode (ssc holds the mode until the SoC's walk)
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes) {
+    const float tg = stg[at(idx)];
+    const float want = sx[at(idx)] - tg;
+    const float nm = tanhf(want / b.Z);
+    swant[at(idx)] = want;
+    ssc[at(idx)] = nm;
+    tgt_out[base + idx] = tg;
+    mode_out[base + idx] = nm;
+  }
+  __syncwarp();
+  // the mode before the chunk: from the sample before it, whose target is
+  // the chunk's start t0
+  const float mode0 = p.chunk == 0 ? 0.0f
+                                   : tanhf((w[base - 1] - t0) / b.Z);
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes) {
+    const float mp = idx > 0 ? ssc[at(idx - 1)] : mode0;
+    ssw[at(idx)] = fminf(fmaxf(-(ssc[at(idx)] * mp), 0.0f), 1.0f);
+  }
+  __syncwarp();
+  // the hold, then the open gate
+  float h0;
+  chain_chunk(HoldChain{ssw + seg, b.lat}, shd + seg, 0.0f, 0.0f, scratch,
+              p, 1, stats, 3, h0);
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes) {
+    const float hd = shd[at(idx)];
+    hold_out[base + idx] = hd;
+    sof[at(idx)] = sigm((0.5f - hd) / b.Y);
+  }
+  __syncwarp();
+  // the SoC, then the grid from each sample's SoC before it
+  float s0;
+  chain_chunk(SocChain{swant + seg, sof + seg, b}, ssc + seg, prm[8],
+              prm[8], scratch, p, 2, stats, 3, s0);
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes) {
+    const float sp = idx > 0 ? ssc[at(idx - 1)] : s0;
+    float dis, chg;
+    b.flows<false>(sp, swant[at(idx)], sof[at(idx)], dis, chg);
+    grid[base + idx] = sx[at(idx)] - dis + chg;
+    soc_out[base + idx] = ssc[at(idx)];
   }
 }
 
@@ -219,239 +417,196 @@ __device__ __forceinline__ SocGrad soc_adjoint(const Bat& b, const Step& s,
   return o;
 }
 
-// reverse chains, lane 0 over a tile.  SoC: sa[k] = dL/dsoc_k from the
-// output in, in total out; a_{k-1} = sA[k] a_k + sB[k]
-__device__ __forceinline__ void asoc_chain(float* sa, const float* sA,
-                                           const float* sB, int cnt,
-                                           float& asoc) {
-  for (int k = cnt - 1; k >= 0; --k) {
-    asoc += sa[k];
-    sa[k] = asoc;
-    asoc = sA[k] * asoc + sB[k];
-  }
+// one sample's forward step recomputed from the carries before it
+struct KStep {
+  float tgt, want, z, nm, q, r, sw, hm1, hm, of;
+  Step st;
+};
+
+__device__ __forceinline__ KStep k_step(const Bat& b, float xv, float soc_p,
+                                        float tgt_p, float mode_p,
+                                        float hold_p) {
+  KStep k;
+  k.tgt = tgt_p + b.alpha * (xv - tgt_p);
+  k.want = xv - k.tgt;
+  k.z = k.want / b.Z;
+  k.nm = tanhf(k.z);
+  k.q = -(k.nm * mode_p);
+  k.r = fmaxf(k.q, 0.0f);
+  k.sw = fminf(k.r, 1.0f);
+  k.hm1 = hold_p - 1.0f;
+  k.hm = fmaxf(k.hm1, 0.0f);
+  const float hold = k.sw * b.lat + (1.0f - k.sw) * k.hm;
+  k.of = sigm((0.5f - hold) / b.Y);
+  k.st = soc_step(b, k.want, k.of, soc_p);
+  return k;
 }
 
-// hold: sq[k] = dy_k / Y in, dL/dhold_k out; sk[k] = (1 - sw_k),
-// sm[k] = d max(hold_{k-1} - 1, 0)
-__device__ __forceinline__ void ahold_chain(float* sq, const float* sk,
-                                            const float* sm, int cnt,
-                                            float& ahold) {
-  for (int k = cnt - 1; k >= 0; --k) {
-    const float dhold = ahold - sq[k];
-    sq[k] = dhold;
-    ahold = dhold * sk[k] * sm[k];
-  }
-}
-
-// target: sw[k] = dwant_k in, dL/dtgt_k out.  The carry is dtgt - alpha
-// dtgt, as the step tgt + alpha (x - tgt) differentiates, and not dtgt
-// (1 - alpha): 1 - alpha rounded to f32 moves a small alpha (3.3e-5 at
-// dt 1 ms) by up to 1e-3 of itself, and the carry sums about 1 / alpha
-// steps, so the target's and alpha's gradients would move by as much.
-__device__ __forceinline__ void atgt_chain(const Bat& b, float* sw, int cnt,
-                                           float& atgt) {
-  for (int k = cnt - 1; k >= 0; --k) {
-    const float dtgt = atgt - sw[k];
-    sw[k] = dtgt;
-    atgt = dtgt - b.alpha * dtgt;
-  }
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(kTile)
-battery_forward_kernel(const float* __restrict__ w,
-                       const float* __restrict__ params,
-                       float tau, float dt, float* __restrict__ grid,
-                       float* __restrict__ soc_out, float* __restrict__ tgt_out,
-                       float* __restrict__ mode_out,
-                       float* __restrict__ hold_out,
-                       long long n) {
-  __shared__ float sx[kTile], st[kTile], sn[kTile], sh[kTile], sw_[kTile],
-      so[kTile];
-  const int lane = threadIdx.x;
-  const float* p = params + kCols * (size_t)blockIdx.x;
-  Bat b;
-  b.init(p, tau, dt);
-  const size_t base = (size_t)blockIdx.x * n;
-  float tgt = p[9], hold = 0.0f, soc = p[8];   // lane 0's carries
-  float mode = 0.0f;                           // the tile's mode_{i0-1}
-  for (long long i0 = 0; i0 < n; i0 += kTile) {
-    const int cnt = n - i0 < kTile ? (int)(n - i0) : kTile;
-    const long long i = i0 + lane;
-    const bool live = lane < cnt;
-    const float xv = live ? w[base + i] : 0.0f;
-    sx[lane] = xv;
-    st[lane] = xv;
-    __syncwarp();
-    if (lane == 0) tgt_chain(b, st, cnt, tgt);
-    __syncwarp();
-    const float tg = st[lane];
-    const float want = xv - tg;
-    const float nm = tanhf(want / b.Z);
-    sn[lane] = nm;
-    __syncwarp();
-    const float mode_p = lane == 0 ? mode : sn[lane - 1];
-    sh[lane] = fminf(fmaxf(-(nm * mode_p), 0.0f), 1.0f);
-    __syncwarp();
-    if (lane == 0) hold_chain(b, sh, cnt, hold);
-    __syncwarp();
-    const float hd = sh[lane];
-    sw_[lane] = want;
-    so[lane] = sigm((0.5f - hd) / b.Y);
-    __syncwarp();
-    if (lane == 0) soc_chain(b, sw_, so, sx, cnt, soc);
-    __syncwarp();
-    if (live) {
-      grid[base + i] = sw_[lane];
-      soc_out[base + i] = so[lane];
-      tgt_out[base + i] = tg;
-      mode_out[base + i] = nm;
-      hold_out[base + i] = hd;
-    }
-    mode = sn[cnt - 1];
-    __syncwarp();
-  }
-}
-
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kLanes)
 battery_adjoint_kernel(const float* __restrict__ w,
-                       const float* __restrict__ params,
-                       float tau, float dt, const float* __restrict__ soc_in,
+                       const float* __restrict__ params, float tau, float dt,
+                       const float* __restrict__ soc_in,
                        const float* __restrict__ tgt_in,
                        const float* __restrict__ mode_in,
                        const float* __restrict__ hold_in,
                        const float* __restrict__ g_grid,
-                       const float* __restrict__ g_soc, float* __restrict__ g_w,
-                       float* __restrict__ g_params, long long n) {
-  __shared__ float s0[kTile], s1[kTile], s2[kTile], s3[kTile], s4[kTile];
-  const int lane = threadIdx.x;
-  const float* p = params + kCols * (size_t)blockIdx.x;
+                       const float* __restrict__ g_soc,
+                       float* __restrict__ g_w, float* __restrict__ g_params,
+                       int rows, long long n,
+                       unsigned long long* __restrict__ scratch) {
+  __shared__ float sx[kWords], sgg[kWords], sgs[kWords], ssoc[kWords],
+      stgt[kWords], smode[kWords], shold[kWords], sq[kWords], sdw[kWords];
+  const Place p = place(scratch, rows, n, true);
+  const float* prm = params + kCols * (size_t)p.row;
   Bat b;
-  b.init(p, tau, dt);
-  const size_t base = (size_t)blockIdx.x * n;
+  b.init(prm, tau, dt);
+  const size_t base = (size_t)p.row * n + p.i0;
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes) {
+    sx[at(idx)] = w[base + idx];
+    sgg[at(idx)] = g_grid[base + idx];
+    sgs[at(idx)] = g_soc != nullptr ? g_soc[base + idx] : 0.0f;
+    ssoc[at(idx)] = soc_in[base + idx];
+    stgt[at(idx)] = tgt_in[base + idx];
+    smode[at(idx)] = mode_in[base + idx];
+    shold[at(idx)] = hold_in[base + idx];
+  }
+  // the carries before the chunk
+  const bool first = p.chunk == 0;
+  const float soc_b = first ? prm[8] : soc_in[base - 1];
+  const float tgt_b = first ? prm[9] : tgt_in[base - 1];
+  const float mode_b = first ? 0.0f : mode_in[base - 1];
+  const float hold_b = first ? 0.0f : hold_in[base - 1];
+  __syncwarp();
+  const int seg = p.lane * kStride;
+  const int len = p.len;
+  auto step_at = [&](int j) {
+    const int idx = p.lane * kSeg + j;
+    const bool f0 = idx == 0;
+    return k_step(b, sx[seg + j], f0 ? soc_b : ssoc[at(idx - 1)],
+                  f0 ? tgt_b : stgt[at(idx - 1)],
+                  f0 ? mode_b : smode[at(idx - 1)],
+                  f0 ? hold_b : shold[at(idx - 1)]);
+  };
   double g[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) g[c] = 0.0;
-  float asoc = 0.0f, ahold = 0.0f, atgt = 0.0f;   // lane 0's carries
-  float amode = 0.0f;      // dL/dmode at the tile's last sample
-  for (long long i0 = ((n - 1) / kTile) * kTile; i0 >= 0; i0 -= kTile) {
-    const int cnt = n - i0 < kTile ? (int)(n - i0) : kTile;
-    const long long i = i0 + lane;
-    const bool live = lane < cnt;
-    const bool first = i == 0 || !live;
-    const float xv = live ? w[base + i] : 0.0f;
-    const float gg = live ? g_grid[base + i] : 0.0f;
-    const float gs = live && g_soc != nullptr ? g_soc[base + i] : 0.0f;
-    const float soc_p = first ? p[8] : soc_in[base + i - 1];
-    const float tgt_p = first ? p[9] : tgt_in[base + i - 1];
-    const float mode_p = first ? 0.0f : mode_in[base + i - 1];
-    const float hold_p = first ? 0.0f : hold_in[base + i - 1];
-    // recompute the step
-    const float tgt = tgt_p + b.alpha * (xv - tgt_p);
-    const float want = xv - tgt;
-    const float z = want / b.Z;
-    const float nm = tanhf(z);
-    const float q = -(nm * mode_p);
-    const float r = fmaxf(q, 0.0f);
-    const float sw = fminf(r, 1.0f);
-    const float hm1 = hold_p - 1.0f;
-    const float hm = fmaxf(hm1, 0.0f);
-    const float hold = sw * b.lat + (1.0f - sw) * hm;
-    const float of = sigm((0.5f - hold) / b.Y);
-    const Step st = soc_step(b, want, of, soc_p);
-    // the SoC chain: its adjoint is linear in the carry after each step
-    s0[lane] = gs;
-    s1[lane] = soc_adjoint(b, st, 1.0f, 0.0f).dsoc;
-    s2[lane] = soc_adjoint(b, st, 0.0f, gg).dsoc;
-    __syncwarp();
-    if (lane == 0) asoc_chain(s0, s1, s2, cnt, asoc);
-    __syncwarp();
-    const SocGrad sg = soc_adjoint(b, st, s0[lane], gg);
-    // open = sigmoid((0.5 - hold) / Y): the hold chain
-    const float dy = sg.dof * of * (1.0f - of);
-    __syncwarp();
-    s1[lane] = dy / b.Y;
-    s2[lane] = 1.0f - sw;
-    s3[lane] = wmax(hm1, 0.0f);
-    __syncwarp();
-    if (lane == 0) ahold_chain(s1, s2, s3, cnt, ahold);
-    __syncwarp();
-    const float dhold = s1[lane];
+  // 1. the SoC: c_{i-1} = A_i (c_i + gs_i) + B_i
+  Map m = {1.0, 0.0};
+  for (int j = len - 1; j >= 0; --j) {
+    const KStep k = step_at(j);
+    const double A = soc_adjoint(b, k.st, 1.0f, 0.0f).dsoc;
+    const double B = soc_adjoint(b, k.st, 0.0f, sgg[seg + j]).dsoc;
+    m = after(Map{A, A * (double)sgs[seg + j] + B}, m);
+  }
+  double asoc_out;
+  double c = carry_in(m, scratch, p, 0, asoc_out);
+  for (int j = len - 1; j >= 0; --j) {
+    const KStep k = step_at(j);
+    const float gg = sgg[seg + j];
+    const double tot = c + (double)sgs[seg + j];
+    c = (double)soc_adjoint(b, k.st, 1.0f, 0.0f).dsoc * tot +
+        (double)soc_adjoint(b, k.st, 0.0f, gg).dsoc;
+    const SocGrad sg = soc_adjoint(b, k.st, (float)tot, gg);
+    g[2] += (double)sg.dcap;
+    g[3] += (double)sg.dw_lo;
+    g[4] += (double)sg.dw_hi;
+    g[5] += (double)sg.dmax_dis;
+    g[6] += (double)sg.dmax_chg;
+    g[7] += (double)sg.deff;
+    // open = sigmoid((0.5 - hold) / Y)
+    const float dy = sg.dof * k.of * (1.0f - k.of);
+    sq[seg + j] = dy / b.Y;
+    sdw[seg + j] = sg.dwant;
+  }
+  // 2. the hold: c_{i-1} = (1 - sw_i) m_i (c_i - q_i)
+  m = {1.0, 0.0};
+  for (int j = len - 1; j >= 0; --j) {
+    const KStep k = step_at(j);
+    const double kh = (double)(1.0f - k.sw) * (double)wmax(k.hm1, 0.0f);
+    m = after(Map{kh, -kh * (double)sq[seg + j]}, m);
+  }
+  double ahold_out;
+  c = carry_in(m, scratch, p, 1, ahold_out);
+  for (int j = len - 1; j >= 0; --j) {
+    const KStep k = step_at(j);
+    const double dh = c - (double)sq[seg + j];
+    c = (double)(1.0f - k.sw) * (double)wmax(k.hm1, 0.0f) * dh;
+    const float dhold = (float)dh;
     // hold = sw lat + (1 - sw) max(hold_prev - 1, 0); sw = clip(q, 0, 1)
-    const float dsw = dhold * (b.lat - hm);
-    const float dq = dsw * wmin(r, 1.0f) * wmax(q, 0.0f);
-    // the mode's adjoint after this step: -dq_{i+1} mode_{i+1}
-    s3[lane] = dq;
-    s4[lane] = nm;
-    __syncwarp();
-    const float am = lane == cnt - 1
-                         ? amode
-                         : (lane < cnt ? -s3[lane + 1] * s4[lane + 1] : 0.0f);
-    const float dnm = am - dq * mode_p;
+    const float dsw = dhold * (b.lat - k.hm);
+    sq[seg + j] = dsw * wmin(k.r, 1.0f) * wmax(k.q, 0.0f);
+  }
+  __syncwarp();
+  // the mode's adjoint after each sample, -dq_{i+1} mode_{i+1}: the first
+  // sample's goes to the previous chunk, the next chunk's comes in
+  post_box(scratch, p, 3, (double)(-sq[0] * smode[0]), 0, p.chunk > 0);
+  const float amode_next = p.chunk + 1 < p.C
+                               ? (float)fetch_box(scratch, p, p.chunk + 1, 3)
+                               : 0.0f;
+  for (int j = len - 1; j >= 0; --j) {
+    const int idx = p.lane * kSeg + j;
+    const KStep k = step_at(j);
+    const float am = idx == p.cnt - 1
+                         ? amode_next
+                         : -sq[at(idx + 1)] * smode[at(idx + 1)];
+    const float mode_p = idx == 0 ? mode_b : smode[at(idx - 1)];
+    const float dnm = am - sq[seg + j] * mode_p;
     // mode' = tanh(want / Z)
-    const float dz = dnm * (1.0f - nm * nm);
-    const float dwant = sg.dwant + dz / b.Z;
-    // Z = tau p_scale
-    const float dps = -dz * z / b.Z * b.tau;
-    // want = x - tgt; tgt = tgt_prev + alpha (x - tgt_prev): the target chain
-    s2[lane] = dwant;
-    __syncwarp();
-    if (lane == 0) atgt_chain(b, s2, cnt, atgt);
-    __syncwarp();
-    const float dtgt = s2[lane];
-    float dx = gg;
+    const float dz = dnm * (1.0f - k.nm * k.nm);
+    g[10] += (double)(-dz * k.z / b.Z * b.tau);        // Z = tau p_scale
+    sdw[seg + j] = sdw[seg + j] + dz / b.Z;
+  }
+  // 3. the target: c_{i-1} = (1 - alpha) (c_i - dwant_i)
+  const double ka = 1.0 - (double)b.alpha;
+  m = {1.0, 0.0};
+  for (int j = len - 1; j >= 0; --j)
+    m = after(Map{ka, -ka * (double)sdw[seg + j]}, m);
+  double atgt_out;
+  c = carry_in(m, scratch, p, 2, atgt_out);
+  for (int j = len - 1; j >= 0; --j) {
+    const int idx = p.lane * kSeg + j;
+    const float dwant = sdw[seg + j];
+    const double dt64 = c - (double)dwant;
+    c = ka * dt64;
+    const float dtgt = (float)dt64;
+    const float xv = sx[seg + j];
+    const float tgt_p = idx == 0 ? tgt_b : stgt[at(idx - 1)];
+    float dx = sgg[seg + j];
     dx += dwant;
     dx += dtgt * b.alpha;
-    if (live) {
-      g_w[base + i] = dx;
-      g[0] += (double)(dtgt * (xv - tgt_p));
-      g[2] += (double)sg.dcap;
-      g[3] += (double)sg.dw_lo;
-      g[4] += (double)sg.dw_hi;
-      g[5] += (double)sg.dmax_dis;
-      g[6] += (double)sg.dmax_chg;
-      g[7] += (double)sg.deff;
-      g[10] += (double)dps;
-    }
-    amode = -s3[0] * s4[0];
-    __syncwarp();
+    sgs[seg + j] = dx;
+    g[0] += (double)(dtgt * (xv - tgt_p));
   }
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) g[c] = warp_sum(g[c]);
-  if (lane == 0) {
-    g[8] += (double)asoc;
-    g[9] += (double)atgt;
-    float* gp = g_params + kCols * (size_t)blockIdx.x;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) gp[c] = (float)g[c];
-  }
+  __syncwarp();
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes)
+    g_w[base + idx] = sgs[at(idx)];
+  double extra[kCols] = {0.0};
+  extra[8] = asoc_out;
+  extra[9] = atgt_out;
+  reduce_params(g, kCols, scratch, p, 4, extra,
+                g_params + kCols * (size_t)p.row);
 }
 
-// the chains alone: lane 0 runs the forward's (target, hold, SoC) or the
-// adjoint's (SoC, hold, target) lane-0 loops over the row's first kProbe
-// samples in shared memory, reps times, each time from the row's start on
-// fresh copies of the same inputs (restored by all lanes).  The forward's inputs are the row's
-// own (its samples, and the switch and open-gate values that its target
-// and mode give), so the SoC chain takes the divisions it takes there.
+// the chains' own steps over the row's first kProbe samples in shared
+// memory, reps times, the warp walking in step as resolve does.  adj 0:
+// cycles[0] the SoC walk, [1] the hold walk and [2] the target walk, each
+// with the merge test against kept outputs it never meets (a row's serial
+// path where walks do not merge), on the row's own inputs (its want and
+// open gate, as the kernel's, so the SoC divides as it does there); adj
+// 1: cycles[0] the adjoint's float64 affine composition a sample
 constexpr int kProbe = 512;
 
 __global__ void battery_relaxed_cycles_kernel(
     const float* __restrict__ w, const float* __restrict__ params,
     float tau, float dt, long long n, int reps, int adj,
     long long* __restrict__ cycles, float* __restrict__ sink) {
-  __shared__ float px[kProbe], pw[kProbe], ps[kProbe], po[kProbe];
-  __shared__ float w0[kProbe], w1[kProbe], w2[kProbe], w3[kProbe];
+  __shared__ float px[kProbe], pw[kProbe], ps[kProbe], po[kProbe],
+      pkept[kProbe];
   const int lane = threadIdx.x;
-  const int len = n < kProbe ? (int)n : kProbe;
+  const int len = (int)min(n, (long long)kProbe) / kSeg * kSeg;
   Bat b;
   b.init(params, tau, dt);
-  for (int i = lane; i < len; i += kTile) px[i] = w[i];
+  for (int i = lane; i < len; i += kLanes) px[i] = w[i];
   __syncwarp();
   if (lane == 0) {             // the row's off-chain inputs, as the kernel's
     float tgt = params[9], mode = 0.0f, hold = 0.0f;
@@ -467,88 +622,106 @@ __global__ void battery_relaxed_cycles_kernel(
       mode = nm;
     }
   }
-  float tgt = 0.0f, hold = 0.0f, soc = 0.0f, asoc = 0.0f, ahold = 0.0f,
-        atgt = 0.0f;
-  long long spent = 0;
-  for (int rep = 0; rep < reps; ++rep) {
-    // each repetition replays the same samples from the row's start: a
-    // carry left over would drift (an emptying SoC decays geometrically
-    // into subnormals, and their divisions take the slow path)
-    tgt = params[9], hold = 0.0f, soc = params[8];
-    asoc = ahold = atgt = 0.0f;
-    __syncwarp();
-    for (int i = lane; i < len; i += kTile) {
-      w0[i] = adj ? 1e-3f * ps[i] : px[i];
-      w1[i] = adj ? 1e-3f * ps[i] : ps[i];
-      w2[i] = adj ? 0.9f * ps[i] : pw[i];
-      w3[i] = adj ? 0.1f * ps[i] : po[i];
-    }
-    __syncwarp();
-    if (lane == 0) {
+  __syncwarp();
+  float acc = 0.0f;
+  double dacc = 0.0;
+  for (int which = 0; which < (adj ? 1 : 3); ++which) {
+    long long spent = 0;
+    for (int r = 0; r < reps; ++r) {
+      for (int i = lane; i < kProbe; i += kLanes)
+        pkept[i] = __int_as_float(0x7fc00001);
+      __syncwarp();
+      // every lane walks the same segments in step, as resolve does
       const long long t0 = clock64();
-      for (int k0 = 0; k0 < len; k0 += kTile) {
-        const int cnt = len - k0 < kTile ? len - k0 : kTile;
-        if (adj) {
-          asoc_chain(w0 + k0, w2 + k0, w3 + k0, cnt, asoc);
-          ahold_chain(w1 + k0, ps + k0, ps + k0, cnt, ahold);
-          atgt_chain(b, w2 + k0, cnt, atgt);
-        } else {
-          tgt_chain(b, w0 + k0, cnt, tgt);
-          hold_chain(b, w1 + k0, cnt, hold);
-          soc_chain(b, w2 + k0, w3 + k0, px + k0, cnt, soc);
+      if (adj) {
+        Map m = {1.0, 0.0};
+        for (int j = len - 1; j >= 0; --j) {
+          const double k = (double)po[j];
+          m = after(Map{k, k * (double)pw[j]}, m);
         }
+        dacc += m.a + m.b;
+      } else {
+        // from the row's start each time: a carry left over would drift
+        float s = which == 0 ? params[8] : (which == 1 ? 0.0f : params[9]);
+        for (int j0 = 0; j0 < len; j0 += kSeg) {
+          if (which == 0)
+            walk<true>(SocChain{pw + j0, po + j0, b}, s, pkept + j0, kSeg);
+          else if (which == 1)
+            walk<true>(HoldChain{ps + j0, b.lat}, s, pkept + j0, kSeg);
+          else
+            walk<true>(TgtChain{px + j0, b.alpha}, s, pkept + j0, kSeg);
+        }
+        acc += s;
       }
+      __syncwarp();
       spent += clock64() - t0;
     }
+    if (lane == 0) cycles[which] = spent;
+    __syncwarp();
   }
-  if (lane == 0) {
-    cycles[0] = spent;
-    sink[0] = tgt + hold + soc + asoc + ahold + atgt + w0[0] + w2[0];
-  }
+  if (lane == 0) sink[0] = acc + (float)dacc;
 }
 
 }  // namespace
 
-// grid, soc, tgt, mode, hold [rows, n] of w [rows, n], params [rows, 11]
+// grid, soc, tgt, mode, hold [rows, n] of w [rows, n], params [rows, 11];
+// scratch holds chain_walk.cuh's scratch_words(rows, n) 8-byte words
+// (zeroed here); stats, if not null, gets [rows, chunks, 3 chains, 3]
+// ints (each chunk's segments walked again once its start came in, those
+// that did not merge, and their steps: chain 0 the target, 1 the hold, 2
+// the SoC)
 extern "C" int battery_relaxed_forward(const void* w, const void* params,
                                        float tau, float dt, void* grid,
                                        void* soc, void* tgt, void* mode,
                                        void* hold, int rows, long long n,
+                                       void* scratch, void* stats,
                                        void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  battery_forward_kernel<<<rows, kTile, 0, (cudaStream_t)stream>>>(
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(scratch, 0,
+                                  8 * chain::scratch_words(rows, n), s);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)(rows * chain::chunks(n));
+  battery_forward_kernel<<<blocks, chain::kLanes, 0, s>>>(
       (const float*)w, (const float*)params, tau, dt, (float*)grid,
-      (float*)soc, (float*)tgt, (float*)mode, (float*)hold, n);
+      (float*)soc, (float*)tgt, (float*)mode, (float*)hold, rows, n,
+      (unsigned long long*)scratch, (int*)stats);
   return (int)cudaGetLastError();
 }
 
 // g_w [rows, n] and g_params [rows, 11] of the loss whose gradients with
 // respect to the forward's grid and soc are g_grid and g_soc [rows, n]
-// (g_soc may be null: no gradient reaches the SoC trace)
+// (g_soc may be null: no gradient reaches the SoC trace); scratch as the
+// forward's
 extern "C" int battery_relaxed_adjoint(const void* w, const void* params,
                                        float tau, float dt, const void* soc,
                                        const void* tgt, const void* mode,
                                        const void* hold, const void* g_grid,
                                        const void* g_soc, void* g_w,
                                        void* g_params, int rows, long long n,
-                                       void* stream) {
+                                       void* scratch, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  battery_adjoint_kernel<<<rows, kTile, 0, (cudaStream_t)stream>>>(
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(scratch, 0,
+                                  8 * chain::scratch_words(rows, n), s);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)(rows * chain::chunks(n));
+  battery_adjoint_kernel<<<blocks, chain::kLanes, 0, s>>>(
       (const float*)w, (const float*)params, tau, dt, (const float*)soc,
       (const float*)tgt, (const float*)mode, (const float*)hold,
       (const float*)g_grid, (const float*)g_soc, (float*)g_w,
-      (float*)g_params, n);
+      (float*)g_params, rows, n, (unsigned long long*)scratch);
   return (int)cudaGetLastError();
 }
 
-// cycles[0] = SM cycles of reps * min(n, 512) steps of the forward's
-// (adj 0) or the adjoint's (adj 1) serial chains; a probe of the chains
-// alone
+// cycles[0..2]: SM cycles of reps walks of the chains over min(n, 512)
+// samples (rounded down to whole segments): adj 0 the SoC, hold and
+// target walks with the merge test; adj 1 the adjoint's f64 composition
 extern "C" int battery_relaxed_step_cycles(const void* w, const void* params,
                                            float tau, float dt, long long n,
                                            int reps, int adj, void* cycles,
                                            void* sink, void* stream) {
-  if (n <= 0 || reps <= 0) return (int)cudaErrorInvalidValue;
+  if (n < chain::kSeg || reps <= 0) return (int)cudaErrorInvalidValue;
   battery_relaxed_cycles_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
       (const float*)w, (const float*)params, tau, dt, n, reps, adj,
       (long long*)cycles, (float*)sink);

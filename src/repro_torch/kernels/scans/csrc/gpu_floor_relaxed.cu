@@ -16,34 +16,52 @@
 //   t_i    = -T logaddexp(-(T logaddexp(x_i / T, f_i / T)) / T, -cap / T)
 //   o_i    = min(max(t_i, o_{i-1} - rd), o_{i-1} + ru)        (o_{-1} = x_0)
 //
-// The forward writes o and the idle counter; the adjoint walks the row
-// backwards, recomputes each step from (x_i, o_{i-1}, idle_{i-1}) with the
-// forward's own expressions, and carries the adjoints of o and idle.  It
+// The forward writes o and the idle counter; the adjoint recomputes each
+// step from (x_i, o_{i-1}, idle_{i-1}) with the forward's own expressions
+// and carries the adjoints of o and idle back along the row.  It
 // writes the gradient with respect to every sample and, summed in f64 over
 // the row, with respect to each of the six parameters.  A max or min whose
 // two sides are equal sends half of the gradient to each side, as JAX's
 // lax.max and lax.min do.
 //
-// Bound on this card: the serial chains.  Only two short recurrences are
-// serial: idle (two operations a step) and o (three); a_i, the floor and
-// the two soft maxima (two exp and two log1p, six divisions) depend on
-// the chains' values but feed nothing back.  So one warp takes one row, in
-// tiles of 32 samples: the lanes load a tile (coalesced) and compute each
-// sample's off-chain terms in parallel, lane 0 runs the recurrence over the
-// tile out of shared memory, and the lanes take its values back for the
-// next parallel stage and store the tile.  The adjoint has the same shape:
-// its two carries (dL/do and dL/didle) are short chains in lane 0, every
-// other term is per sample in the lanes, and the parameters' sums are kept
-// per lane in f64 and reduced across the warp at the end.  The chains'
-// own time a step is measured by gpu_floor_relaxed_step_cycles, which runs
-// the lane-0 loops alone over a tile resident in shared memory.
+// Bound on this card: the serial chains, idle (two operations a step) and
+// o (three); a_i, the floor and the two soft maxima (two exp and two
+// log1p, six divisions) depend on the chains' values but feed nothing
+// back.  A design call has only 6 or 10 rows, so a warp a row leaves most
+// of the card idle; here each row is cut into chunks of 1024 samples, a
+// warp a chunk, over the whole card (chain_walk.cuh has the scheme).
+//
+//  * Forward, one launch: a chunk's lanes load its samples and compute
+//    1 - a_i; the idle counter runs as segmented walks with the exact merge
+//    test (guess 0: the factor 1 - a_i contracts the counter, so walks from
+//    any start meet bit for bit within a few active samples); the chunk's
+//    targets follow in parallel; then o runs the same way (guess: the
+//    segment's first target; the walks meet where the ramp clip lets go,
+//    and a ramp-limited row costs its serial walk).  The idle wave runs
+//    ahead of the o wave along the row.  The f32 operations a step are the
+//    ones a warp-a-row kernel ran, so the outputs are its bits exactly.
+//  * Adjoint, one launch, chunks from the row's end: the carry of dL/do
+//    is affine in the next one, carry_{i-1} = w_i (carry_i + g_i) with w_i
+//    in {0, 1/4, 1/2, 3/4, 1} from the clip's tie weights; the carry of
+//    dL/didle is (1 - a_i) (carry_i - dN_i).  Both are float64 affine scans
+//    (lane maps, a warp scan, the chunk's map ready before its carry
+//    arrives); every other term is per sample, recomputed from (x_i,
+//    o_{i-1}, idle_{i-1}) with the forward's expressions.  The parameter
+//    sums are f64 per lane, reduced across the warp and then, by chunk 0,
+//    across chunks in chunk order.
+//  * gpu_floor_relaxed_step_cycles times the chains' own steps: the warp
+//    walks the forward's (o, idle) in step with the merge test, or the
+//    adjoint's f64 affine steps, over a row's first 512 samples in shared
+//    memory.
 //
 // Built with -fmad=false, so that the operations are those written here.
 #include <cuda_runtime.h>
 
+#include "chain_walk.cuh"
+
 namespace {
 
-constexpr int kTile = 32;     // samples a tile: one a lane
+using namespace chain;
 
 struct Floor {
   float mpf, thresh, ru, rd, stop_n, cap, T, S, tau;
@@ -78,273 +96,313 @@ __device__ __forceinline__ float target(const Floor& f, float x, float idle) {
   return -(f.T * logaddexp(-t1 / f.T, -f.cap / f.T));
 }
 
-// ---- the serial chains, lane 0 over a tile of cnt samples in shared memory
+// ---- the two recurrences, over a lane's segment in shared memory
 
-// s[k] = a_k in, idle_k out
-__device__ __forceinline__ void idle_chain(float* s, int cnt, float& idle) {
-  for (int k = 0; k < cnt; ++k) {
-    idle = (1.0f - s[k]) * (idle + 1.0f);
-    s[k] = idle;
+// idle' = (1 - a) (idle + 1), c[j] = 1 - a_j
+struct IdleChain {
+  const float* c;
+  __device__ __forceinline__ IdleChain shift(int d) const {
+    return {c + d};
   }
-}
-
-// s[k] = t_k in, o_k out
-__device__ __forceinline__ void out_chain(const Floor& f, float* s, int cnt,
-                                          float& o) {
-  for (int k = 0; k < cnt; ++k) {
-    o = fminf(fmaxf(s[k], o - f.rd), o + f.ru);
-    s[k] = o;
+  __device__ __forceinline__ float step(float s, int j) const {
+    return c[j] * (s + 1.0f);
   }
-}
-
-// reverse: sg[k] = dL/do_k from the output in, dL/do_k in total out;
-// wm[k], wt[k] the clip's two tie weights.  go: dL/do after the tile in,
-// before it out.
-__device__ __forceinline__ void go_chain(float* sg, const float* wm,
-                                         const float* wt, int cnt,
-                                         float& go) {
-  for (int k = cnt - 1; k >= 0; --k) {
-    go += sg[k];
-    sg[k] = go;
-    const float dm = go * wm[k], dhi = go * (1.0f - wm[k]);
-    const float dlo = dm * (1.0f - wt[k]);
-    go = dlo + dhi;
-  }
-}
-
-// reverse: sd[k] = dN_k in, dL/didle_k out; sa[k] = a_k
-__device__ __forceinline__ void gi_chain(float* sd, const float* sa, int cnt,
-                                         float& gi) {
-  for (int k = cnt - 1; k >= 0; --k) {
-    const float didle = gi - sd[k];
-    sd[k] = didle;
-    gi = didle * (1.0f - sa[k]);
-  }
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
+  __device__ __forceinline__ void run8(float& s, int j, float* v) const {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(kTile)
-floor_forward_kernel(const float* __restrict__ w,
-                     const float* __restrict__ params,
-                     float tau, float T, float* __restrict__ out,
-                     float* __restrict__ idle_out, long long n) {
-  __shared__ float s[kTile];
-  const int lane = threadIdx.x;
-  Floor f;
-  f.init(params + 6 * (size_t)blockIdx.x, tau, T);
-  const size_t base = (size_t)blockIdx.x * n;
-  const float* x = w + base;
-  float o = x[0], idle = 0.0f;         // lane 0's carries
-  for (long long i0 = 0; i0 < n; i0 += kTile) {
-    const int cnt = n - i0 < kTile ? (int)(n - i0) : kTile;
-    const long long i = i0 + lane;
-    const bool live = lane < cnt;
-    const float xv = live ? x[i] : 0.0f;
-    s[lane] = sigm((xv - f.thresh) / f.T);
-    __syncwarp();
-    if (lane == 0) idle_chain(s, cnt, idle);
-    __syncwarp();
-    const float id = s[lane];
-    __syncwarp();
-    s[lane] = target(f, xv, id);
-    __syncwarp();
-    if (lane == 0) out_chain(f, s, cnt, o);
-    __syncwarp();
-    if (live) {
-      out[base + i] = s[lane];
-      idle_out[base + i] = id;
-    }
-    __syncwarp();
+    for (int q = 0; q < 8; ++q) v[q] = s = step(s, j + q);
   }
+};
+
+// o' = min(max(t, o - rd), o + ru)
+struct OutChain {
+  const float* t;
+  float rd, ru;
+  __device__ __forceinline__ OutChain shift(int d) const {
+    return {t + d, rd, ru};
+  }
+  __device__ __forceinline__ float step(float s, int j) const {
+    return fminf(fmaxf(t[j], s - rd), s + ru);
+  }
+  __device__ __forceinline__ void run8(float& s, int j, float* v) const {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = s = step(s, j + q);
+  }
+};
+
+__global__ void __launch_bounds__(kLanes)
+floor_forward_kernel(const float* __restrict__ w,
+                     const float* __restrict__ params, float tau, float T,
+                     float* __restrict__ out, float* __restrict__ idle_out,
+                     int rows, long long n,
+                     unsigned long long* __restrict__ scratch,
+                     int* __restrict__ stats) {
+  __shared__ float sx[kWords], sc[kWords], si[kWords], st[kWords],
+      so[kWords];
+  const Place p = place(scratch, rows, n, false);
+  Floor f;
+  f.init(params + 6 * (size_t)p.row, tau, T);
+  const float* x = w + (size_t)p.row * n + p.i0;
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes) {
+    const float v = x[idx];
+    sx[at(idx)] = v;
+    sc[at(idx)] = 1.0f - sigm((v - f.thresh) / f.T);
+  }
+  __syncwarp();
+  const int seg = p.lane * kStride;
+  float s0;
+  chain_chunk(IdleChain{sc + seg}, si + seg, 0.0f, 0.0f, scratch, p, 0,
+              stats, 2, s0);
+  float* io = idle_out + (size_t)p.row * n + p.i0;
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes) {
+    const float id = si[at(idx)];
+    io[idx] = id;
+    st[at(idx)] = target(f, sx[at(idx)], id);
+  }
+  __syncwarp();
+  chain_chunk(OutChain{st + seg, f.rd, f.ru}, so + seg, st[seg],
+              w[(size_t)p.row * n], scratch, p, 1, stats, 2, s0);
+  float* o = out + (size_t)p.row * n + p.i0;
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes) o[idx] = so[at(idx)];
 }
 
-__global__ void __launch_bounds__(kTile)
+// one sample's step, recomputed from (x, o_{i-1}, idle_{i-1}) with the
+// forward's expressions: every term the adjoint reads
+struct FloorStep {
+  float a, ip1, v, gs, x1, x2, y1, y2, wm, wt;
+};
+
+__device__ __forceinline__ FloorStep floor_step(const Floor& f, float xv,
+                                                float o_prev,
+                                                float idle_prev) {
+  FloorStep r;
+  const float u = (xv - f.thresh) / f.T;
+  r.a = sigm(u);
+  r.ip1 = idle_prev + 1.0f;
+  const float idle = (1.0f - r.a) * r.ip1;
+  r.v = (f.stop_n - idle) / f.S;
+  r.gs = sigm(r.v);
+  const float fl = f.mpf * r.gs;
+  r.x1 = xv / f.T;
+  r.x2 = fl / f.T;
+  const float t1 = f.T * logaddexp(r.x1, r.x2);
+  r.y1 = -t1 / f.T;
+  r.y2 = -f.cap / f.T;
+  const float t2 = -(f.T * logaddexp(r.y1, r.y2));
+  const float lo = o_prev - f.rd, hi = o_prev + f.ru;
+  const float m = fmaxf(t2, lo);
+  r.wm = wmin(m, hi);
+  r.wt = wmax(t2, lo);
+  return r;
+}
+
+// dL/do_{i-1} per unit of dL/do_i in total: dm (1 - wt) + dhi
+__device__ __forceinline__ double out_weight(const FloorStep& r) {
+  return (double)r.wm * (1.0 - (double)r.wt) + (1.0 - (double)r.wm);
+}
+
+__global__ void __launch_bounds__(kLanes)
 floor_adjoint_kernel(const float* __restrict__ w,
-                     const float* __restrict__ params,
-                     float tau, float T, const float* __restrict__ out,
+                     const float* __restrict__ params, float tau, float T,
+                     const float* __restrict__ out,
                      const float* __restrict__ idle_in,
                      const float* __restrict__ g_out, float* __restrict__ g_w,
-                     float* __restrict__ g_params, long long n) {
-  __shared__ float sg[kTile], swm[kTile], swt[kTile], sd[kTile], sa[kTile];
-  const int lane = threadIdx.x;
+                     float* __restrict__ g_params, int rows, long long n,
+                     unsigned long long* __restrict__ scratch) {
+  __shared__ float sx[kWords], sop[kWords], sip[kWords], sg[kWords],
+      sd[kWords], sdx[kWords];
+  const Place p = place(scratch, rows, n, true);
   Floor f;
-  f.init(params + 6 * (size_t)blockIdx.x, tau, T);
-  const size_t base = (size_t)blockIdx.x * n;
-  const float* x = w + base;
+  f.init(params + 6 * (size_t)p.row, tau, T);
+  const size_t base = (size_t)p.row * n;
+  const float x0 = w[base];
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes) {
+    const long long i = p.i0 + idx;
+    sx[at(idx)] = w[base + i];
+    sop[at(idx)] = i > 0 ? out[base + i - 1] : x0;
+    sip[at(idx)] = i > 0 ? idle_in[base + i - 1] : 0.0f;
+    sg[at(idx)] = g_out[base + i];
+  }
+  __syncwarp();
+  const int seg = p.lane * kStride;
+  const int len = p.len;
+  // the o carry: c_{i-1} = w_i (c_i + g_i), composed from the segment's end
+  Map m = {1.0, 0.0};
+  for (int j = len - 1; j >= 0; --j) {
+    const FloorStep r = floor_step(f, sx[seg + j], sop[seg + j], sip[seg + j]);
+    const double wt = out_weight(r);
+    m = after(Map{wt, wt * (double)sg[seg + j]}, m);
+  }
+  double go_out;
+  double c = carry_in(m, scratch, p, 0, go_out);
   double g0 = 0.0, g1 = 0.0, g2 = 0.0, g3 = 0.0, g4 = 0.0, g5 = 0.0;
-  float go = 0.0f, gi = 0.0f;          // lane 0's carries
-  for (long long i0 = ((n - 1) / kTile) * kTile; i0 >= 0; i0 -= kTile) {
-    const int cnt = n - i0 < kTile ? (int)(n - i0) : kTile;
-    const long long i = i0 + lane;
-    const bool live = lane < cnt;
-    const float xv = live ? x[i] : 0.0f;
-    const float o_prev = i > 0 && live ? out[base + i - 1] : x[0];
-    const float idle_prev = i > 0 && live ? idle_in[base + i - 1] : 0.0f;
-    // recompute the step
-    const float u = (xv - f.thresh) / f.T;
-    const float a = sigm(u);
-    const float ip1 = idle_prev + 1.0f;
-    const float idle = (1.0f - a) * ip1;
-    const float v = (f.stop_n - idle) / f.S;
-    const float gs = sigm(v);
-    const float fl = f.mpf * gs;
-    const float x1 = xv / f.T, x2 = fl / f.T;
-    const float t1 = f.T * logaddexp(x1, x2);
-    const float y1 = -t1 / f.T, y2 = -f.cap / f.T;
-    const float t2 = -(f.T * logaddexp(y1, y2));
-    const float lo = o_prev - f.rd, hi = o_prev + f.ru;
-    const float m = fmaxf(t2, lo);
-    const float wm = wmin(m, hi), wt = wmax(t2, lo);
-    // the o chain: dL/do_i for every sample of the tile
-    sg[lane] = live ? g_out[base + i] : 0.0f;
-    swm[lane] = wm;
-    swt[lane] = wt;
-    __syncwarp();
-    if (lane == 0) go_chain(sg, swm, swt, cnt, go);
-    __syncwarp();
-    const float got = sg[lane];
+  for (int j = len - 1; j >= 0; --j) {
+    const float xv = sx[seg + j];
+    const FloorStep r = floor_step(f, xv, sop[seg + j], sip[seg + j]);
+    const double tot = c + (double)sg[seg + j];
+    c = out_weight(r) * tot;
+    const float got = (float)tot;
     // o = min(m, hi), m = max(t2, lo)
-    const float dm = got * wm, dhi = got * (1.0f - wm);
-    const float dt2 = dm * wt, dlo = dm * (1.0f - wt);
+    const float dm = got * r.wm, dhi = got * (1.0f - r.wm);
+    const float dt2 = dm * r.wt, dlo = dm * (1.0f - r.wt);
     // t2 = -T logaddexp(y1, y2): d/dy1 = 1 / (1 + exp(y2 - y1))
-    const float dt1 = dt2 / (1.0f + expf(y2 - y1));
-    const float dcap = dt2 / (1.0f + expf(y1 - y2));
+    const float dt1 = dt2 / (1.0f + expf(r.y2 - r.y1));
+    const float dcap = dt2 / (1.0f + expf(r.y1 - r.y2));
     // t1 = T logaddexp(x1, x2)
-    float dx = dt1 / (1.0f + expf(x2 - x1));
-    const float dfl = dt1 / (1.0f + expf(x1 - x2));
+    const float dx = dt1 / (1.0f + expf(r.x2 - r.x1));
+    const float dfl = dt1 / (1.0f + expf(r.x1 - r.x2));
     const float dg = dfl * f.mpf;
-    const float dv = dg * gs * (1.0f - gs);
+    const float dv = dg * r.gs * (1.0f - r.gs);
     const float dN = dv / f.S;
-    // the idle chain: dL/didle_i for every sample of the tile
-    sd[lane] = dN;
-    sa[lane] = a;
-    __syncwarp();
-    if (lane == 0) gi_chain(sd, sa, cnt, gi);
-    __syncwarp();
-    const float didle = sd[lane];
-    const float da = -didle * ip1;
+    sd[seg + j] = dN;
+    sdx[seg + j] = dx;
+    g0 += (double)(dfl * r.gs);
+    g2 += (double)dhi;
+    g3 -= (double)dlo;
+    g4 += (double)(dN - f.tau * dv * r.v / f.S);
+    g5 += (double)dcap;
+  }
+  // the idle carry: c_{i-1} = (1 - a_i) (c_i - dN_i)
+  m = {1.0, 0.0};
+  for (int j = len - 1; j >= 0; --j) {
+    const float a = sigm((sx[seg + j] - f.thresh) / f.T);
+    const double k = (double)(1.0f - a);
+    m = after(Map{k, -k * (double)sd[seg + j]}, m);
+  }
+  double gi_out;
+  c = carry_in(m, scratch, p, 1, gi_out);
+  for (int j = len - 1; j >= 0; --j) {
+    const float a = sigm((sx[seg + j] - f.thresh) / f.T);
+    const double didle64 = c - (double)sd[seg + j];
+    c = (double)(1.0f - a) * didle64;
+    const float didle = (float)didle64;
+    const float da = -didle * (sip[seg + j] + 1.0f);
     const float du = da * a * (1.0f - a);
-    dx += du / f.T;
-    if (live) {
-      g_w[base + i] = dx;
-      g0 += (double)(dfl * gs);
-      g1 -= (double)(du / f.T);
-      g2 += (double)dhi;
-      g3 -= (double)dlo;
-      g4 += (double)(dN - f.tau * dv * v / f.S);
-      g5 += (double)dcap;
-    }
-    __syncwarp();
+    sdx[seg + j] = sdx[seg + j] + du / f.T;
+    g1 -= (double)(du / f.T);
   }
-  g0 = warp_sum(g0); g1 = warp_sum(g1); g2 = warp_sum(g2);
-  g3 = warp_sum(g3); g4 = warp_sum(g4); g5 = warp_sum(g5);
-  if (lane == 0) {
-    g_w[base] += go;                   // o_{-1} = x_0
-    float* gp = g_params + 6 * (size_t)blockIdx.x;
-    gp[0] = (float)g0; gp[1] = (float)g1; gp[2] = (float)g2;
-    gp[3] = (float)g3; gp[4] = (float)g4; gp[5] = (float)g5;
-  }
+  __syncwarp();
+  float* gw = g_w + base + p.i0;
+  for (int idx = p.lane; idx < p.cnt; idx += kLanes) gw[idx] = sdx[at(idx)];
+  __syncwarp();
+  if (p.chunk == 0 && p.lane == 0) gw[0] += (float)go_out;   // o_{-1} = x_0
+  double g[6] = {g0, g1, g2, g3, g4, g5};
+  const double none[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  reduce_params(g, 6, scratch, p, 2, none, g_params + 6 * (size_t)p.row);
 }
 
-// the chains alone: lane 0 runs the forward's (idle, o) or the adjoint's
-// (go, gi) lane-0 loops over kProbe samples in shared memory, reps times,
-// each time on fresh copies of the same inputs (restored by all lanes)
+// the chains' own steps over the row's first kProbe samples in shared
+// memory, reps times, the warp walking in step as resolve does: adj 0,
+// cycles[0] the o walk and cycles[1] the idle walk (each with the merge
+// test, against kept outputs it never meets: the serial path of a row
+// whose walks do not merge); adj 1, cycles[0] the adjoint's float64
+// affine composition a sample
 constexpr int kProbe = 512;
 
 __global__ void floor_cycles_kernel(const float* __restrict__ w,
-                              const float* __restrict__ params, float tau,
-                              float T, long long n, int reps, int adj,
-                              long long* __restrict__ cycles,
-                              float* __restrict__ sink) {
-  __shared__ float p0[kProbe], p1[kProbe], p2[kProbe], p3[kProbe];
-  __shared__ float w0[kProbe], w1[kProbe];
+                                    const float* __restrict__ params,
+                                    float tau, float T, long long n,
+                                    int reps, int adj,
+                                    long long* __restrict__ cycles,
+                                    float* __restrict__ sink) {
+  __shared__ float pin[kProbe], pkept[kProbe];
   const int lane = threadIdx.x;
-  const int len = n < kProbe ? (int)n : kProbe;
+  const int len = (int)min(n, (long long)kProbe) / kSeg * kSeg;
   Floor f;
   f.init(params, tau, T);
-  for (int i = lane; i < len; i += kTile) {
-    const float a = sigm((w[i] - f.thresh) / f.T);
-    p0[i] = adj ? 1e-3f * w[i] : a;          // g_out / a
-    p1[i] = adj ? (a > 0.5f ? 1.0f : 0.5f) : w[i];   // wm / t
-    p2[i] = a > 0.25f ? 1.0f : 0.5f;         // wt
-    p3[i] = a;
-  }
-  float o = 0.0f, idle = 0.0f, go = 0.0f, gi = 0.0f;
-  long long spent = 0;
-  for (int r = 0; r < reps; ++r) {
-    o = w[0], idle = 0.0f, go = 0.0f, gi = 0.0f;   // from the row's start
-    __syncwarp();
-    for (int i = lane; i < len; i += kTile) {
-      w0[i] = p0[i];
-      w1[i] = adj ? 1e-4f * p3[i] : p1[i];
-    }
-    __syncwarp();
-    if (lane == 0) {
+  float acc = 0.0f;
+  double dacc = 0.0;
+  for (int which = 0; which < (adj ? 1 : 2); ++which) {
+    for (int i = lane; i < len; i += kLanes)
+      pin[i] = which == 0 && !adj ? w[i]
+                                  : 1.0f - sigm((w[i] - f.thresh) / f.T);
+    long long spent = 0;
+    for (int r = 0; r < reps; ++r) {
+      for (int i = lane; i < kProbe; i += kLanes)
+        pkept[i] = __int_as_float(0x7fc00001);
+      __syncwarp();
+      // every lane walks the same segments in step, as resolve does
       const long long t0 = clock64();
-      for (int k0 = 0; k0 < len; k0 += kTile) {
-        const int cnt = len - k0 < kTile ? len - k0 : kTile;
-        if (adj) {
-          go_chain(w0 + k0, p1 + k0, p2 + k0, cnt, go);
-          gi_chain(w1 + k0, p3 + k0, cnt, gi);
-        } else {
-          idle_chain(w0 + k0, cnt, idle);
-          out_chain(f, w1 + k0, cnt, o);
+      if (adj) {
+        Map m = {1.0, 0.0};
+        for (int j = len - 1; j >= 0; --j) {
+          const double k = (double)pin[j];
+          m = after(Map{k, k * (double)pin[j]}, m);
         }
+        dacc += m.a + m.b;
+      } else {
+        float s = which == 0 ? w[0] : 0.0f;
+        for (int j0 = 0; j0 < len; j0 += kSeg) {
+          if (which == 0)
+            walk<true>(OutChain{pin + j0, f.rd, f.ru}, s, pkept + j0, kSeg);
+          else
+            walk<true>(IdleChain{pin + j0}, s, pkept + j0, kSeg);
+        }
+        acc += s;
       }
+      __syncwarp();
       spent += clock64() - t0;
     }
+    if (lane == 0) cycles[which] = spent;
+    __syncwarp();
   }
-  if (lane == 0) {
-    cycles[0] = spent;
-    sink[0] = o + idle + go + gi + w0[0] + w1[0];
-  }
+  if (lane == 0) sink[0] = acc + (float)dacc;
 }
 
 }  // namespace
 
-// out, idle_out [rows, n] of w [rows, n] and params [rows, 6]
+// out, idle_out [rows, n] of w [rows, n] and params [rows, 6]; scratch
+// holds chain_walk.cuh's scratch_words(rows, n) 8-byte words (zeroed
+// here); stats, if not null, gets [rows, chunks, 2 chains, 3] ints (each
+// chunk's segments walked again once its start came in, those that did
+// not merge, and their steps: chain 0 idle, 1 o)
 extern "C" int gpu_floor_relaxed_forward(const void* w, const void* params,
                                          float tau, float T, void* out,
                                          void* idle_out, int rows,
-                                         long long n, void* stream) {
+                                         long long n, void* scratch,
+                                         void* stats, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  floor_forward_kernel<<<rows, kTile, 0, (cudaStream_t)stream>>>(
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(scratch, 0,
+                                  8 * chain::scratch_words(rows, n), s);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)(rows * chain::chunks(n));
+  floor_forward_kernel<<<blocks, chain::kLanes, 0, s>>>(
       (const float*)w, (const float*)params, tau, T, (float*)out,
-      (float*)idle_out, n);
+      (float*)idle_out, rows, n, (unsigned long long*)scratch, (int*)stats);
   return (int)cudaGetLastError();
 }
 
 // g_w [rows, n] and g_params [rows, 6] of the loss whose gradient with
-// respect to the forward's out is g_out [rows, n]
+// respect to the forward's out is g_out [rows, n]; scratch as the forward's
 extern "C" int gpu_floor_relaxed_adjoint(const void* w, const void* params,
                                          float tau, float T, const void* out,
                                          const void* idle_in,
                                          const void* g_out, void* g_w,
                                          void* g_params, int rows,
-                                         long long n, void* stream) {
+                                         long long n, void* scratch,
+                                         void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  floor_adjoint_kernel<<<rows, kTile, 0, (cudaStream_t)stream>>>(
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(scratch, 0,
+                                  8 * chain::scratch_words(rows, n), s);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)(rows * chain::chunks(n));
+  floor_adjoint_kernel<<<blocks, chain::kLanes, 0, s>>>(
       (const float*)w, (const float*)params, tau, T, (const float*)out,
       (const float*)idle_in, (const float*)g_out, (float*)g_w,
-      (float*)g_params, n);
+      (float*)g_params, rows, n, (unsigned long long*)scratch);
   return (int)cudaGetLastError();
 }
 
-// cycles[0] = SM cycles of reps * min(n, 512) steps of the forward's
-// (adj 0) or the adjoint's (adj 1) serial chains; a probe of the chains
-// alone
+// cycles[0..1]: SM cycles of reps walks of the chains over min(n, 512)
+// samples (rounded down to whole segments): adj 0, the o and the idle
+// walks with the merge test; adj 1, the adjoint's float64 composition
 extern "C" int gpu_floor_relaxed_step_cycles(const void* w,
                                              const void* params, float tau,
                                              float T, long long n, int reps,
                                              int adj, void* cycles,
                                              void* sink, void* stream) {
-  if (n <= 0 || reps <= 0) return (int)cudaErrorInvalidValue;
+  if (n < chain::kSeg || reps <= 0) return (int)cudaErrorInvalidValue;
   floor_cycles_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
       (const float*)w, (const float*)params, tau, T, n, reps, adj,
       (long long*)cycles, (float*)sink);

@@ -14,9 +14,11 @@ reference on the CPU.
   kernels B and C (their plain versions here), never J or K.
 * A tie: clips whose two sides are equal split the gradient in halves, as
   JAX's do (``torch.clamp`` would give all of it to one side).
-* The backstop's gradient with respect to ``w`` through the monitor's
-  worst-bin amplitude: the reference's flows, the port's is detached
-  (kernel A has no backward); the readings behind ROADMAP queue C.
+* The backstop's gradient with respect to ``w``, through the monitor's
+  worst-bin amplitude too, against ``jax.grad`` of the reference with its
+  jnp monitor (unfused and fused), at the gradient tolerances above; the
+  worst-bin amplitude's adjoint alone (``monitor_adjoint_plain``) against
+  autograd of a float64 torch monitor, with ties and a zero bin.
 """
 import dataclasses
 
@@ -356,17 +358,17 @@ def test_backstop_relaxed_forward_hard_and_gradients_match_reference():
         float(g_ref.alpha1), rel=1e-2)
 
 
-def backstop_w_gradients(held=False):
+def backstop_w_gradients(held=False, fused_scan=False):
     """The port's and the reference's gradients of a weighted output with
     respect to ``w``; ``held`` holds the reference's monitor output fixed
-    (``stop_gradient`` around its jnp monitor), as the port's kernel A
-    is."""
+    (``stop_gradient`` around its jnp monitor), ``fused_scan`` takes the
+    reference's fused jnp mirror instead of its cumsum monitor."""
     import repro.core.smoothing.backstop as rbackstop
     w = _escalating_trace()
     fields = dict(amp_threshold_w=1e6, alpha1=0.5, shed_frac=0.7,
                   idle_frac=0.2)
     weight = jnp.asarray(np.cos(np.arange(len(w)) / 9.0), jnp.float32)
-    ref = core.TelemetryBackstop(use_pallas=False, fused_scan=False,
+    ref = core.TelemetryBackstop(use_pallas=False, fused_scan=fused_scan,
                                  window_s=2.0, sustain_s=0.5,
                                  smooth_tau=0.05, **fields)
     monitor = rbackstop.sliding_bin_power_jnp
@@ -387,16 +389,88 @@ def backstop_w_gradients(held=False):
 
 
 def test_backstop_w_gradient_through_the_monitor_is_detached():
-    """ROADMAP queue C: the reference's jax.grad with respect to ``w``
-    also flows through the monitor's worst-bin amplitude (its jnp path);
-    the port's stops there (kernel A has no backward).  With the
-    reference's monitor held fixed the two agree; without, they part."""
-    g_port, g_held = backstop_w_gradients(held=True)
-    scale = np.abs(g_held).max()
-    np.testing.assert_allclose(g_port, g_held, rtol=GRAD_RTOL,
+    """The gradient with respect to ``w`` flows through the monitor's
+    worst-bin amplitude on both sides, and the port's equals the
+    reference's ``jax.grad`` (its cumsum jnp monitor, no
+    ``stop_gradient``).  The name is kept from when the port's was detached
+    (kernel A had no backward): with the reference's monitor held fixed the
+    two now part."""
+    g_port, g_ref = backstop_w_gradients()
+    scale = np.abs(g_ref).max()
+    np.testing.assert_allclose(g_port, g_ref, rtol=GRAD_RTOL,
                                atol=GRAD_ATOL * scale)
-    _, g_ref = backstop_w_gradients()
-    assert np.abs(g_port - g_ref).max() > 0.01 * np.abs(g_ref).max()
+    _, g_held = backstop_w_gradients(held=True)
+    assert np.abs(g_port - g_held).max() > 0.01 * scale
+
+
+def test_backstop_w_gradient_matches_the_fused_reference():
+    """As above, against the reference's fused jnp mirror
+    (``fused_scan=True``, ``use_pallas=False``)."""
+    g_port, g_ref = backstop_w_gradients(fused_scan=True)
+    np.testing.assert_allclose(g_port, g_ref, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL * np.abs(g_ref).max())
+
+
+def _worst_f64(x, freqs, dt, win):
+    """The worst-bin amplitude ``[B, n]`` in float64 torch ops, the formula
+    of the monitor (centred, windowed DFT, 2 |S| / min(t + 1, win), max over
+    bins), for autograd."""
+    n = x.shape[-1]
+    xc = x - x.mean(-1, keepdim=True)
+    j = torch.arange(n, dtype=torch.float64)
+    ph = torch.exp(-1j * 2.0 * torch.pi * torch.tensor(freqs, dtype=torch.float64)[:, None]
+                   * dt * j[None, :])
+    P = torch.cumsum(xc[:, None, :] * ph, -1)
+    S = torch.cat([P[..., :win], P[..., win:] - P[..., :-win]], -1)
+    amp = 2.0 * S.abs() / torch.clamp(j + 1.0, max=float(win))
+    return amp.amax(1), amp.transpose(1, 2)
+
+
+@pytest.mark.parametrize("case", ["noise", "ties", "zero"])
+def test_monitor_adjoint_plain_matches_autograd(case):
+    """``monitor_adjoint_plain`` against autograd of ``_worst_f64`` on three
+    rows: noise; two bins at one frequency (every sample a tie, split in
+    halves as torch's and JAX's max split it); a constant row (|S| = 0
+    everywhere: no gradient)."""
+    from repro_torch.kernels.goertzel.monitor import monitor_adjoint_plain
+    dt, win, n = 0.01, 64, 300
+    freqs = {"noise": (0.5, 1.0, 2.0, 9.0), "ties": (1.0, 1.0, 3.0),
+             "zero": (1.0, 2.0)}[case]
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, n)) * 1e3 + 5e5
+    if case == "zero":
+        x[:] = 5e5
+    x = torch.tensor(x, dtype=torch.float64, requires_grad=True)
+    g = torch.tensor(rng.normal(size=(2, n)))
+    worst, amps = _worst_f64(x, freqs, dt, win)
+    (gw,) = torch.autograd.grad((worst * g).sum(), x)
+    xc = (x - x.mean(-1, keepdim=True)).detach()
+    got = monitor_adjoint_plain(xc.to(torch.float32), amps.detach().to(
+        torch.float32), g.to(torch.float32), freqs, dt, win)
+    scale = max(float(gw.abs().max()), 1e-30)
+    np.testing.assert_allclose(got.numpy(), gw.numpy(), rtol=0,
+                               atol=1e-5 * scale)
+    if case == "zero":
+        assert not got.any()
+
+
+def test_monitor_worst_grad_off_path_launches_nothing(monkeypatch):
+    """The hard backstop, and the relaxed one on a ``w`` that needs no
+    gradient, never build the monitor's graph."""
+    from repro_torch.kernels.goertzel import ops
+    called = []
+    monkeypatch.setattr(
+        "repro_torch.core.smoothing.backstop.monitor_worst_grad",
+        lambda *a, **k: called.append(1) or ops.monitor_worst_grad(*a, **k))
+    w = torch.tensor(_escalating_trace()[None])
+    apply_mitigation([TelemetryBackstop(window_s=2.0, sustain_s=0.5)], w, DT)
+    apply_mitigation([TelemetryBackstop(window_s=2.0, sustain_s=0.5,
+                                        smooth_tau=0.05)], w, DT)
+    assert not called
+    apply_mitigation([TelemetryBackstop(window_s=2.0, sustain_s=0.5,
+                                        smooth_tau=0.05)],
+                     w.clone().requires_grad_(True), DT)
+    assert called
 
 
 # ---------------------------------------------------------------------------

@@ -55,8 +55,8 @@ def test_rules_cover_the_control_slice():
 def test_build_registers_all_nine_kernels():
     """Once the API and the modules of F, G, H and I are imported (as
     ``chip_smoke.py`` imports them), ``launch_counts`` names every kernel
-    A-I and both entry points of J and K (forward and adjoint, one source
-    each): thirteen counts over eleven sources."""
+    A-I, kernel A's adjoint and both entry points of J and K (forward and
+    adjoint, one source each): fourteen counts over twelve sources."""
     from repro_torch.kernels import build
     from repro_torch.kernels.ballast import ballast  # noqa: F401
     from repro_torch.kernels.flash import flash  # noqa: F401
@@ -66,9 +66,9 @@ def test_build_registers_all_nine_kernels():
                            "sliding", "flash_fwd", "ballast", "windows",
                            "sliding_v1", "gpu_floor_relaxed",
                            "gpu_floor_relaxed_adjoint", "battery_relaxed",
-                           "battery_relaxed_adjoint"}
+                           "battery_relaxed_adjoint", "monitor_adjoint"}
     sources = [k.source for k in build.KERNELS]
-    assert len(sources) == 13 and len(set(sources)) == 11
+    assert len(sources) == 14 and len(set(sources)) == 12
     assert all(p.exists() for p in sources)
     # the two entry points of one source share one library
     by_source = {}

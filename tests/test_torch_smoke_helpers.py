@@ -703,9 +703,14 @@ def test_jk_check_on_the_cpu_compares_the_plain_version_with_itself(name):
 
 
 def test_jk_rows_carry_every_key_of_the_kernels_line():
-    timing = {"ms": 1.0, "device_ms": 0.9, "chain_ns_per_step": 30.0,
-              "chain_floor_ms": 2.7, "chain_cycles_per_step": 55.0,
-              "chain_readings": [[55.0, 30.0]] * 5}
+    chain = {"o": {"cycles_per_step": 55.0, "ns_per_step": 27.8,
+                   "readings": [55.0] * 5}}
+    timing = {"ms": 1.0, "device_ms": 0.9, "chain": chain,
+              "sm_clock_ghz": 1.98, "chain_floor_ms": 2.7,
+              "chain_floors_ms": {"o": 2.7}}
+    merges = {"first": {"o": {"segments": 16_896, "walked_again": 30,
+                              "unmerged": 2, "merged_share": 0.99,
+                              "serial_steps_max_row": 1000}}}
     check = {"shape": [6, 3000], "out_abs": 1e-3, "out_rel": 1e-7,
              "grad_abs": 2e-3, "grad_rel": 2e-7, "plain_fwd_ms": 100.0,
              "plain_bwd_ms": 300.0, "worst_grad": "d_w"}
@@ -715,7 +720,7 @@ def test_jk_rows_carry_every_key_of_the_kernels_line():
             "last": dict(check, shape=[6, 90_000], grad_abs=5e-3,
                          plain_cpu_fwd_ms=8e3, plain_cpu_bwd_ms=2e4)}
     design = {"jk": {nm: {"shape": [6, 90_000], "check": check,
-                          "full": full,
+                          "full": full, "merges": merges,
                           "timing": {"forward": timing, "adjoint": timing}}
                      for nm in ("gpu_floor_relaxed", "battery_relaxed")},
               "launches": {nm: 120 for nm in chip_smoke.RELAXED}}
@@ -738,7 +743,8 @@ def test_jk_rows_carry_every_key_of_the_kernels_line():
         b_ms, b_by = chip_smoke.jk_bound(r["name"], 6, 90_000, cols)
         assert (r["bound_ms"], r["bound_by"]) == (b_ms, b_by) and \
             b_by == "bytes"
-        assert r["chain_readings"] == timing["chain_readings"]
+        assert r["chain"] == chain and r["chain_floor_ms"] == 2.7
+        assert ("merges" in r) == (not r["name"].endswith("_adjoint"))
     # the errors are the full-shape checks' worst; the card's cut beside
     assert rows[0]["max_abs_err"] == 4e-3 and rows[1]["max_abs_err"] == 5e-3
     assert rows[1]["rel_err"] == 3e-6 and rows[1]["worst_column"] == "d_cap"
