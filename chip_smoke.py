@@ -80,6 +80,28 @@ trace on ten rows of phase 18's workload, through kernel A forward and
 kernel E and A's adjoint backward, and A's adjoint against its plain
 version (float64 torch) at [10 x 90 000 x 4 bins], timed alone; no
 launch of A's adjoint on any other path.
+Phase 20, after 19: the compliance service at its own width, after
+``benchmarks/serve_bench.py``.  (a) The warm-start predictor's training
+set, ``design(method="hybrid")`` on the card on the four smoke cells of
+``benchmarks/warmstart_data.py`` at dt 5 ms, 8 steps, each battery
+horizon refined over (5, 10, 15, 30) s in one ``_eval_candidates``
+call; 400 epochs on the card (the loss must fall), a save and load equal
+bit for bit, and the card's predictions within 1e-5 of the same params'
+CPU forward.  (b) serve_bench's design problem (1.8 s, comm 0.28, 512
+chips, tight) by hybrid and warm start, cold and warm: the same
+feasibility, both answers passing their hard re-validation.  (c)
+``PowerComplianceService()`` at its defaults (20 configs, dt 2 ms, 10
+steps): phase 5's four workloads x both fleets x moderate and tight, 16
+queries coalesced into one Study run and asked serially of another
+instance, the answers equal; cache-hit p50 and p99; 8 threads on one
+cold query running one Study; a dry-run cell file through ``handle``;
+the design fallback by hybrid and by the warm start on a narrowed
+catalog; two of the queries again on the CPU.  (d) ``watch`` on the 48 s
+ramp with the predictor, on the card and on the CPU: the same records
+and timeline.  (e) ``python -m repro_torch.serve.power`` and its
+``watch`` subcommand as subprocesses, each exiting 0 with JSON.  The
+phase must launch B, C, J, K, A, D and E (and no G, H, I or F); the
+CPU's parts launch nothing.
 It prints:
 
   * the card's name and power limit (``nvidia-smi``);
@@ -132,6 +154,11 @@ It prints:
     per segment, chain floors and errors against their plain versions;
   * for phase 19: launches, the backward's wall, and A's adjoint's error,
     ms, device ms, plain ms and bound;
+  * for phase 20: the training set and the predictor's loss, train
+    seconds and card-vs-CPU gap; the design walls and the warm start's
+    tier; the coalesced and serial walls, cache-hit p50 and p99, the
+    single-flight and fallback results; the watch's action timeline and
+    loop wall; the CLI's answers; launches by part;
   * one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again,
     and, last, ``{"ok": true, "device": {...}}``.
 
@@ -166,6 +193,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+SCRIPT_T0 = time.perf_counter()
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and f32
 # operations/s outside the tensor cores, used for every kernel here (their
@@ -273,12 +301,19 @@ def study_configs(api):
     return cfgs
 
 
+# phase 5's workloads: (period, MoE notch), comm 0.25
+WORKLOAD_PERIODS = {"dense_1s": (1.0, False), "dense_1p5s": (1.5, False),
+                    "moe_2s": (2.0, True), "dense_3s": (3.0, False)}
+
+
+def study_timelines(api):
+    return {k: api.synthetic_timeline(p, 0.25, moe_notch=moe)
+            for k, (p, moe) in WORKLOAD_PERIODS.items()}
+
+
 def build_study(api, workloads=None, fleets=FLEETS, configs=None,
                 device="cuda", keep_waveforms=False):
-    periods = {"dense_1s": (1.0, False), "dense_1p5s": (1.5, False),
-               "moe_2s": (2.0, True), "dense_3s": (3.0, False)}
-    all_wl = {k: api.synthetic_timeline(p, 0.25, moe_notch=moe)
-              for k, (p, moe) in periods.items()}
+    all_wl = study_timelines(api)
     cfgs = study_configs(api)
     specs = api.example_specs(JOB_MW)
     return api.Study(
@@ -3702,6 +3737,459 @@ def backstop_gradient_phase(torch, api, build):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the compliance service and the warm-start predictor
+# ---------------------------------------------------------------------------
+
+# benchmarks/serve_bench.py's waveform, and benchmarks/warmstart_data.py's
+# four smoke cells and tau ladder: the predictor's training set
+SERVE_WAVE = dict(dt=0.005, steps=8, jitter_s=0.005)
+SERVE_CELLS = ((2.0, 0.25, False, 512, "moderate"),
+               (0.8, 0.3, False, 512, "tight"),
+               (1.4, 0.2, True, 1024, "moderate"),
+               (2.0, 0.35, False, 1024, "tight"))
+TAU_LADDER = (5.0, 10.0, 15.0, 30.0)
+SERVE_EPOCHS = 400
+PREDICT_RTOL = 1e-5       # the card's predictions against the CPU forward
+# serve_bench's design problem: (period, comm, chips, spec)
+SERVE_DESIGN = (1.8, 0.28, 512, "tight")
+CACHE_HIT_REPS = 300
+SF_THREADS = 8
+# a catalog narrowed until the tight spec fails it (the defaults pass every
+# one of the 16 queries), and the query that takes its design fallback
+NARROW_CATALOG = dict(mpf_grid=(0.5,), cap_fracs=(0.5,))
+FALLBACK_QUERY = ("dense_1s", 8192, "tight")
+CPU_QUERIES = (("dense_1s", 8192, "moderate"), ("dense_3s", 32768, "tight"))
+SERVE_KERNELS = ("gpu_floor", "battery", "gpu_floor_relaxed",
+                 "gpu_floor_relaxed_adjoint", "battery_relaxed",
+                 "battery_relaxed_adjoint", "monitor", "escalation",
+                 "sliding")
+SERVE_CLI = (("query", ["--n-chips", "512", "--spec", "moderate"]),
+             ("watch", ["watch", "--replay", "ramp", "--max-ticks", "40"]))
+
+
+def host_problem(api, period_s, comm_frac, moe, n_chips, spec_name, cfg):
+    """(float64 host waveform, spec) of one design problem, as
+    ``benchmarks/warmstart_data.py`` builds it."""
+    from repro_torch.core.waveform import aggregate_host, chip_waveform_host
+    tl = api.synthetic_timeline(period_s, comm_frac, moe_notch=moe)
+    w = aggregate_host(chip_waveform_host(tl, cfg), n_chips, cfg)
+    return w, api.example_specs(float(w.mean()) / 1e6)[spec_name]
+
+
+def predictor_dataset(torch, api):
+    """The training set: each cell solved by ``design(method="hybrid")`` on
+    the card, its battery horizon refined over ``TAU_LADDER`` in one
+    ``_eval_candidates`` call (``warmstart_data._refine_tau``)."""
+    import numpy as np
+    from repro_torch.core import engine
+    from repro_torch.serve.warmstart import extract_features
+    cfg = api.WaveformConfig(**SERVE_WAVE)
+    X, Y, cells = [], [], []
+    for period, comm, moe, n_chips, spec_name in SERVE_CELLS:
+        w, spec = host_problem(api, period, comm, moe, n_chips, spec_name,
+                               cfg)
+        sol, wall = timed_run(torch, lambda: engine.design(
+            spec, w, cfg.dt, n_chips, method="hybrid"))
+        if sol is None or not sol["report"].ok:
+            log(f"[serve] cell {(period, comm, moe, n_chips, spec_name)} "
+                "infeasible, skipped")
+            continue
+        mpf, cap = float(sol["mpf_frac"]), float(sol["battery_capacity_j"])
+        tau = TAU_LADDER[1]
+        if cap > 0:
+            _, ok, overhead, _, _ = engine._eval_candidates(
+                spec, torch.as_tensor(w.astype(np.float32), device=DEVICE),
+                cfg.dt, n_chips, [(mpf, cap)] * len(TAU_LADDER),
+                swing=float(w.max() - w.min()), hw=api.DEFAULT_HW,
+                target_tau_s=list(TAU_LADDER))
+            ok, overhead = ok.cpu().numpy(), overhead.cpu().numpy()
+            if ok.any():
+                tau = TAU_LADDER[int(np.flatnonzero(ok)[
+                    np.argmin(overhead[ok])])]
+        X.append(extract_features(spec, w, cfg.dt, n_chips))
+        Y.append([mpf, cap, tau])
+        cells.append({"cell": [period, comm, moe, n_chips, spec_name],
+                      "mpf_frac": mpf, "battery_capacity_j": cap,
+                      "target_tau_s": tau, "hybrid_s": wall})
+    if not X:
+        raise AssertionError("[serve] no feasible training cell")
+    return np.stack(X), np.asarray(Y, np.float32), cells
+
+
+def predictor_part(torch, api):
+    """(a): the training set, 400 epochs on the card, a save and load
+    equal bit for bit, and the card's predictions against the same
+    params' CPU forward."""
+    import numpy as np
+    from repro_torch.serve.warmstart import WarmStartPredictor, train_warmstart
+    t0 = time.perf_counter()
+    X, Y, cells = predictor_dataset(torch, api)
+    data_s = time.perf_counter() - t0
+    (pred, hist), train_s = timed_run(
+        torch, lambda: train_warmstart(X, Y, epochs=SERVE_EPOCHS))
+    losses = hist["loss"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[serve] the predictor's loss did not fall: "
+                             f"{losses[0]} -> {losses[-1]}")
+    ckpt = os.path.join(HERE, "build", "phase20_warmstart")
+    pred.save(ckpt)
+    again = WarmStartPredictor.load(ckpt)
+    if not np.array_equal(again.predict_normalized(X),
+                          pred.predict_normalized(X)):
+        raise AssertionError("[serve] the loaded predictor differs from the "
+                             "saved one")
+    cpu = WarmStartPredictor(tree_to(pred.params, "cpu"),
+                             tree_to(pred.norm, "cpu"), pred.meta)
+    card, host = pred.predict_normalized(X), cpu.predict_normalized(X)
+    rel = float(np.abs(card - host).max() / np.abs(host).max())
+    if not rel <= PREDICT_RTOL:
+        raise AssertionError(f"[serve] card vs CPU predictions {rel:.3g} "
+                             f"apart (rtol {PREDICT_RTOL})")
+    res = {"cells": cells, "n_train": len(X), "dataset_s": data_s,
+           "epochs": SERVE_EPOCHS, "train_s": train_s, "loss0": losses[0],
+           "loss": losses[-1], "card_vs_cpu_rel": rel}
+    log("[serve] (a) predictor: " + json.dumps(res))
+    return pred, cpu, res
+
+
+def design_part(torch, api, pred):
+    """(b): serve_bench's design problem by ``hybrid`` and ``warmstart``,
+    each cold and warm; the two agree on feasibility and both answers
+    pass their hard re-validation."""
+    from repro_torch.core import engine
+    period, comm, n_chips, spec_name = SERVE_DESIGN
+    cfg = api.WaveformConfig(**SERVE_WAVE)
+    w, spec = host_problem(api, period, comm, False, n_chips, spec_name, cfg)
+    res = {}
+    sols = {}
+    for method, kw in (("hybrid", {}), ("warmstart", {"warmstart": pred})):
+        for tag in ("cold", "warm"):
+            sols[method], res[f"{method}_{tag}_s"] = timed_run(
+                torch, lambda: engine.design(spec, w, cfg.dt, n_chips,
+                                             method=method, **kw))
+    h, ws = sols["hybrid"], sols["warmstart"]
+    if (h is None) != (ws is None):
+        raise AssertionError("[serve] hybrid and warmstart disagree on "
+                             "feasibility")
+    if h is None or not (h["report"].ok and ws["report"].ok):
+        raise AssertionError("[serve] a design failed its hard "
+                             "re-validation")
+    res.update(warmstart_path=ws["aux"]["warmstart_path"],
+               samples=len(w),
+               hybrid={k: h[k] for k in ("mpf_frac", "battery_capacity_j",
+                                         "energy_overhead")},
+               warmstart={k: ws[k] for k in ("mpf_frac", "battery_capacity_j",
+                                             "energy_overhead")})
+    log("[serve] (b) design: " + json.dumps(res))
+    return res
+
+
+def serve_queries(api):
+    tls = study_timelines(api)
+    return [{"workload": tls[name], "workload_name": name, "n_chips": n,
+             "spec": s} for name in tls for n in FLEETS for s in SPEC_NAMES]
+
+
+def cell_request(api):
+    """A dry-run cell file written here, and the request that names it."""
+    cell = {"arch": "phase20-dense", "n_chips": 8192,
+            "exact": {"flops": 3.2e18, "bytes": 4.0e15},
+            "collectives": {"all-reduce": 6.0e9},
+            "memory": {"state_bytes_per_device": 4e9}}
+    path = os.path.join(HERE, "build", "phase20_cell.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cell, f)
+    return {"workload": {"cell": path}, "n_chips": 8192, "spec": "moderate"}
+
+
+def same_answer(got, ref, where):
+    """CPU against card: equal verdicts, recommendation and passing
+    names; the numbers within ``STUDY_RTOL`` (energy_overhead also abs
+    1e-6)."""
+    for k in ("compliant", "recommended", "n_configs", "mean_mw",
+              "raw_swing_mw"):
+        if got[k] != ref[k]:
+            raise AssertionError(f"[serve] {where}: {k} {got[k]} vs {ref[k]}")
+    if [p["config"] for p in got["passing"]] != [
+            p["config"] for p in ref["passing"]]:
+        raise AssertionError(f"[serve] {where}: passing configs differ")
+    worst = 0.0
+    for a, b in zip(got["passing"], ref["passing"]):
+        for k in ("energy_overhead", "swing_mitigated_mw"):
+            atol = 1e-6 if k == "energy_overhead" else 0.0
+            if abs(a[k] - b[k]) > STUDY_RTOL * abs(b[k]) + atol:
+                raise AssertionError(f"[serve] {where}: {a['config']} {k} "
+                                     f"{a[k]} vs {b[k]}")
+            worst = max(worst, abs(a[k] - b[k]) / max(abs(b[k]), 1e-30))
+    return worst
+
+
+def service_part(torch, api, pred):
+    """(c): the 16 queries coalesced (one Study run; the process's first
+    such run on an instance of its own, then timed again on a fresh one)
+    and serial on another instance, all equal; cache-hit latency; 8
+    threads on one cold query; a dry-run cell through ``handle``; the
+    design fallback by hybrid and by warm start on a narrowed catalog."""
+    import threading
+    qs = serve_queries(api)
+    # the process's first queries (allocator, FFT plans) on an instance of
+    # their own; then each instance starts with empty caches and memos
+    first, first_s = timed_run(
+        torch, lambda: api.PowerComplianceService().query_many(qs))
+    co = api.PowerComplianceService()
+    answers, co_s = timed_run(torch, lambda: co.query_many(qs))
+    if co.stats["study_runs"] != 1 or answers != first:
+        raise AssertionError(f"[serve] query_many ran {co.stats['study_runs']}"
+                             " Study runs, or answered otherwise the second "
+                             "time")
+    serial_svc = api.PowerComplianceService()
+    serial, serial_s = timed_run(torch, lambda: [
+        serial_svc.query(q["workload"], q["n_chips"], q["spec"],
+                         workload_name=q["workload_name"]) for q in qs])
+    if serial != answers:
+        raise AssertionError("[serve] coalesced answers differ from serial "
+                             "ones")
+    q0 = qs[0]
+    hits = []
+    for _ in range(CACHE_HIT_REPS):
+        t0 = time.perf_counter()
+        co.query(q0["workload"], q0["n_chips"], q0["spec"],
+                 workload_name=q0["workload_name"])
+        hits.append(time.perf_counter() - t0)
+    sf = api.PowerComplianceService()
+    got, errs = [None] * SF_THREADS, []
+
+    def ask(i):
+        try:
+            got[i] = sf.query(q0["workload"], q0["n_chips"], q0["spec"],
+                              workload_name=q0["workload_name"])
+        except Exception as e:      # raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=ask, args=(i,))
+               for i in range(SF_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    sf_s = time.perf_counter() - t0
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"[serve] single-flight threads failed: {errs}")
+    if sf.stats["study_runs"] != 1 or any(g != answers[0] for g in got):
+        raise AssertionError(f"[serve] {SF_THREADS} threads ran "
+                             f"{sf.stats['study_runs']} Study runs or "
+                             "answered otherwise")
+    cell = co.handle(cell_request(api))
+    if "error" in cell or cell["workload"] != "phase20-dense":
+        raise AssertionError(f"[serve] the cell request failed: {cell}")
+    name, n_chips, spec = FALLBACK_QUERY
+    tl = study_timelines(api)[name]
+    fallback = {}
+    for method, kw in (("hybrid", {}), ("warmstart", {"warmstart": pred})):
+        svc = api.PowerComplianceService(design_method=method, **kw,
+                                         **NARROW_CATALOG)
+        ans, wall = timed_run(torch, lambda: svc.query(
+            tl, n_chips, spec, workload_name=name))
+        d = ans["designed"]
+        if d is None or ans["recommended"] != d["config"]:
+            raise AssertionError(f"[serve] the {method} fallback designed "
+                                 f"nothing: {ans}")
+        fallback[method] = {"wall_s": wall, "mpf_frac": d["mpf_frac"],
+                            "battery_capacity_j": d["battery_capacity_j"],
+                            "energy_overhead": d["energy_overhead"],
+                            "warmstart_path": d.get("warmstart_path")}
+    verdicts = collections.Counter(
+        (a["spec"], a["recommended"]) for a in answers)
+    res = {"queries": len(qs), "rows": sum(a["n_scenarios"] for a in answers),
+           "first_coalesced_s": first_s, "coalesced_s": co_s,
+           "serial_s": serial_s,
+           "cache_hit_p50_us": pctl(hits, 50) * 1e6,
+           "cache_hit_p99_us": pctl(hits, 99) * 1e6,
+           "singleflight": {"threads": SF_THREADS, "wall_s": sf_s,
+                            "study_runs": sf.stats["study_runs"],
+                            "waits": sf.stats["singleflight_waits"]},
+           "cell": {k: cell[k] for k in ("workload", "compliant",
+                                         "recommended", "mean_mw",
+                                         "raw_swing_mw")},
+           "fallback": fallback,
+           "recommended": {f"{s}:{r}": c for (s, r), c in verdicts.items()}}
+    log("[serve] (c) service: " + json.dumps(res))
+    return answers, res
+
+
+def service_cpu(api, answers):
+    """(c) on the CPU: two of the 16 queries, held against the card's."""
+    qs = {(q["workload_name"], q["n_chips"], q["spec"]): i
+          for i, q in enumerate(serve_queries(api))}
+    tls = study_timelines(api)
+    svc = api.PowerComplianceService(device="cpu")
+    worst, t0 = 0.0, time.perf_counter()
+    for name, n_chips, spec in CPU_QUERIES:
+        got = svc.query(tls[name], n_chips, spec, workload_name=name)
+        worst = max(worst, same_answer(got, answers[qs[name, n_chips, spec]],
+                                       f"{name} {n_chips} {spec}"))
+    res = {"queries": len(CPU_QUERIES), "wall_s": time.perf_counter() - t0,
+           "worst_rel": worst}
+    log("[serve] (c) CPU re-run: " + json.dumps(res))
+    return res
+
+
+def timeline_key(text):
+    """A timeline's columns but the latency (a wall-clock reading) and the
+    formatted amplitude and margin (held by value, within STUDY_RTOL)."""
+    return [ln.split()[:3] + ln.split()[5:6] + ln.split()[7:]
+            for ln in text.splitlines()]
+
+
+def watch_kwargs():
+    from repro_torch import control
+    return dict(replay=control.synthesize_ramp(dt=CONTROL_DT),
+                n_chips=CONTROL_CHIPS, spec="moderate")
+
+
+def watch_card(torch, api, pred):
+    """(d) on the card: ``watch`` on the canonical ramp with the
+    predictor as the redesign rung's warm start."""
+    svc = api.PowerComplianceService(design_method="warmstart",
+                                     warmstart=pred)
+    card, wall = timed_run(torch, lambda: svc.watch(**watch_kwargs()))
+    log(f"[serve] (d) watch timeline:\n{card['timeline']}")
+    s = card["summary"]
+    if s["n_dispatches"] < 1:
+        raise AssertionError("[serve] watch dispatched nothing")
+    return card, {"loop_wall_s": wall, "n_ticks": s["n_ticks"],
+                  "n_dispatches": s["n_dispatches"],
+                  "records": len(card["records"]),
+                  "detection_lead_s": s["detection_lead_s"]}
+
+
+def watch_cpu(api, pred_cpu, card):
+    """(d) on the CPU: the same call gives the same records and
+    timeline (but the latency column, a wall-clock reading)."""
+    svc = api.PowerComplianceService(design_method="warmstart",
+                                     warmstart=pred_cpu, device="cpu")
+    t0 = time.perf_counter()
+    cpu = svc.watch(**watch_kwargs())
+    secs = time.perf_counter() - t0
+    key = ("tick", "action", "level", "bin_hz")
+    if ([tuple(r[k] for k in key) for r in cpu["records"]]
+            != [tuple(r[k] for k in key) for r in card["records"]]
+            or timeline_key(cpu["timeline"])
+            != timeline_key(card["timeline"])):
+        raise AssertionError(f"[serve] watch: CPU and card timelines "
+                             f"differ\n{cpu['timeline']}")
+    # amplitudes and margins within STUDY_RTOL of themselves, or of the
+    # replay's amplitude scale where they are rounding noise (a bin the
+    # stagger rung has emptied)
+    replay = watch_kwargs()["replay"]
+    scale = float(abs(replay.astype("float64") - replay.mean()).max())
+    worst, seed_rel = 0.0, 0.0
+    for c, g in zip(cpu["records"], card["records"]):
+        for k in ("amplitude_w", "margin_w"):
+            ref = max(abs(g[k]), scale)
+            if abs(c[k] - g[k]) > STUDY_RTOL * ref:
+                raise AssertionError(f"[serve] watch: {k} {c[k]} vs {g[k]} "
+                                     f"at tick {c['tick']}")
+            worst = max(worst, abs(c[k] - g[k]) / ref)
+        if c["action"] == "dispatch:redesign":
+            # the warm start's rungs are its predicted seed (MPF) and the
+            # seed scaled (capacity): one float32 forward on each device,
+            # within PREDICT_RTOL
+            cp, gp = c["params"], g["params"]
+            for k in ("mpf_frac", "battery_capacity_j"):
+                gap = abs(cp[k] - gp[k]) / max(abs(gp[k]), 1e-30)
+                if gap > PREDICT_RTOL:
+                    raise AssertionError(f"[serve] watch: redesign at tick "
+                                         f"{c['tick']}: {cp} vs {gp}")
+                seed_rel = max(seed_rel, gap)
+            if abs(cp["energy_overhead"] - gp["energy_overhead"]) > 1e-6:
+                raise AssertionError(f"[serve] watch: redesign at tick "
+                                     f"{c['tick']}: {cp} vs {gp}")
+    res = {"cpu_wall_s": secs, "worst_rel": worst,
+           "redesign_seed_rel": seed_rel}
+    log("[serve] (d) watch on the CPU: " + json.dumps(res))
+    return res
+
+
+def cli_start():
+    """(e): both CLI commands as subprocesses of their own, started
+    together."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    return [(tag, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.serve.power", *argv], cwd=HERE,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for tag, argv in SERVE_CLI]
+
+
+def cli_finish(procs, timeout=300):
+    res = {}
+    try:
+        for tag, p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"[serve] CLI {tag} exited "
+                                     f"{p.returncode}:\n{err[-2000:]}")
+            answer = json.loads(out)
+            res[tag] = {k: answer[k] for k in ("spec", "n_chips")}
+            res[tag].update({k: answer[k] for k in ("compliant",
+                                                    "recommended")
+                             if k in answer})
+            if "summary" in answer:
+                res[tag]["n_ticks"] = answer["summary"]["n_ticks"]
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log("[serve] (e) CLI: " + json.dumps(res))
+    return res
+
+
+def compliance_phase(torch, api, build):
+    """Phase 20: the compliance service at its own full width, after
+    ``benchmarks/serve_bench.py``: (a) the warm-start predictor trained on
+    the card, (b) the design problem by hybrid and warm start, (c) the
+    service's 16 queries coalesced and serial, its cache, single-flight, a
+    dry-run cell and the design fallback, (d) ``watch`` on the ramp, (e)
+    both CLI commands (subprocesses, started once the card's parts are
+    done), then (c) and (d) on the CPU.  Launch counts from 0 before each
+    part and read after it; the CPU's parts launch nothing."""
+    t20 = time.perf_counter()
+    parts = {}
+
+    def counted(tag, fn):
+        build.reset_launch_counts()
+        out = fn()
+        parts[tag] = build.launch_counts()
+        return out
+
+    pred, pred_cpu, a = counted("predictor", lambda: predictor_part(torch,
+                                                                    api))
+    b = counted("design", lambda: design_part(torch, api, pred))
+    answers, c = counted("service", lambda: service_part(torch, api, pred))
+    card, d = counted("watch", lambda: watch_card(torch, api, pred))
+    procs = cli_start()
+    try:
+        c["cpu"], d["cpu"] = counted("cpu", lambda: (
+            service_cpu(api, answers), watch_cpu(api, pred_cpu, card)))
+    finally:
+        e = cli_finish(procs)
+    for tag, n in parts.items():
+        log(f"[serve] launches in {tag}: " + json.dumps(n))
+    counts = {k: sum(p[k] for p in parts.values()) for k in parts["cpu"]}
+    missing = [nm for nm in SERVE_KERNELS if counts[nm] <= 0]
+    if missing or counts.get("flash_fwd") or any(parts["cpu"].values()):
+        raise AssertionError(f"[serve] launches: {missing} not launched, F "
+                             f"{counts.get('flash_fwd')}, on the CPU's parts "
+                             f"{parts['cpu']}")
+    return {"launches": counts, "launches_by_part": parts, "predictor": a,
+            "design": b, "service": c, "watch": d, "cli": e,
+            "phase_s": time.perf_counter() - t20}
+
+
+# ---------------------------------------------------------------------------
 # phase 15: kernels G, H and I through the reference's own entry points
 # ---------------------------------------------------------------------------
 
@@ -4677,8 +5165,15 @@ def main() -> int:
     backstop = backstop_gradient_phase(torch, api, build)
     late["backstop_gradient"] = backstop["launches"]
     log(f"phase 19: {backstop['phase_s']:.1f} s")
+    # 20. the compliance service, the warm-start predictor and the CLI
+    serve = compliance_phase(torch, api, build)
+    late["compliance_service"] = serve["launches"]
+    log("serve: " + json.dumps({k: v for k, v in serve.items()
+                                if k != "launches"}))
+    log(f"phase 20: {serve['phase_s']:.1f} s")
     for k in kernels:
-        for p in ("serial_reference", "design", "backstop_gradient"):
+        for p in ("serial_reference", "design", "backstop_gradient",
+                  "compliance_service"):
             k["launches_by_path"][p] = late[p][COUNT_NAME[k["name"]]]
 
     # 15. kernels G, H and I through the reference's own entry points:
@@ -4715,12 +5210,14 @@ def main() -> int:
     kernels.extend(late_rows)
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
-    # kernels J and K: launched on the design path and on no other
+    # kernels J and K: launched on the design paths (phase 18's and the
+    # compliance service's fallback and predictor) and on no other
     paths = dict(late, entry_points=entry_counts)
     off_design = {p: {nm: c[nm] for nm in RELAXED if c[nm]}
-                  for p, c in paths.items() if p != "design"}
+                  for p, c in paths.items()
+                  if p not in ("design", "compliance_service")}
     if any(off_design.values()):
-        raise AssertionError(f"kernel J or K launched off the design path: "
+        raise AssertionError(f"kernel J or K launched off the design paths: "
                              f"{off_design}")
     for r in jk_rows(design, paths):
         log(f"{r['name']}: {r['ms']:.4g} ms (device {r['device_ms']}, plain "
@@ -4745,7 +5242,8 @@ def main() -> int:
         + json.dumps(a_row["launches_by_path"]))
     kernels.append(a_row)
 
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s, "
+        f"{time.perf_counter() - SCRIPT_T0:.1f} s since the script started")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

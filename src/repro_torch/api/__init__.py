@@ -21,6 +21,9 @@ query), mirroring ``repro.api``.
                        rack_mitigation=api.RackBattery(4e7, 8e6, 8e6))
     sol = api.design(api.example_specs(5.0)["tight"], one.dc_raw, 0.001,
                      8192)                      # hybrid, as in repro
+
+    service = api.PowerComplianceService()    # the serve path, on the card
+    service.query(api.synthetic_timeline(2.0, 0.25), 512, "moderate")
 """
 from repro_torch.control import (ControlLog, ControlLoop, GridController,
                                  InterventionLadder, OnlineGoertzelDetector,
@@ -28,7 +31,9 @@ from repro_torch.control import (ControlLog, ControlLoop, GridController,
 from repro_torch.core.engine import (StreamChunk, design, design_gradient,
                                      design_grid, stream_batches)
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
-from repro_torch.core.phases import IterationTimeline, Phase, synthetic_timeline
+from repro_torch.core.phases import (IterationTimeline, Phase,
+                                     from_dryrun_cell, load_cell,
+                                     synthetic_timeline)
 from repro_torch.core.smoothing import (CombinedMitigation, Firefly,
                                         GpuPowerSmoothing, RackBattery, Stack,
                                         TelemetryBackstop, design_mitigation)
@@ -39,16 +44,22 @@ from repro_torch.core.study import (MitigationConfig, Scenario, Study,
                                     StudyResult)
 from repro_torch.core.telemetry import TelemetrySource
 from repro_torch.core.waveform import WaveformConfig
+from repro_torch.serve.power import PowerComplianceService, default_catalog
+from repro_torch.serve.warmstart import WarmStartPredictor, train_warmstart
 
 __all__ = [
     "Study", "StudyResult", "MitigationConfig", "Scenario",
     "stream_batches", "StreamChunk", "design", "design_grid",
     "design_gradient", "simulate", "simulate_jit",
+    # the serve path
+    "PowerComplianceService", "default_catalog",
+    "WarmStartPredictor", "train_warmstart",
     # the grid-interactive control plane
     "ControlLoop", "ControlLog", "GridController", "InterventionLadder",
     "OnlineGoertzelDetector", "ReplaySource", "synthesize_ramp",
     "watch_trace",
-    "IterationTimeline", "Phase", "synthetic_timeline", "WaveformConfig",
+    "IterationTimeline", "Phase", "synthetic_timeline", "from_dryrun_cell",
+    "load_cell", "WaveformConfig",
     "TelemetrySource",
     "Hardware", "DEFAULT_HW",
     "GpuPowerSmoothing", "Firefly", "RackBattery", "TelemetryBackstop",

@@ -20,6 +20,10 @@ port's, so a stream started in the reference resumes in the port.
 ``params_from_reference(tree)`` carries a model's params across: the
 reference's params pytree, its leaves as numpy arrays, becomes the
 port's dict of tensors with the same structure and values.
+
+``predictor_from_reference(pred)`` carries a trained warm-start
+predictor across: the reference's ``params``, ``norm`` and ``meta`` become
+the port's ``WarmStartPredictor``.
 """
 from __future__ import annotations
 
@@ -179,3 +183,20 @@ def params_from_reference(tree, device=None):
         return _leaf_tensor(t, dev)
 
     return walk(tree)
+
+
+def predictor_from_reference(pred, device=None):
+    """The port's ``WarmStartPredictor`` from the reference's: ``pred``
+    has its ``params`` and ``norm`` trees (leaves as numpy arrays, or
+    anything ``np.asarray`` reads) and its ``meta`` dict.  ``device=None``
+    means the card."""
+    from repro_torch.serve.warmstart import WarmStartPredictor
+
+    def host(t):
+        if isinstance(t, dict):
+            return {k: host(v) for k, v in t.items()}
+        return np.asarray(t)
+
+    return WarmStartPredictor(
+        params_from_reference(host(pred.params), device),
+        params_from_reference(host(pred.norm), device), dict(pred.meta))

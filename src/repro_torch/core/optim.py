@@ -3,18 +3,35 @@ of the gradient design (``core/engine.py`` ``design_gradient``).
 
 Functional, like the reference's ``core/optim.py``: every call returns new
 tensors, and the update math runs in float32 with the results cast back to
-the parameter dtypes.  A tree's leaves may carry a leading batch axis of
-independent problems (the design's starts); ``global_norm`` and
+the parameter dtypes.  A tree is a dict whose values are tensors or
+nested dicts (the warm-start predictor's params, ``serve/warmstart.py``).
+A tree's leaves may carry a leading batch axis of independent problems (the design's starts); ``global_norm`` and
 ``clip_by_global_norm`` then reduce over every axis but ``batch_dims``
 leading ones, so one start's norm never sees another's gradient.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 F32 = torch.float32
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict, in its order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` on each leaf of ``tree`` and the leaves of the same place in
+    ``rest`` (trees of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def global_norm(tree: Dict[str, torch.Tensor], batch_dims: int = 0
@@ -22,7 +39,7 @@ def global_norm(tree: Dict[str, torch.Tensor], batch_dims: int = 0
     """sqrt of the sum of squares of every leaf, per leading batch index
     (a scalar with ``batch_dims=0``)."""
     total = None
-    for x in tree.values():
+    for x in tree_leaves(tree):
         sq = torch.square(x.to(F32))
         sq = sq.reshape(*sq.shape[:batch_dims], -1).sum(-1)
         total = sq if total is None else total + sq
@@ -42,7 +59,7 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
         s = scale.reshape(*scale.shape, *([1] * (x.dim() - scale.dim())))
         return (x.to(F32) * s).to(x.dtype)
 
-    return {k: scaled(x) for k, x in grads.items()}, g
+    return tree_map(scaled, grads), g
 
 
 def adam_leaf(p, g, m, v, count_f32, *, lr, b1, b2, eps,
@@ -64,10 +81,10 @@ def adam_leaf(p, g, m, v, count_f32, *, lr, b1, b2, eps,
 
 def adam_init(params: Dict[str, torch.Tensor]) -> Dict:
     """State for ``adam_update``: float32 moments and a step count."""
-    return {"m": {k: torch.zeros_like(p, dtype=F32) for k, p in
-                  params.items()},
-            "v": {k: torch.zeros_like(p, dtype=F32) for k, p in
-                  params.items()},
+    def zeros(p):
+        return torch.zeros_like(p, dtype=F32)
+
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": 0}
 
 
@@ -78,9 +95,9 @@ def adam_update(params: Dict[str, torch.Tensor],
     """One Adam step on every leaf: ``(new_params, new_state)``."""
     count = state["count"] + 1
     c = torch.tensor(float(count), dtype=F32)
-    new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        new_p[k], new_m[k], new_v[k] = adam_leaf(
-            p, grads[k], state["m"][k], state["v"][k], c.to(p.device),
-            lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    out = tree_map(lambda p, g, m, v: adam_leaf(
+        p, g, m, v, c.to(p.device), lr=lr, b1=b1, b2=b2, eps=eps,
+        weight_decay=weight_decay), params, grads, state["m"], state["v"])
+    new_p, new_m, new_v = (tree_map(lambda t, i=i: t[i], out)
+                           for i in range(3))
     return new_p, {"m": new_m, "v": new_v, "count": count}

@@ -4,12 +4,13 @@ A timeline is a sequence of ``Phase(name, duration_s, mode)``, where
 ``mode`` is the power mode of the chip during that phase;
 ``core/waveform.py`` maps modes to watts.  ``from_dryrun_cell`` builds a
 timeline from a dry-run artifact dict (per-chip FLOPs, bytes and
-collective bytes of one step); reading such a file (``load_cell``) is not
-ported yet.
+collective bytes of one step); ``load_cell`` reads such a file.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Dict, List, Sequence
 
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
@@ -83,6 +84,17 @@ def checkpoint_phase(cell: Dict, hw: Hardware = DEFAULT_HW,
     """Periodic checkpoint write: chips near-idle while state drains."""
     state_bytes = cell.get("memory", {}).get("state_bytes_per_device", 8e9)
     return Phase("checkpoint", state_bytes / storage_bw_per_chip, CKPT)
+
+
+def load_cell(path_or_dir: str, arch: str = "", shape: str = "",
+              mesh: str = "single") -> Dict:
+    """A dry-run cell as a dict: the JSON file ``path_or_dir``, or
+    ``<arch>__<shape>__<mesh>.json`` inside it when it is a directory."""
+    p = path_or_dir
+    if os.path.isdir(path_or_dir):
+        p = os.path.join(path_or_dir, f"{arch}__{shape}__{mesh}.json")
+    with open(p) as f:
+        return json.load(f)
 
 
 def synthetic_timeline(period_s: float = 1.0, comm_frac: float = 0.25,

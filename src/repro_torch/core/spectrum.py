@@ -19,6 +19,41 @@ import torch
 GRID_CRITICAL_HZ = (0.25, 0.5, 1.0, 2.0, 3.0, 5.0, 9.0)
 
 
+def goertzel_bin_amplitudes(x: np.ndarray, dt: float,
+                            freqs: Tuple[float, ...] = GRID_CRITICAL_HZ
+                            ) -> np.ndarray:
+    """Single-bin DFT amplitudes (watts) of the AC component of one trace
+    at ``freqs``, in float64 numpy: the sliding monitor's Goertzel sums
+    collapsed to one window over the whole trace, with no Hann window (a
+    sine of amplitude A at a bin's frequency reports about A).  The
+    warm-start predictor's spectral fingerprint (``serve/warmstart.py``);
+    the reference's numpy function, operation for operation."""
+    x = np.asarray(x, np.float64)
+    n = len(x)
+    if n == 0:
+        return np.zeros(len(freqs))
+    xac = x - x.mean()
+    t = np.arange(n) * dt
+    phases = np.exp(-2j * np.pi * np.asarray(freqs)[:, None] * t[None, :])
+    return np.abs(phases @ xac) * 2.0 / n
+
+
+def goertzel_bin_amplitudes_torch(x: torch.Tensor, dt: float,
+                                  freqs: Tuple[float, ...] = GRID_CRITICAL_HZ
+                                  ) -> torch.Tensor:
+    """``goertzel_bin_amplitudes`` in float32 on ``x``'s device, for one
+    trace ``[n]``: the phase table is built on the host in float64 and
+    cast, as in the reference's jnp mirror."""
+    x = torch.as_tensor(x).to(torch.float32)
+    n = x.shape[-1]
+    xac = x - x.mean()
+    t = np.arange(n) * dt
+    ph = np.exp(-2j * np.pi * np.asarray(freqs)[:, None] * t[None, :])
+    re = torch.as_tensor(ph.real, dtype=torch.float32, device=x.device) @ xac
+    im = torch.as_tensor(ph.imag, dtype=torch.float32, device=x.device) @ xac
+    return torch.sqrt(re * re + im * im) * 2.0 / n
+
+
 def spectrum(x: torch.Tensor, dt: float) -> Tuple[np.ndarray, torch.Tensor]:
     """One-sided amplitude spectrum ``[B, n//2 + 1]`` of the AC component,
     with its bin frequencies (host numpy)."""

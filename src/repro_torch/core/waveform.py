@@ -8,6 +8,9 @@ edges at scale, they do not remove the swing: the job is bulk-synchronous).
 The timeline -> samples expansion (``phase_levels``) and the jitter draw
 (``jitter_shifts``) fix array shapes and stay in numpy; everything after
 the level array works on ``[..., n]`` tensors, batched over leading rows.
+``chip_waveform_host`` and ``aggregate_host`` keep the reference's
+float64 numpy versions of the two, for the compliance service's host-side
+sizing.
 """
 from __future__ import annotations
 
@@ -144,6 +147,46 @@ def swing_stats(w: torch.Tensor, n_valid: Optional[torch.Tensor] = None
         "mean_w": mean.to(w.dtype),
         "swing_frac": (peak - trough) / torch.clamp(peak, min=1e-9),
     }
+
+
+def chip_waveform_host(tl: IterationTimeline, cfg: WaveformConfig,
+                       hw: Hardware = DEFAULT_HW) -> np.ndarray:
+    """One chip's power trace ``[n]`` over ``cfg.steps`` iterations in
+    float64 numpy, the reference's host function operation for operation:
+    the compliance service sizes its catalog and specs from this trace's
+    aggregate, so its swing and mean are the reference's bits."""
+    x = phase_levels(tl, cfg, hw)
+    if cfg.edp_spikes:
+        x = _add_edp_spikes_host(x, cfg.dt, hw)
+    if cfg.include_host:
+        x = x + hw.server.overhead_per_chip_w()
+    return x
+
+
+def _add_edp_spikes_host(x: np.ndarray, dt: float, hw: Hardware
+                         ) -> np.ndarray:
+    """EDP overshoot on the host, one rising edge at a time."""
+    out = x.copy()
+    w = max(int(hw.chip.edp_window_s / dt), 1)
+    rises = np.where(np.diff(x) > 0.25 * hw.chip.tdp_w)[0]
+    for r in rises:
+        hi = min(r + 1 + w, len(out))
+        out[r + 1:hi] = np.maximum(out[r + 1:hi],
+                                   x[r + 1] * hw.chip.edp_factor)
+    return out
+
+
+def aggregate_host(chip_wave: np.ndarray, n_chips: int, cfg: WaveformConfig,
+                   hw: Hardware = DEFAULT_HW, *, seed: int = 0,
+                   sample_chips: int = 64) -> np.ndarray:
+    """The datacenter waveform of ``chip_waveform_host``'s trace in
+    float64 numpy: the mean of ``sample_chips`` edge-padded jittered
+    replicas, scaled to the fleet (the reference's host ``aggregate``)."""
+    shifts = jitter_shifts(cfg, seed, sample_chips)
+    n = len(chip_wave)
+    idx = np.clip(np.arange(n)[None, :] - shifts[:, None], 0, n - 1)
+    total = chip_wave[idx].mean(axis=0) * n_chips
+    return total * (1.0 + hw.topo.distribution_loss)
 
 
 def job_waveform(tl: IterationTimeline, n_chips: int,

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -31,6 +32,16 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # every CudaKernel, so a caller can build them all at once and read or
 # reset their launch counts
 KERNELS: List["CudaKernel"] = []
+
+# one lock a library, held across its first build and load: two threads
+# that reach a cold kernel together build it once, and the second waits
+_LIBRARY_LOCKS: Dict[Path, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
+
+
+def _library_lock(path: Path) -> threading.Lock:
+    with _LOCKS_LOCK:
+        return _LIBRARY_LOCKS.setdefault(path, threading.Lock())
 
 
 def nvcc_path() -> str:
@@ -49,7 +60,8 @@ class CudaKernel:
     ``launch(*args)`` builds and loads the library on first use, calls the
     entry (which enqueues the kernel on the given stream and returns
     ``cudaGetLastError()``), raises if that is not 0, and only then adds
-    one to ``launches``.  ``argtypes`` are ctypes types; pass pointers and
+    one to ``launches``.  The first build and load hold the library's
+    lock, and the count its own, so threads may launch at once.  ``argtypes`` are ctypes types; pass pointers and
     the stream as ``ctypes.c_void_p`` so they are not cut to 32 bits.
     """
 
@@ -61,6 +73,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.extra_flags = tuple(extra_flags)
         self.launches = 0
+        self._count_lock = threading.Lock()
         self.build_seconds: Optional[float] = None
         self.ptxas_log = ""
         self._fn = None
@@ -84,13 +97,19 @@ class CudaKernel:
         h.update(" ".join(self._flags()).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:12]}.so"
 
+    def _tmp_path(self) -> Path:
+        """Where ``nvcc`` writes before the rename: one name a process and
+        a thread."""
+        return self.library_path().with_suffix(
+            f".{os.getpid()}-{threading.get_ident()}.tmp")
+
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start ``nvcc`` for this source unless its library exists;
         returns the running process (``finish_build`` waits for it)."""
         if self.library_path().exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = self.library_path().with_suffix(f".{os.getpid()}.tmp")
+        tmp = self._tmp_path()
         self._t0 = time.perf_counter()
         return subprocess.Popen(
             [nvcc_path(), *self._flags(), "-o", str(tmp), str(self.source)],
@@ -101,7 +120,7 @@ class CudaKernel:
             return
         out, _ = proc.communicate()
         self.ptxas_log = out
-        tmp = self.library_path().with_suffix(f".{os.getpid()}.tmp")
+        tmp = self._tmp_path()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.source}:\n{out}")
         os.replace(tmp, self.library_path())
@@ -109,12 +128,14 @@ class CudaKernel:
 
     def _load(self):
         if self._fn is None:
-            self.finish_build(self.start_build())
-            lib = ctypes.CDLL(str(self.library_path()))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            with _library_lock(self.library_path()):
+                if self._fn is None:
+                    self.finish_build(self.start_build())
+                    lib = ctypes.CDLL(str(self.library_path()))
+                    fn = getattr(lib, self.symbol)
+                    fn.argtypes = self.argtypes
+                    fn.restype = ctypes.c_int
+                    self._fn = fn
         return self._fn
 
     def call(self, symbol: str, argtypes: Sequence, *args) -> int:
@@ -132,7 +153,8 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(
                 f"{self.symbol}: CUDA error {err} at launch")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def build_all() -> Dict[str, float]:

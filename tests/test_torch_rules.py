@@ -335,3 +335,65 @@ def test_convert_builds_a_stack_and_reads_numpy_fields():
     assert bs.critical_hz == (0.5, 9.0) and bs.amp_threshold_w == 1e5
     with pytest.raises(ValueError, match="unknown kind"):
         from_reference_fields("ScenarioShardPlan", {})
+
+
+def test_rules_cover_the_serve_slice():
+    """The import rule's walk reaches the compliance service, the warm
+    start and the regression step."""
+    files = _port_files()
+    for module in ("serve/power.py", "serve/warmstart.py",
+                   "train/__init__.py", "train/trainer.py", "core/optim.py",
+                   "core/phases.py", "core/spectrum.py", "convert.py"):
+        assert ROOT / "src" / "repro_torch" / module in files
+
+
+def test_api_covers_the_reference_api_but_sharding():
+    """``repro_torch.api`` exports every name of ``repro.api`` except the
+    scenario-sharding pair, which comes with ``parallel/``."""
+    from repro import api as ref_api
+    missing = set(ref_api.__all__) - set(api.__all__)
+    assert missing == {"ScenarioShardPlan", "scenario_plan"}
+    assert all(hasattr(api, name) for name in api.__all__)
+
+
+def _serve_entry(name, device, tmp_path):
+    """Call one entry point of the serve slice at a tiny size."""
+    from repro_torch.serve import power, warmstart
+    from repro_torch.train import make_regression_train_step
+    x = np.random.default_rng(0).normal(
+        size=(4, warmstart.N_FEATURES)).astype(np.float32)
+    if name == "PowerComplianceService":
+        return power.PowerComplianceService(device=device)
+    if name == "train_warmstart":
+        return warmstart.train_warmstart(x, np.ones((4, 3), np.float32),
+                                         epochs=1, device=device)
+    if name == "WarmStartPredictor.load":
+        ckpt = tmp_path / "ws"
+        if not ckpt.exists():
+            warmstart.train_warmstart(x, np.ones((4, 3), np.float32),
+                                      epochs=1, device="cpu")[0].save(
+                str(ckpt))
+        return warmstart.WarmStartPredictor.load(str(ckpt), device=device)
+    if name == "make_regression_train_step":
+        return make_regression_train_step(warmstart.warmstart_forward,
+                                          device=device)
+    argv = {"cli": ["--n-chips", "8", "--period-s", "0.1"],
+            "cli watch": ["watch", "--max-ticks", "1", "--dt", "0.01"]}[name]
+    if device is not None:
+        argv += ["--device", device]
+    return power.main(argv) or True
+
+
+@pytest.mark.parametrize("name", ["PowerComplianceService", "train_warmstart",
+                                  "WarmStartPredictor.load",
+                                  "make_regression_train_step", "cli",
+                                  "cli watch"])
+def test_serve_entry_points_without_a_card_raise(monkeypatch, tmp_path,
+                                                 capsys, name):
+    """``device=None`` (and the CLI without ``--device``) means the card:
+    without CUDA each entry point of the serve slice raises, and runs
+    with ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _serve_entry(name, None, tmp_path)
+    assert _serve_entry(name, "cpu", tmp_path) is not None

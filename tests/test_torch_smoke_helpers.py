@@ -751,3 +751,40 @@ def test_jk_rows_carry_every_key_of_the_kernels_line():
     assert rows[1]["card_check"]["grad_abs"] == 2e-3
     assert rows[1]["plain_ms"] == 300.0
     assert rows[1]["plain_cpu_ms"] == {"first": 3e4, "last": 2e4}
+
+
+def _answer(**kw):
+    a = {"compliant": True, "recommended": "bat1x", "n_configs": 20,
+         "mean_mw": 1.6368, "raw_swing_mw": 1.3199,
+         "passing": [{"config": "bat1x", "energy_overhead": 0.004,
+                      "swing_mitigated_mw": 0.01}]}
+    a.update(kw)
+    return a
+
+
+def test_phase20_same_answer_holds_verdicts_exactly_and_numbers_by_rtol():
+    ref = _answer()
+    close = _answer(passing=[{"config": "bat1x",
+                              "energy_overhead": 0.004 * (1 + 1e-5),
+                              "swing_mitigated_mw": 0.01 * (1 - 1e-5)}])
+    assert chip_smoke.same_answer(close, ref, "t") == pytest.approx(
+        1e-5, rel=1e-3)
+    for bad in (_answer(recommended="mpf50"), _answer(compliant=False),
+                _answer(passing=[{"config": "bat1x",
+                                  "energy_overhead": 0.004,
+                                  "swing_mitigated_mw": 0.0101}]),
+                _answer(passing=[])):
+        with pytest.raises(AssertionError):
+            chip_smoke.same_answer(bad, ref, "t")
+
+
+def test_phase20_timeline_key_drops_latency_amplitude_and_margin():
+    a = (" tick     t[s]  bin[Hz]       amp[W]    margin[W] lvl  lat[ms]  "
+         "action\n   42    21.50        9      4.5e+07   -2.503e+06   1   "
+         "104.11  dispatch:redesign")
+    b = a.replace("104.11", "955.24").replace("4.5e+07", "4.501e+07")
+    assert chip_smoke.timeline_key(a) == chip_smoke.timeline_key(b)
+    assert chip_smoke.timeline_key(a)[1] == ["42", "21.50", "9", "1",
+                                             "dispatch:redesign"]
+    assert chip_smoke.timeline_key(a) != chip_smoke.timeline_key(
+        a.replace("  1   104", "  2   104"))
