@@ -54,7 +54,9 @@ a restore that computes nothing and an extension by one configuration
 that computes only its rows; checks that two keys draw two noises and
 ``key=None`` one; and re-runs 16 rows (noisy ones among them) on the CPU
 at phase 6's tolerances, counting where card and CPU noise differ.
-Phases 17 and 18 run after 16 and before 15.  Phase 17, the serial
+Phase 17 runs after 16 and before 15; phase 18 runs its card's part
+after phase 6, and its CPU workers run on beside every later phase and
+are waited for and gated after phase 15.  Phase 17, the serial
 reference: phase 5's Study again with ``keep_waveforms=True`` (its
 records equal to phase 5's), ``simulate`` and ``simulate_jit`` on eight
 of its rows against each other (bit for bit) and against the kept
@@ -102,6 +104,22 @@ and timeline.  (e) ``python -m repro_torch.serve.power`` and its
 ``watch`` subcommand as subprocesses, each exiting 0 with JSON.  The
 phase must launch B, C, J, K, A, D and E (and no G, H, I or F); the
 CPU's parts launch nothing.
+Phase 21, after 20: the Study on the scenario mesh (``repro_torch.
+parallel``).  (a) How a batched ``rfft`` and a float32 row sum treat one
+row at six places of a 32-row batch (measured: what the analysis avoids),
+then one row analysed at those places at five lengths (odd and even),
+equal bit for bit; phase 5's Study with
+``plan=scenario_plan()`` and with ``shard_devices=True``, records equal
+to phase 5's.  (b) One ``launch_workers`` of two processes
+(``--mesh-worker``) that share the card through gloo, each running phase
+5's grid with ``stream=64``, phase 16's keyed grid with ``stream=16``
+and again resumed from a 112-row prefix this process checkpointed, and
+one int8 ``compressed_allreduce_mean``: each grid's records equal to
+this process's, ``on_chunk`` on process 0 only and ending at ``done ==
+total``, B, C, D and A launched in each worker and no other kernel, the
+all-reduce equal to the mean of both ranks' dequantized payloads.  (c)
+``python -m repro_torch.parallel.distributed --smoke`` as a subprocess
+beside (b), printing its OK line.
 It prints:
 
   * the card's name and power limit (``nvidia-smi``);
@@ -159,6 +177,11 @@ It prints:
     tier; the coalesced and serial walls, cache-hit p50 and p99, the
     single-flight and fallback results; the watch's action timeline and
     loop wall; the CLI's answers; launches by part;
+  * for phase 21: the distinct results of one row at six places under a
+    batched ``rfft`` and a float32 sum, each step's wall, each worker's
+    backend, start-up
+    seconds, walls, merges and their seconds, all-reduce seconds and
+    launches, and the smoke's OK line;
   * one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again,
     and, last, ``{"ok": true, "device": {...}}``.
 
@@ -182,9 +205,17 @@ the design's shapes with the sha256 of each forward's outputs (saved
 under ``chiprun_out/ad_jk/``) and A's adjoint where the tree has it (run
 this script from the root of each tree; it prints one ``{"ad": ...}``
 line).
+
+    python3 chip_smoke.py --study-time
+
+times phase 5's warm Study 12 times, with its device busy time and the
+host seconds of its engine functions under ``cProfile``, to compare two
+trees on one card (run this script from the root of each, parent,
+change, change, parent; it prints one ``{"study_time": ...}`` line).
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import json
 import os
@@ -659,10 +690,10 @@ def device_ms(torch, fn, name, repeat=20):
     the device-only ms per launch of the kernel named ``name``, from the
     profiler's kernel durations (the host's time to issue the call is not
     in it).  The card's tracing has dropped every launch of kernel A (a
-    cluster launch) from some profiles on some machines, and never one of
-    D; so a profile that records none is taken again, then with device
-    activity alone, and if all three record none the time is not measured
-    (None): a measurement, not a gate."""
+    cluster launch) from some profiles on some machines, and any kernel's
+    from a profile now and then; so a profile that records none is taken
+    again, then with device activity alone, and if all five record none
+    the time is not measured (None): a measurement, not a gate."""
     return profiled(torch, fn, lambda ev: kernel_device_ms(ev, name), name,
                     repeat)
 
@@ -691,7 +722,8 @@ def profiled(torch, fn, read, what, repeat):
     fn()
     torch.cuda.synchronize()
     both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for activities in (both, both, [ProfilerActivity.CUDA]):
+    for activities in (both, both, [ProfilerActivity.CUDA],
+                       [ProfilerActivity.CUDA], [ProfilerActivity.CUDA]):
         with profile(activities=activities) as prof:
             for _ in range(repeat):
                 fn()
@@ -701,7 +733,7 @@ def profiled(torch, fn, read, what, repeat):
             return got
         log(f"the profiler recorded no launch of {what}; profiling again")
     log(f"{what}: device time not measured (the profiler recorded no "
-        f"launch in three profiles)")
+        f"launch in five profiles)")
     return None
 
 
@@ -3081,12 +3113,15 @@ def jk_check(torch, name, args):
 
 def jk_plain_job(torch, path_in, path_out):
     """One CPU check's worker (``chip_smoke.py --jk-plain IN OUT``): J's or
-    K's plain version on one thread, forward and gradient (``jk_pass``),
+    K's plain version on one thread at the lowest CPU priority, forward
+    and gradient (``jk_pass``),
     on the inputs ``jk_full_start`` saved; saves its outputs, gradients
     and seconds."""
     global DEVICE
     DEVICE = "cpu"
     torch.set_num_threads(1)
+    # the card's phases run beside this worker: they take the CPU first
+    os.nice(19)
     job = torch.load(path_in, weights_only=True)
     outs, gw, gp, fwd_s, bwd_s = jk_pass(torch, job["name"], job["args"],
                                          job["grads"], True)
@@ -3508,6 +3543,9 @@ def design_phase(torch, api, build):
              for tag, src in (("first", cap.args), ("last", cap.last))}
     jobs = jk_full_start(torch, calls, os.path.join(HERE, "build",
                                                     "jk_plain"))
+    # the workers run on while the later phases use the card; whatever
+    # happens, none outlives the script
+    atexit.register(jk_stop, jobs)
     try:
         jk = {}
         for nm in RELAXED_KEPT:
@@ -3531,18 +3569,28 @@ def design_phase(torch, api, build):
     except BaseException:
         jk_stop(jobs)
         raise
-    full = jk_full_finish(torch, jobs)
+    log("[design] first Adam steps on the CPU: " + json.dumps(cpu))
+    return {"launches": counts, "cells": cells, "jk": jk, "optimize": opt,
+            "cpu": cpu, "jobs": jobs, "phase_s": time.perf_counter() - t18}
+
+
+def design_finish(torch, design):
+    """The end of phase 18: wait for its CPU workers (the full-shape
+    checks of J and K), gate them and add them to ``design``."""
+    t0 = time.perf_counter()
+    full = jk_full_finish(torch, design.pop("jobs"))
     for (nm, tag), c in full.items():
-        jk[nm].setdefault("full", {})[tag] = c
+        design["jk"][nm].setdefault("full", {})[tag] = c
     # an Adam step on the CPU at the full 90 000 samples runs J's and K's
     # plain forward and backward once: their seconds in this run's checks
-    cpu["full_step_s_estimate"] = {
+    design["cpu"]["full_step_s_estimate"] = {
         tag: sum((c["plain_cpu_fwd_ms"] + c["plain_cpu_bwd_ms"]) / 1e3
                  for (_, t), c in full.items() if t == tag)
         for tag in ("first", "last")}
-    log("[design] first Adam steps on the CPU: " + json.dumps(cpu))
-    return {"launches": counts, "cells": cells, "jk": jk, "optimize": opt,
-            "cpu": cpu, "phase_s": time.perf_counter() - t18}
+    log("[design] the CPU's full-shape checks: " + json.dumps(
+        design["cpu"]["full_step_s_estimate"]) + f", waited "
+        f"{time.perf_counter() - t0:.1f} s for them at the end")
+    return design
 
 
 def jk_rows(design, late):
@@ -4187,6 +4235,353 @@ def compliance_phase(torch, api, build):
     return {"launches": counts, "launches_by_part": parts, "predictor": a,
             "design": b, "service": c, "watch": d, "cli": e,
             "phase_s": time.perf_counter() - t20}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the Study on the scenario mesh, in one process and in two
+# worker processes on the one card
+# ---------------------------------------------------------------------------
+
+MESH_PROCESSES = 2
+MESH_STREAM5 = 64         # phase 5's grid in the workers
+MESH_STREAM16 = 16        # phase 16's grid in the workers
+# rows of phase 16's grid a one-process run checkpoints for the workers to
+# resume: every workload in it (one padded length), the last 16 rows not
+MESH_PREFIX = 112
+MESH_ELEMENTS = 256 * 4096  # the all-reduce's tensor, a BLOCK multiple
+MESH_TIMEOUT_S = 300
+# what each worker must launch (B, C, D, A) and must not
+MESH_KERNELS = ("gpu_floor", "battery", "escalation", "monitor")
+MESH_ABSENT = ("sliding", "flash_fwd", "ballast", "windows", "sliding_v1",
+               "gpu_floor_relaxed", "gpu_floor_relaxed_adjoint",
+               "battery_relaxed", "battery_relaxed_adjoint",
+               "monitor_adjoint")
+
+
+# (a)'s check that a row's analysis does not depend on its batch: odd and
+# even lengths, the row at several places among other rows
+MESH_ANALYSIS_LENGTHS = (1500, 1501, 1875, 15001, 30000)
+MESH_ANALYSIS_PLACES = (0, 1, 2, 3, 5, 31)
+
+
+def analysis_places(torch, api):
+    """On the card: one row analysed at ``MESH_ANALYSIS_PLACES`` of a
+    32-row batch of other rows, at each of ``MESH_ANALYSIS_LENGTHS``; every
+    band and spec metric must be equal bit for bit (the odd lengths take
+    the complex FFT, every sum a row-aligned layout)."""
+    from repro_torch.core.engine import analyze_batch
+    spec = api.example_specs(JOB_MW)["moderate"]
+    out = {}
+    for n in MESH_ANALYSIS_LENGTHS:
+        g = torch.Generator(device="cuda").manual_seed(n)
+        x0 = torch.randn(n, device="cuda", generator=g) * 2e5 + 6e6
+        ref, same = None, 0
+        for p in MESH_ANALYSIS_PLACES:
+            X = torch.randn(32, n, device="cuda", generator=g) * 2e5 + 6e6
+            X[p] = x0
+            a = analyze_batch(X, DT, spec)
+            row = {k: v[p] for k, v in a["bands_mitigated"].items()}
+            row.update({k: v[p] for k, v in a["spec_metrics"].items()})
+            ref = ref or row
+            bad = [k for k in ref if not torch.equal(row[k], ref[k])]
+            if bad:
+                raise AssertionError(f"[mesh] at length {n} a row analysed "
+                                     f"at place {p} differs in {bad}")
+            same += 1
+        out[n] = same
+    log("[mesh] (a) one row's analysis at places "
+        f"{list(MESH_ANALYSIS_PLACES)} of a 32-row batch, equal at lengths "
+        + json.dumps(out))
+    return out
+
+
+# the torch calls the analysis stopped using as they were, measured the
+# same way: a batched rfft at odd and even lengths, and float32 row sums
+# over contiguous rows of each column count
+MESH_RAW_FFT = (1500, 1501, 1875, 2250, 3001, 15001, 15014, 37020, 90000)
+MESH_RAW_SUM = (750, 751, 1501, 2001, 15001, 22501, 45001)
+
+
+def raw_places(torch):
+    """How a batched ``torch.fft.rfft`` and a float32 sum over a row's
+    last axis treat one row placed at ``MESH_ANALYSIS_PLACES`` among other
+    rows on the card: the number of distinct results of that row, per
+    length (1: its place and neighbours do not matter).  Measured, not
+    gated: it is what ``core/spectrum.py``'s complex FFT for odd lengths
+    and ``row_aligned`` avoid."""
+    out = {"rfft": {}, "sum": {}}
+    for kind, sizes in (("rfft", MESH_RAW_FFT), ("sum", MESH_RAW_SUM)):
+        for n in sizes:
+            g = torch.Generator(device="cuda").manual_seed(n)
+            x0 = torch.randn(n, device="cuda", generator=g) * 1e3 + 1e6
+            seen = set()
+            for p in MESH_ANALYSIS_PLACES:
+                X = torch.randn(32, n, device="cuda", generator=g) * 1e3 + 1e6
+                X[p] = x0
+                row = (torch.fft.rfft(X, dim=-1)[p] if kind == "rfft"
+                       else X.sum(-1)[p])
+                seen.add(row.cpu().numpy().tobytes())
+            out[kind][n] = len(seen)
+    log("[mesh] (a) distinct results of one row at "
+        f"{len(MESH_ANALYSIS_PLACES)} places, as torch gives them: "
+        + json.dumps(out))
+    return out
+
+
+def mesh_payload(torch, rank, device="cuda"):
+    """Rank ``rank``'s tensor for the compressed all-reduce."""
+    g = torch.Generator().manual_seed(2100 + rank)
+    return torch.randn(MESH_ELEMENTS, generator=g).to(device)
+
+
+def save_columns(res, path):
+    import pickle
+    with open(path, "wb") as fh:
+        pickle.dump(res.columns, fh)
+
+
+def load_result(api, path):
+    import pickle
+    with open(path, "rb") as fh:
+        return api.StudyResult(pickle.load(fh))
+
+
+def keyed_rows(torch, study):
+    from repro_torch.core import prng
+    rows = study.rows()
+    return rows, list(prng.fold_in(study.key, torch.arange(len(rows))))
+
+
+def mesh_worker(torch, out_dir, resume_dir, t_launch):
+    """One rank of phase 21(b): join the job (gloo: both ranks share the
+    card), then phase 5's grid with ``stream=64``, phase 16's keyed grid
+    with ``stream=16`` and again resumed from ``resume_dir`` (a prefix one
+    process checkpointed), and one compressed all-reduce; records from
+    process 0; a report from each rank with its launches, walls and merge
+    seconds."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import engine
+    from repro_torch.core.study import run_rows
+    from repro_torch.kernels import build
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel import distributed as D
+    t0 = time.time()
+    if not D.initialize():
+        raise SystemExit("mesh worker launched without REPRO_DIST_*")
+    rank = D.process_index()
+    report = {"rank": rank, "backend": str(
+        torch.distributed.get_backend()), "device": str(
+        torch.cuda.current_device()), "startup_s": time.time() - t_launch,
+        "init_s": time.time() - t0, "walls": {}, "calls": {}}
+    merge = {"s": 0.0, "n": 0}
+    gather = engine.host_allgather
+
+    def timed_gather(*a, **kw):
+        t = time.perf_counter()
+        out = gather(*a, **kw)
+        merge["s"] += time.perf_counter() - t
+        merge["n"] += 1
+        return out
+    engine.host_allgather = timed_gather
+    plan = D.distributed_plan()
+    report["plan"] = [str(d) for d in plan.devices]
+    build.reset_launch_counts()
+
+    def step(tag, fn):
+        calls = report["calls"].setdefault(tag, [])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(lambda d, n, e: calls.append([d, n]))
+        torch.cuda.synchronize()
+        report["walls"][tag] = time.perf_counter() - t
+        if D.is_primary():
+            save_columns(res, os.path.join(out_dir, f"{tag}.pkl"))
+        return res
+
+    study5 = build_study(api)
+    study5.plan = plan
+    step("phase5_stream64", lambda cb: study5.run(stream=MESH_STREAM5,
+                                                  on_chunk=cb))
+    study16 = build_keyed_study(api, device="cuda")
+    study16.plan = plan
+    step("phase16_stream16", lambda cb: study16.run(stream=MESH_STREAM16,
+                                                    on_chunk=cb))
+    rows, keys = keyed_rows(torch, study16)
+    step("phase16_resumed", lambda cb: run_rows(
+        study16.workloads, rows, study16.specs, wave_cfg=study16.wave_cfg,
+        hw=study16.hw, keys=keys, stream=MESH_STREAM16, resume=resume_dir,
+        sample_chips=study16.sample_chips, on_chunk=cb, plan=plan,
+        device="cuda"))
+    report["launches"] = build.launch_counts()
+    report["merge_s"], report["merges"] = merge["s"], merge["n"]
+    x = mesh_payload(torch, rank)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mean, err = collectives.compressed_allreduce_mean(x, torch.zeros_like(x))
+    torch.cuda.synchronize()
+    report["allreduce_s"] = time.perf_counter() - t
+    np.save(os.path.join(out_dir, f"allreduce_{rank}.npy"),
+            mean.cpu().numpy())
+    with open(os.path.join(out_dir, f"report_{rank}.json"), "w") as fh:
+        json.dump(report, fh)
+    D.shutdown()
+    return 0
+
+
+def mesh_progress_gate(reports, tag, n_rows, first=None):
+    """``on_chunk`` of one step: process 0 only, every total the grid's
+    rows, ending at ``done == total == n_rows``."""
+    primary = reports[0]["calls"][tag]
+    others = [r["calls"][tag] for r in reports[1:]]
+    if any(others):
+        raise AssertionError(f"[mesh] {tag}: a non-primary process reported "
+                             f"progress: {others}")
+    if not primary or primary[-1] != [n_rows, n_rows] or any(
+            t != n_rows for _, t in primary):
+        raise AssertionError(f"[mesh] {tag}: process 0's progress {primary} "
+                             f"does not end at {n_rows} of {n_rows}")
+    if first is not None and primary[0][0] != first:
+        raise AssertionError(f"[mesh] {tag}: the resumed run's first report "
+                             f"{primary[0]} is not the {first} restored rows")
+
+
+def mesh_smoke_start():
+    """(c): ``python -m repro_torch.parallel.distributed --smoke`` on the
+    card, as a subprocess started beside (b)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.parallel.distributed", "--smoke"],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def mesh_smoke_finish(proc, t0, timeout=MESH_TIMEOUT_S):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or "DISTRIBUTED_SMOKE_OK" not in out:
+        raise AssertionError(f"[mesh] (c) the smoke exited {proc.returncode}"
+                             f":\n{out[-1000:]}\n{err[-2000:]}")
+    line = next(ln for ln in out.splitlines() if "DISTRIBUTED_SMOKE_OK" in ln)
+    log(f"[mesh] (c) {line} ({time.perf_counter() - t0:.1f} s)")
+    return {"line": line, "wall_s": time.perf_counter() - t0}
+
+
+def mesh_phase(torch, api, build, res5):
+    """Phase 21: (a) phase 5's Study with ``plan=scenario_plan()`` and with
+    ``shard_devices=True`` in this process, records equal to phase 5's;
+    (b) one ``launch_workers`` of two processes on the one card (gloo):
+    phase 5's grid (``stream=64``), phase 16's keyed grid (``stream=16``)
+    and again resumed from a prefix this process checkpointed, records
+    equal to this process's, progress from process 0 only, B, C, D and A
+    launched in each worker and no other kernel, and a compressed
+    all-reduce equal to the mean of both ranks' dequantized payloads; (c)
+    the distributed smoke as a subprocess beside (b)."""
+    import shutil
+    import numpy as np
+    from repro_torch.core.study import run_rows
+    from repro_torch.parallel import collectives, distributed, scenario_plan
+    t21 = time.perf_counter()
+    out = {"steps": {}}
+
+    def gate(tag, got, want):
+        bad = columns_equal(got, want)
+        if bad:
+            raise AssertionError(f"[mesh] {tag} differs from the one-process "
+                                 f"run in {bad}")
+
+    # (a) one process, the plan's one card
+    out["raw_places"] = raw_places(torch)
+    out["analysis_places"] = analysis_places(torch, api)
+    build.reset_launch_counts()
+    for tag, kw in (("plan", {"plan": scenario_plan()}),
+                    ("shard_devices", {"shard_devices": True})):
+        study = build_study(api)
+        for k, v in kw.items():
+            setattr(study, k, v)
+        got, wall = timed_run(torch, study.run)
+        gate(f"(a) {tag}", got, res5)
+        out["steps"][f"a_{tag}"] = wall
+    # the one-process references of phase 16's grid: one-shot, and the
+    # prefix the workers resume (their launches count with (a)'s, read
+    # once below)
+    keyed = build_keyed_study(api, device="cuda")
+    res16, out["steps"]["keyed_one_shot"] = timed_run(torch, keyed.run)
+    work = os.path.join(HERE, "build", "phase21")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    resume_dir = os.path.join(work, "resume")
+    rows, keys = keyed_rows(torch, keyed)
+    _, out["steps"]["prefix_checkpoint"] = timed_run(torch, lambda: run_rows(
+        keyed.workloads, rows[:MESH_PREFIX], keyed.specs,
+        wave_cfg=keyed.wave_cfg, hw=keyed.hw, keys=keys[:MESH_PREFIX],
+        stream=MESH_STREAM16, resume=resume_dir,
+        sample_chips=keyed.sample_chips, device="cuda"))
+    out["launches"] = build.launch_counts()
+    # (b) two workers on the card, (c) the smoke beside them
+    t_c = time.perf_counter()
+    smoke = mesh_smoke_start()
+    try:
+        t_b = time.perf_counter()
+        done = distributed.launch_workers(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--mesh-worker", work, resume_dir, repr(time.time())],
+            num_processes=MESH_PROCESSES, timeout=MESH_TIMEOUT_S)
+        out["steps"]["b_launch"] = time.perf_counter() - t_b
+    finally:
+        out["smoke"] = mesh_smoke_finish(smoke, t_c)
+    out["steps"]["c_smoke"] = out["smoke"]["wall_s"]
+    for r in done:
+        if r.stdout.strip():
+            log("[mesh] worker stdout: " + r.stdout.strip()[-500:])
+    reports = [json.load(open(os.path.join(work, f"report_{r}.json")))
+               for r in range(MESH_PROCESSES)]
+    for rep in reports:
+        log(f"[mesh] (b) worker {rep['rank']}: backend {rep['backend']}, "
+            f"card {rep['device']}, plan {rep['plan']}, start-up "
+            f"{rep['startup_s']:.2f} s (init {rep['init_s']:.2f} s), walls "
+            + json.dumps(rep["walls"]) + f", merges {rep['merges']} in "
+            f"{rep['merge_s']:.4f} s, all-reduce {rep['allreduce_s']:.4f} s")
+        log(f"[mesh] (b) worker {rep['rank']} launches: "
+            + json.dumps(rep["launches"]))
+        missing = [k for k in MESH_KERNELS if rep["launches"][k] <= 0]
+        extra = {k: rep["launches"][k] for k in MESH_ABSENT
+                 if rep["launches"].get(k)}
+        if missing or extra:
+            raise AssertionError(f"[mesh] worker {rep['rank']}: {missing} "
+                                 f"not launched, {extra} launched")
+    for tag, want in (("phase5_stream64", res5), ("phase16_stream16", res16),
+                      ("phase16_resumed", res16)):
+        gate(f"(b) {tag}", load_result(api, os.path.join(work, f"{tag}.pkl")),
+             want)
+    mesh_progress_gate(reports, "phase5_stream64",
+                       len(res5) // len(SPEC_NAMES))
+    mesh_progress_gate(reports, "phase16_stream16", keyed.n_rows)
+    first = reports[0]["calls"]["phase16_resumed"][0][0]
+    mesh_progress_gate(reports, "phase16_resumed", keyed.n_rows)
+    if not 0 < first < MESH_PREFIX:
+        raise AssertionError(f"[mesh] the resumed run restored {first} rows, "
+                             f"not a part of the {MESH_PREFIX}-row prefix")
+    deq = [collectives.quantize_roundtrip(mesh_payload(torch, r))
+           for r in range(MESH_PROCESSES)]
+    want = (sum(deq[1:], deq[0]) / MESH_PROCESSES).cpu().numpy()
+    for r in range(MESH_PROCESSES):
+        got = np.load(os.path.join(work, f"allreduce_{r}.npy"))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"[mesh] rank {r}'s all-reduce differs from "
+                                 "the mean of the dequantized payloads by "
+                                 f"{np.abs(got - want).max()}")
+    shutil.rmtree(work, ignore_errors=True)
+    out["workers"] = [{k: rep[k] for k in (
+        "rank", "backend", "startup_s", "init_s", "walls", "merge_s",
+        "merges", "allreduce_s", "launches")} for rep in reports]
+    out["restored_rows"] = first
+    out["phase_s"] = time.perf_counter() - t21
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4895,6 +5290,50 @@ def ad_main(torch) -> int:
     return 0
 
 
+# the host functions of the Study's path whose cumulative time
+# ``--study-time`` reports (those a tree lacks are left out)
+STUDY_HOST_FNS = ("run_rows", "stream_batches", "dispatch", "run_piece",
+                  "materialize", "piece_tree", "simulate_batch",
+                  "analyze_batch", "critical_band_report", "validate",
+                  "spectrum", "row_aligned", "host_allgather", "concat_trees",
+                  "_fill_chunk", "_to_host", "_numpy")
+
+
+def study_time_main(torch, repeat=12) -> int:
+    """``--study-time``: phase 5's Study warm ``repeat`` times (each wall
+    synchronised), its device busy time in one profiled run, and the
+    cumulative host seconds of ``STUDY_HOST_FNS`` in one run under
+    ``cProfile`` (attribution only: cProfile slows the host).  For
+    comparing two trees on one card, run this script from the root of
+    each, in the order parent, change, change, parent.  Prints one
+    ``{"study_time": ...}`` line."""
+    import cProfile
+    import pstats
+    import statistics
+    from repro_torch import api
+    from repro_torch.kernels import build
+    build.build_all()
+    study = build_study(api)
+    cold = timed_run(torch, study.run)[1]
+    walls = [timed_run(torch, study.run)[1] for _ in range(repeat)]
+    wall, busy, _ = profile_device(torch, study.run)
+    prof = cProfile.Profile()
+    prof.enable()
+    timed_run(torch, study.run)
+    prof.disable()
+    host = {}
+    for (path, _, fn), row in pstats.Stats(prof).stats.items():
+        if fn in STUDY_HOST_FNS and "repro_torch" in path:
+            tag = f"{os.path.basename(path)}:{fn}"
+            host[tag] = round(host.get(tag, 0.0) + row[3], 6)
+    out = {"tree": HERE, "smi": nvidia_smi_line(), "cold_s": cold,
+           "warm_s": walls, "warm_median_s": statistics.median(walls),
+           "warm_min_s": min(walls), "profiled_s": wall, "busy_s": busy,
+           "host_cum_s": dict(sorted(host.items()))}
+    print(json.dumps({"study_time": out}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--jk-plain"] and len(sys.argv) == 4:
@@ -4907,6 +5346,11 @@ def main() -> int:
     import_port()
     if sys.argv[1:] == ["--ad"]:
         return ad_main(torch)
+    if sys.argv[1:] == ["--study-time"]:
+        return study_time_main(torch)
+    if sys.argv[1:2] == ["--mesh-worker"] and len(sys.argv) == 5:
+        return mesh_worker(torch, sys.argv[2], sys.argv[3],
+                           float(sys.argv[4]))
     from repro_torch import api
     from repro_torch.kernels import build
     # the kernels that api does not import register here: F, G, H and I
@@ -5002,6 +5446,14 @@ def main() -> int:
     compare_cpu_subset(api, res)
     for k in kernels:
         k["launches_by_path"] = {"study": k["launches"]}
+
+    # 18, started here: the design path at full size, through kernels J
+    # and K; its CPU workers (J's and K's plain versions at the full shape,
+    # minutes each) run on beside phases 7-17, 19-21 and 15, and are
+    # waited for and gated after phase 15
+    design = design_phase(torch, api, build)
+    late["design"] = design["launches"]
+    log(f"phase 18, the card's part: {design['phase_s']:.1f} s")
 
     # 7. the control loop on the canonical ramp: cold and warm on the card
     from repro_torch import control
@@ -5157,10 +5609,6 @@ def main() -> int:
     serial = serial_phase(torch, api, build, res)
     late["serial_reference"] = serial["launches"]
     log(f"phase 17: {serial['phase_s']:.1f} s")
-    # 18. the design path at full size, through kernels J and K
-    design = design_phase(torch, api, build)
-    late["design"] = design["launches"]
-    log(f"phase 18: {design['phase_s']:.1f} s")
     # 19. the relaxed backstop's gradient, through kernel A's adjoint
     backstop = backstop_gradient_phase(torch, api, build)
     late["backstop_gradient"] = backstop["launches"]
@@ -5171,9 +5619,15 @@ def main() -> int:
     log("serve: " + json.dumps({k: v for k, v in serve.items()
                                 if k != "launches"}))
     log(f"phase 20: {serve['phase_s']:.1f} s")
+    # 21. the Study on the scenario mesh: one process, two on the card
+    mesh = mesh_phase(torch, api, build, res)
+    late["scenario_mesh"] = mesh["launches"]
+    log("mesh: " + json.dumps({k: v for k, v in mesh.items()
+                               if k != "launches"}))
+    log(f"phase 21: {mesh['phase_s']:.1f} s")
     for k in kernels:
         for p in ("serial_reference", "design", "backstop_gradient",
-                  "compliance_service"):
+                  "compliance_service", "scenario_mesh"):
             k["launches_by_path"][p] = late[p][COUNT_NAME[k["name"]]]
 
     # 15. kernels G, H and I through the reference's own entry points:
@@ -5209,6 +5663,10 @@ def main() -> int:
                              f" {off_path}")
     kernels.extend(late_rows)
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+    t18 = time.perf_counter()
+    design_finish(torch, design)
+    log(f"phase 18: {design['phase_s'] + time.perf_counter() - t18:.1f} s "
+        "(the card's part and the wait for its CPU workers at the end)")
 
     # kernels J and K: launched on the design paths (phase 18's and the
     # compliance service's fallback and predictor) and on no other

@@ -12,6 +12,7 @@ query), mirroring ``repro.api``.
         specs=api.example_specs(job_mw=5.0), key=0)
     result = study.run()                      # on the card
     result = study.run(stream=64, resume="sweep_ckpt")  # chunked, resumable
+    study.plan = api.scenario_plan()          # rows sharded over the cards
     result.passing().pivot("workload", "config", "energy_overhead")
 
     log = api.watch_trace(api.synthesize_ramp(), 0.002, n_chips=512,
@@ -43,6 +44,7 @@ from repro_torch.core.stratosim import SimResult, simulate, simulate_jit
 from repro_torch.core.study import (MitigationConfig, Scenario, Study,
                                     StudyResult)
 from repro_torch.core.telemetry import TelemetrySource
+from repro_torch.parallel.sharding import ScenarioShardPlan, scenario_plan
 from repro_torch.core.waveform import WaveformConfig
 from repro_torch.serve.power import PowerComplianceService, default_catalog
 from repro_torch.serve.warmstart import WarmStartPredictor, train_warmstart
@@ -51,6 +53,8 @@ __all__ = [
     "Study", "StudyResult", "MitigationConfig", "Scenario",
     "stream_batches", "StreamChunk", "design", "design_grid",
     "design_gradient", "simulate", "simulate_jit",
+    # the scenario mesh across devices and processes
+    "ScenarioShardPlan", "scenario_plan",
     # the serve path
     "PowerComplianceService", "default_catalog",
     "WarmStartPredictor", "train_warmstart",

@@ -12,9 +12,9 @@
   sees the old checkpoint or the new one, never half of one.
 - ``CheckpointManager`` keeps the newest ``keep`` steps and can hand the
   write to a thread.
-
-Restoring onto a device mesh (the reference's ``shardings=``) belongs to
-the port's ``parallel/`` and is not ported yet.
+- A restore may re-place the tree onto another device layout than the
+  one it was saved from (``shardings=``: a matching tree of devices), as
+  the reference's ``device_put`` with a new sharding does.
 """
 from __future__ import annotations
 
@@ -27,10 +27,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-
-SHARDINGS_NOT_PORTED = ("restore_pytree(shardings=...) is not ported yet: "
-                        "ROADMAP queue A, parallel/ on torch.distributed")
-
 
 def _flatten(tree, prefix: str = "") -> List[Tuple[str, object]]:
     """``(path, leaf)`` pairs in the tree's order: dict keys and sequence
@@ -108,14 +104,28 @@ def load_pytree_numpy(directory: str):
 
 def restore_pytree(directory: str, template, shardings=None):
     """The saved tree in the structure of ``template``: ``(tree,
-    manifest)``, numeric leaves as CPU tensors and object leaves as numpy
-    arrays."""
-    if shardings is not None:
-        raise NotImplementedError(SHARDINGS_NOT_PORTED)
+    manifest)``, numeric leaves as tensors and object leaves as numpy
+    arrays (host-only payloads, such as the Study's string columns).
+
+    ``shardings`` is None (every numeric leaf on the CPU) or a tree of
+    the template's structure whose leaves are devices (``torch.device``
+    or a name; None keeps that leaf on the CPU): each numeric leaf is put
+    on its device, whatever devices it was saved from."""
     leaves, manifest = load_pytree_numpy(directory)
-    leaves = {k: a if a.dtype == object else torch.from_numpy(a)
-              for k, a in leaves.items()}
-    return _unflatten(template, leaves), manifest
+    placed = dict(_flatten(shardings)) if shardings is not None else {}
+    for path in placed:
+        if path not in leaves:
+            raise KeyError(f"shardings names {path!r}, which the checkpoint "
+                           f"in {directory} does not hold")
+    out = {}
+    for k, a in leaves.items():
+        if a.dtype == object:
+            out[k] = a
+            continue
+        t = torch.from_numpy(a)
+        dev = placed.get(k)
+        out[k] = t if dev is None else t.to(torch.device(dev))
+    return _unflatten(template, out), manifest
 
 
 class CheckpointManager:

@@ -40,10 +40,15 @@ per unique (workload, fleet, seed).
 Per-row values do not depend on how rows are chunked: every operation
 on the path is row-wise, the float64 sums are of float32 terms, and the
 analysis runs on slices of a fixed row count (``ANALYSIS_ROWS``) in every
-run, one-shot or chunked.  Sharding is not ported yet.
+run, one-shot or chunked.  So the scenario axis shards across devices
+and processes (``plan=``, ``shard_devices=``; ``repro_torch.parallel``):
+each device computes its rows of every chunk, the per-row results are
+merged on the host in global row order, and the records equal an
+unsharded run's bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -65,6 +70,9 @@ from repro_torch.core.waveform import (WaveformConfig, aggregate,
                                        chip_waveform, jitter_shifts,
                                        phase_levels, swing_stats)
 from repro_torch.device import resolve_device
+from repro_torch.parallel.collectives import (concat_trees, gather_parts,
+                                              gather_rows, host_allgather)
+from repro_torch.parallel.sharding import ScenarioShardPlan, scenario_plan
 
 # rows of one analysis call (tails repeat their last row): reductions on the
 # card and on the CPU pick their order by the number of rows they reduce,
@@ -260,6 +268,139 @@ class BatchResult:
             spec_report=self.report(i), aux=aux)
 
 
+def _resolve_plan(plan: Optional[ScenarioShardPlan], shard_devices: bool,
+                  device) -> Optional[ScenarioShardPlan]:
+    """An explicit plan wins; ``shard_devices=True`` is shorthand for the
+    all-local-cards plan (``scenario_plan``).  A plan's devices must be of
+    ``device``'s type."""
+    if plan is None and shard_devices:
+        plan = scenario_plan()
+    if plan is not None:
+        kind = torch.device(device).type
+        if any(d.type != kind for d in plan.devices):
+            raise ValueError(f"the plan's devices {plan.devices} are not "
+                             f"all of the run's device type {kind!r}")
+    return plan
+
+
+def _device_scope(device: torch.device):
+    """Make ``device`` current while its shard runs (a kernel launches on
+    the current card)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _local_pieces(shard: Optional[ScenarioShardPlan], device, n: int,
+                  n_real: int) -> List[Tuple[torch.device, List[int],
+                                             List[int]]]:
+    """This process's pieces of an ``n``-row batch whose positions from
+    ``n_real`` on repeat row ``n_real - 1`` (a chunk's tail and, under a
+    plan, the shard padding): ``[(device, rows, real)]``, each piece's
+    batch rows and the piece positions that hold the batch's own rows (at
+    least one, so that a piece of padding yields every field).  Without a
+    plan the whole batch is one piece on ``device``."""
+    if shard is None:
+        parts, padded = [(device, slice(0, n))], n
+    else:
+        parts, padded = shard.local_shards(n)
+    pieces = []
+    for dev, s in parts:
+        pos = range(padded)[s]
+        pieces.append((dev, [min(p, n_real - 1) for p in pos],
+                       [i for i, p in enumerate(pos) if p < n_real] or [0]))
+    return pieces
+
+
+def _merge_pieces(trees, shard: Optional[ScenarioShardPlan], take: int):
+    """The per-row trees of this process's pieces, merged with every other
+    process's in global row order as host numpy, cut to ``take`` rows."""
+    return host_allgather(concat_trees(trees), shard, take=take)
+
+
+def _simulate_sharded(shard: ScenarioShardPlan, timelines, n_chips, cfg,
+                      *, device_mitigation, rack_mitigation, keys,
+                      pad_to, seeds, levels, hw, chip_outputs,
+                      device, **kw) -> BatchResult:
+    """``simulate_batch`` with its rows cut into the plan's pieces
+    (``_local_pieces``): each of this process's on its device, merged on
+    the host in global row order (``_merge_pieces``), shard padding
+    dropped.  The merged result is on the CPU."""
+    (tls, chips, seed_list, dev_list, rack_list, level_rows,
+     B) = _prepare_rows(timelines, n_chips, seeds, device_mitigation,
+                        rack_mitigation, levels, cfg, hw)
+    if pad_to is None and len({len(r) for r in level_rows}) > 1:
+        raise ValueError(
+            "all rows of one simulate_batch call must expand to the same "
+            f"sample count (got {sorted({len(r) for r in level_rows})}): "
+            "pass pad_to")
+    keys_t = _normalize_keys(keys, B, "cpu")
+    has_dev = any(m is not None for m in dev_list) and chip_outputs
+    trees, auxes = [], []
+    for dev, rows, _ in _local_pieces(shard, device, B, B):
+        def sl(xs):
+            return [xs[i] for i in rows]
+
+        with _device_scope(dev):
+            res = simulate_batch(
+                sl(tls), sl(chips), cfg, device_mitigation=sl(dev_list),
+                rack_mitigation=sl(rack_list), hw=hw, seeds=sl(seed_list),
+                keys=None if keys_t is None else keys_t[rows],
+                levels=sl(level_rows), pad_to=pad_to,
+                chip_outputs=chip_outputs, device=dev, **kw)
+        tree = {k: getattr(res, k) for k in (
+            "dc_raw", "dc_mitigated", "n_valid", "energy_overhead", "swing",
+            "swing_mitigated", "chip_raw", "bands", "bands_mitigated",
+            "spec_ok", "spec_flags", "spec_metrics")}
+        # a piece without device rows kept no mitigated chip trace: its
+        # rows' are their raw traces; the stage masks are spelt out
+        tree["chip_mitigated"] = (res.chip_raw if res.chip_mitigated is None
+                                  and has_dev else res.chip_mitigated)
+        for stage, on in (("dev_on", res.dev_on), ("rack_on", res.rack_on)):
+            tree[stage] = torch.ones(len(rows), dtype=torch.bool) \
+                if on is None else on
+        trees.append(tree)
+        auxes.append(res.aux)
+    m = {k: (None if v is None else _map_tensor(v))
+         for k, v in _merge_pieces(trees, shard, B).items()}
+    off = ~m["rack_on"]
+    if any(r is not None for r in rack_list) and bool(off.any()):
+        # a batch with a rack stage fills its other rows' pad with their
+        # valid mean; a piece without a rack row did not
+        dc = m["dc_mitigated"]
+        dc[off] = _mask_helpers(dc.shape[1], m["n_valid"][off])[1](dc[off])
+    # each stage's aux holds its enabled rows only, in row order
+    auxes = gather_parts([host_allgather(a) for a in auxes], shard)
+    aux: Dict = {}
+    for stage, key in (("device", "dev_on"), ("rack", "rack_on")):
+        enabled = int(m[key].sum())
+        got = [a[stage] for a in auxes if stage in a]
+        if got and enabled:
+            aux[stage] = _map_tensor(concat_trees(got), enabled)
+        if bool(m[key].all()):
+            m[key] = None
+    return BatchResult(
+        dc_raw=m["dc_raw"], dc_mitigated=m["dc_mitigated"],
+        n_valid=m["n_valid"], energy_overhead=m["energy_overhead"],
+        swing=m["swing"], swing_mitigated=m["swing_mitigated"], aux=aux,
+        t=np.arange(m["dc_raw"].shape[1]) * cfg.dt, chip_raw=m["chip_raw"],
+        chip_mitigated=m["chip_mitigated"] if has_dev else None,
+        bands=m["bands"], bands_mitigated=m["bands_mitigated"],
+        spec_ok=m["spec_ok"], spec_flags=m["spec_flags"],
+        spec_metrics=m["spec_metrics"], dev_on=m["dev_on"],
+        rack_on=m["rack_on"])
+
+
+def _map_tensor(tree, take: Optional[int] = None):
+    """A merged host tree's arrays (their first ``take`` rows) as CPU
+    tensors."""
+    if isinstance(tree, dict):
+        return {k: _map_tensor(v, take) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.ndim:
+        return torch.from_numpy(np.ascontiguousarray(tree[:take]))
+    return tree
+
+
 def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
                    = None, *, device_mitigation=None, rack_mitigation=None,
                    spec: Optional[UtilitySpec] = None,
@@ -268,6 +409,8 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
                    levels: Optional[Sequence[np.ndarray]] = None,
                    pad_to: Optional[int] = None, spectra: bool = True,
                    chip_outputs: bool = True,
+                   plan: Optional[ScenarioShardPlan] = None,
+                   shard_devices: bool = False,
                    device="cuda") -> BatchResult:
     """Simulate a batch of scenario rows of one mitigation structure.
 
@@ -280,7 +423,10 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
     frequency and spec analysis is left to ``analyze_batch`` on the sliced
     rows (``spec`` must be None and ``spectra`` False).  ``spectra`` adds
     the band reports of the raw and mitigated waveforms, ``spec`` its
-    verdicts, and ``chip_outputs`` the per-chip traces.
+    verdicts, and ``chip_outputs`` the per-chip traces.  ``plan`` (a
+    ``ScenarioShardPlan``; ``shard_devices=True``: every local card) cuts
+    the rows into shards, each on its device and process, and returns the
+    merged rows on the CPU, equal to an unsharded run's.
     """
     cfg = wave_cfg or WaveformConfig()
     dt = cfg.dt
@@ -289,6 +435,15 @@ def simulate_batch(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
         raise ValueError(
             "pad_to defers frequency/spec analysis to analyze_batch on the "
             "sliced rows: call with spec=None, spectra=False")
+    shard = _resolve_plan(plan, shard_devices, device)
+    if shard is not None:
+        return _simulate_sharded(
+            shard, timelines, n_chips, cfg,
+            device_mitigation=device_mitigation,
+            rack_mitigation=rack_mitigation, keys=keys, pad_to=pad_to,
+            seeds=seeds, levels=levels, hw=hw, chip_outputs=chip_outputs,
+            device=device, spec=spec, sample_chips=sample_chips,
+            spectra=spectra)
     (_, chips, seed_list, dev_list, rack_list, level_rows,
      B) = _prepare_rows(timelines, n_chips, seeds, device_mitigation,
                         rack_mitigation, levels, cfg, hw)
@@ -465,7 +620,8 @@ def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
                    pad_to: Optional[int] = None,
                    chunk_size: Optional[int] = None, bands: bool = True,
                    skip_rows: int = 0, keep_waveforms: bool = False,
-                   device="cuda"):
+                   plan: Optional[ScenarioShardPlan] = None,
+                   shard_devices: bool = False, device="cuda"):
     """Yield the metrics of a scenario batch as one ``StreamChunk`` per
     chunk of ``chunk_size`` rows (None: the whole batch in one chunk).
 
@@ -481,12 +637,22 @@ def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
     host dispatches while the card computes.  Per-row values do not
     depend on the chunking.
 
+    ``plan`` (a ``ScenarioShardPlan``; ``shard_devices=True``: every local
+    card) pads each chunk to a shard multiple and runs each of this
+    process's shards on its device; the chunk's per-row metrics are then
+    merged on the host across shards and processes
+    (``parallel/collectives.host_allgather``), so every process yields
+    the same chunks, equal to an unsharded run's.  Every process must
+    call this with the same rows.
+
     ``skip_rows`` skips every chunk whose rows all lie below it without
     dispatching it (the resume path restores those from disk); it must
     fall on a chunk boundary.  ``keep_waveforms`` also brings each chunk's
     raw and mitigated waveforms ``[C, n]`` to the host.
     """
     cfg = wave_cfg or WaveformConfig()
+    device = torch.device(device)
+    shard = _resolve_plan(plan, shard_devices, device)
     (tls, chips, seed_list, dev_list, rack_list, level_rows,
      B) = _prepare_rows(timelines, n_chips, seeds, device_mitigation,
                         rack_mitigation, levels, cfg, hw)
@@ -502,32 +668,28 @@ def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
         raise ValueError(f"skip_rows={skip_rows} is not a chunk boundary of "
                          f"chunk_size={chunk_size}")
 
-    def dispatch(lo: int, hi: int):
-        C = hi - lo
-        tail = chunk_size - C if n_chunks > 1 else 0
-
+    def run_piece(dev, rows, real):
+        """Rows ``rows`` on ``dev``: the simulation, and the analysis of
+        the piece positions ``real`` grouped by true length; host copies
+        started."""
         def sl(xs):
-            return xs[lo:hi] + [xs[hi - 1]] * tail
+            return [xs[r] for r in rows]
 
-        ks = None
-        if keys_t is not None:
-            ks = torch.cat([keys_t[lo:hi], keys_t[hi - 1:hi].expand(tail, 2)])
         res = simulate_batch(sl(tls), sl(chips), cfg,
                              device_mitigation=sl(dev_list),
                              rack_mitigation=sl(rack_list), hw=hw,
-                             seeds=sl(seed_list), keys=ks,
+                             seeds=sl(seed_list),
+                             keys=None if keys_t is None else keys_t[rows],
                              sample_chips=sample_chips,
                              levels=sl(level_rows), pad_to=pad_to,
-                             spectra=False, chip_outputs=False,
-                             device=device)
+                             spectra=False, chip_outputs=False, device=dev)
         groups: Dict[int, List[int]] = {}
-        for i in range(C):
-            groups.setdefault(lens[lo + i], []).append(i)
+        for i in real:
+            groups.setdefault(lens[rows[i]], []).append(i)
         gres = []
         for L, g in sorted(groups.items()):
             for part in _analysis_slices(g):
-                sel = torch.tensor(part, device=res.dc_mitigated.device)
-                mit = res.dc_mitigated[sel, :L]
+                mit = gather_rows(res.dc_mitigated, part, shard, length=L)
                 per_spec = []
                 for si, sp in enumerate(spec_list):
                     do_bands = bands and si == 0
@@ -535,61 +697,86 @@ def stream_batches(timelines, n_chips, wave_cfg: Optional[WaveformConfig]
                         None if sp is None and not do_bands else _to_host(
                             analyze_batch(mit, cfg.dt, sp, bands=do_bands)))
                 gres.append((part, per_spec))
-        direct = {"eo": res.energy_overhead[:C],
-                  "sw": {k: v[:C] for k, v in res.swing.items()},
-                  "swm": {k: v[:C] for k, v in res.swing_mitigated.items()}}
+        direct = {"eo": res.energy_overhead, "sw": res.swing,
+                  "swm": res.swing_mitigated}
         if keep_waveforms:
-            direct["raw"] = res.dc_raw[:C]
-            direct["mit"] = res.dc_mitigated[:C]
+            direct["raw"], direct["mit"] = res.dc_raw, res.dc_mitigated
         direct = _to_host(direct)
         done = None
-        if res.dc_mitigated.is_cuda:
+        if dev.type == "cuda":
             done = torch.cuda.Event()
             done.record()
-        return lo, hi, res.dc_mitigated.shape[1], direct, gres, done
+        return len(rows), real, direct, gres, done
 
-    def materialize(pending) -> StreamChunk:
-        lo, hi, n, direct, gres, done = pending
+    def dispatch(lo: int, hi: int):
+        C = hi - lo
+        tail = chunk_size - C if n_chunks > 1 else 0
+        pieces = []
+        for dev, rows, real in _local_pieces(shard, device, C + tail, C):
+            with _device_scope(dev):
+                pieces.append(run_piece(dev, [lo + r for r in rows], real))
+        return lo, hi, pieces
+
+    def piece_tree(piece) -> Dict:
+        """One piece's per-row metrics as host numpy, rows leading; rows
+        not analysed (padding) take the last analysed row's values."""
+        P, real, direct, gres, done = piece
         if done is not None:
             done.synchronize()
-        C = hi - lo
-        direct = _numpy(direct)
-        chunk = StreamChunk(
-            start=lo, stop=hi, n=n, n_valid=np.asarray(lens[lo:hi], np.int64),
-            energy_overhead=direct["eo"], swing=direct["sw"],
-            swing_mitigated=direct["swm"], bands_mitigated=None,
-            spec_ok=[None] * S, spec_flags=[None] * S,
-            spec_metrics=[None] * S, dc_raw=direct.get("raw"),
-            dc_mitigated=direct.get("mit"))
-        bands_cols: Dict[str, np.ndarray] = {}
-        seen = set()
+        tree = _numpy(direct)
+        filled = np.zeros(P, bool)
+        band_cols: Dict[str, np.ndarray] = {}
+        slots: List[Optional[Dict]] = [None] * S
         for part, per_spec in gres:
             # a slice's padding repeats a row it already holds
-            keep = [j for j, i in enumerate(part) if i not in seen]
+            keep = [j for j, i in enumerate(part) if not filled[i]]
             g = [part[j] for j in keep]
-            seen.update(g)
+            filled[g] = True
             for si, a in enumerate(per_spec):
                 if a is None:
                     continue
                 a = _numpy(a)
                 for k, v in a.get("bands_mitigated", {}).items():
-                    bands_cols.setdefault(k, np.empty(C, v.dtype))[g] = v[keep]
+                    band_cols.setdefault(k, np.empty(P, v.dtype))[g] = v[keep]
                 if spec_list[si] is None:
                     continue
-                if chunk.spec_ok[si] is None:
-                    chunk.spec_ok[si] = np.zeros(C, bool)
-                    chunk.spec_flags[si] = {k: np.zeros(C, bool)
-                                            for k in a["spec_flags"]}
-                    chunk.spec_metrics[si] = [None] * C
-                chunk.spec_ok[si][g] = a["spec_ok"][keep]
+                if slots[si] is None:
+                    slots[si] = {
+                        "ok": np.zeros(P, bool),
+                        "flags": {k: np.zeros(P, bool)
+                                  for k in a["spec_flags"]},
+                        "metrics": np.empty(P, object)}
+                slot = slots[si]
+                slot["ok"][g] = a["spec_ok"][keep]
                 for k, v in a["spec_flags"].items():
-                    chunk.spec_flags[si][k][g] = v[keep]
+                    slot["flags"][k][g] = v[keep]
                 for j, i in zip(keep, g):
-                    chunk.spec_metrics[si][i] = {
+                    slot["metrics"][i] = {
                         k: float(v[j]) for k, v in a["spec_metrics"].items()}
-        if bands_cols:
-            chunk.bands_mitigated = bands_cols
-        return chunk
+        pad = ~filled
+        for leaf in [*band_cols.values()] + [
+                a for s in slots if s is not None
+                for a in (s["ok"], s["metrics"], *s["flags"].values())]:
+            leaf[pad] = leaf[real[-1]]
+        tree["bands"] = band_cols or None
+        tree["specs"] = slots
+        return tree
+
+    def materialize(pending) -> StreamChunk:
+        lo, hi, pieces = pending
+        C = hi - lo
+        m = _merge_pieces([piece_tree(p) for p in pieces], shard, C)
+        slots = m["specs"]
+        return StreamChunk(
+            start=lo, stop=hi, n=pad_to or lens[0],
+            n_valid=np.asarray(lens[lo:hi], np.int64),
+            energy_overhead=m["eo"], swing=m["sw"], swing_mitigated=m["swm"],
+            bands_mitigated=m["bands"],
+            spec_ok=[None if s is None else s["ok"] for s in slots],
+            spec_flags=[None if s is None else s["flags"] for s in slots],
+            spec_metrics=[None if s is None else list(s["metrics"])
+                          for s in slots],
+            dc_raw=m.get("raw"), dc_mitigated=m.get("mit"))
 
     pending = None
     for lo in range(0, B, chunk_size):

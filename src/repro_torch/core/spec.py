@@ -24,7 +24,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.spectrum import band_amplitude_w, band_energy_fraction
+from repro_torch.core.spectrum import (band_amplitude_w, band_energy_fraction,
+                                       row_aligned)
 
 VIOLATION_ORDER = ("ramp_up", "ramp_down", "dynamic_range",
                    "band_energy", "band_amplitude")
@@ -124,7 +125,7 @@ class UtilitySpec:
         # ---- frequency domain
         f_lo, f_hi = self.freq.band_hz
         m["band_energy_fraction"] = band_energy_fraction(w, dt, f_lo, f_hi)
-        w64 = w.to(torch.float64)
+        w64 = row_aligned(w.to(torch.float64))
         m["ac_rms_frac"] = (w64.std(-1, unbiased=False)
                             / torch.clamp(w64.mean(-1), min=1e-9)
                             ).to(torch.float32)

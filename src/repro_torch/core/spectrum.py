@@ -1,10 +1,21 @@
 """Frequency-domain analysis of power waveforms (paper Fig. 3, Sec. III).
 
 Every function takes a batch of same-length waveforms ``[B, n]`` and
-returns one value per row, on one ``torch.fft.rfft`` of the Hann-windowed
-AC component (float32, as in the reference).  Band edges and ``dt`` select
-FFT bins on the host.  The streaming per-bin monitor the backstop runs
-lives in ``kernels/goertzel``.
+returns one value per row, on one FFT of the Hann-windowed AC component
+(float32, as in the reference).  Band edges and ``dt`` select FFT bins on
+the host.  The streaming per-bin monitor the backstop runs lives in
+``kernels/goertzel``.
+
+A row's values do not depend on the other rows of its batch, nor on its
+place there, on the card as on the CPU:
+
+- for an odd ``n`` the card's batched ``rfft`` computes two rows in one
+  transform, so a row's spectrum took bits from its neighbour; an odd
+  ``n`` takes the complex FFT of each row instead (its first ``n // 2 +
+  1`` bins);
+- the card's sums over a row's last axis take their order from the row's
+  address modulo 16 bytes, so every summed tensor is laid out with a row
+  stride of a multiple of four elements (``_row_aligned``).
 """
 from __future__ import annotations
 
@@ -54,6 +65,16 @@ def goertzel_bin_amplitudes_torch(x: torch.Tensor, dt: float,
     return torch.sqrt(re * re + im * im) * 2.0 / n
 
 
+def row_aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` ``[..., m]`` (same values) laid out with a row stride of a
+    multiple of four elements, so that every row starts at one alignment
+    and a reduction over the last axis sums each row in one order."""
+    pad = (-x.shape[-1]) % 4
+    if not pad:
+        return x
+    return torch.nn.functional.pad(x, (0, pad))[..., :x.shape[-1]]
+
+
 def spectrum(x: torch.Tensor, dt: float) -> Tuple[np.ndarray, torch.Tensor]:
     """One-sided amplitude spectrum ``[B, n//2 + 1]`` of the AC component,
     with its bin frequencies (host numpy)."""
@@ -62,8 +83,12 @@ def spectrum(x: torch.Tensor, dt: float) -> Tuple[np.ndarray, torch.Tensor]:
     xac = x - x.to(torch.float64).mean(-1, keepdim=True).to(torch.float32)
     hann = torch.as_tensor(np.hanning(n), dtype=torch.float32,
                            device=x.device)
-    mag = torch.fft.rfft(xac * hann, dim=-1).abs()
-    mag = mag * 2.0 / n
+    if n % 2:
+        spec = torch.fft.fft((xac * hann).to(torch.complex64),
+                             dim=-1)[..., :n // 2 + 1]
+    else:
+        spec = torch.fft.rfft(xac * hann, dim=-1)
+    mag = spec.abs() * 2.0 / n
     return np.fft.rfftfreq(n, dt), mag
 
 
@@ -81,8 +106,8 @@ def _bins(mask: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 def _band_fraction(e: torch.Tensor, tot: torch.Tensor, freqs: np.ndarray,
                    f_lo: float, f_hi: float) -> torch.Tensor:
-    val = (e.index_select(-1, _bins(_band_mask(freqs, f_lo, f_hi), e)).sum(-1)
-           / torch.clamp(tot, min=1e-30))
+    band = e.index_select(-1, _bins(_band_mask(freqs, f_lo, f_hi), e))
+    val = row_aligned(band).sum(-1) / torch.clamp(tot, min=1e-30)
     return torch.where(tot > 0, val, torch.zeros_like(val))
 
 
@@ -90,7 +115,7 @@ def band_energy_fraction(x: torch.Tensor, dt: float,
                          f_lo: float, f_hi: float) -> torch.Tensor:
     """Fraction of total AC spectral energy inside [f_lo, f_hi]."""
     freqs, mag = spectrum(x, dt)
-    e = mag ** 2
+    e = row_aligned(mag ** 2)
     return _band_fraction(e, e[:, 1:].sum(-1), freqs, f_lo, f_hi)
 
 
@@ -121,7 +146,7 @@ def critical_band_report(x: torch.Tensor, dt: float
     """The paper's bands: <1 Hz (inter-area), 1-2.5 Hz (plant coupling),
     7-100 Hz (shaft torsional), on one rfft per row."""
     freqs, mag = spectrum(x, dt)
-    e = mag ** 2
+    e = row_aligned(mag ** 2)
     tot = e[:, 1:].sum(-1)
     return {
         "sub_1hz": _band_fraction(e, tot, freqs, 0.05, 1.0),

@@ -35,7 +35,14 @@ solved configurations as ``designed=True`` records in the same schema.
 
 ``device=None`` means ``"cuda"``, and a run without a card raises unless
 the caller asked for ``device="cpu"`` (the kernels' plain versions).
-Scenario sharding (``plan=``) is not ported yet.
+
+``Study(plan=ScenarioShardPlan...)`` (or ``shard_devices=True``: every
+local card) shards the scenario axis across devices and processes
+(``repro_torch.parallel``): each computes its rows of every chunk, the
+per-row metrics are merged on the host, and every process ends with the
+same ``StudyResult``, equal to a one-process run's.  Under a plan that
+spans processes, ``on_chunk`` and checkpoint writes happen on process 0
+only.
 """
 from __future__ import annotations
 
@@ -50,9 +57,10 @@ from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
 import numpy as np
 import torch
 
-from repro_torch.ckpt.resume import SweepCheckpoint
+from repro_torch.ckpt.resume import ResumeError, SweepCheckpoint
 from repro_torch.core import prng
-from repro_torch.core.engine import StreamChunk, design, stream_batches
+from repro_torch.core.engine import (StreamChunk, _resolve_plan, design,
+                                     stream_batches)
 from repro_torch.core.hardware import DEFAULT_HW, Hardware
 from repro_torch.core.phases import IterationTimeline
 from repro_torch.core.smoothing.base import structure
@@ -62,17 +70,14 @@ from repro_torch.core.stratosim import SimResult
 from repro_torch.core.waveform import (WaveformConfig, job_waveform,
                                        phase_levels)
 from repro_torch.device import resolve_device
+from repro_torch.parallel import distributed
+from repro_torch.parallel.collectives import gather_parts
+from repro_torch.parallel.sharding import ScenarioShardPlan
 
 PADDING_MODES = ("auto", "pad", "bucket")
 
 # chunk size of Study.run(stream=True)
 DEFAULT_STREAM_CHUNK = 512
-
-NOT_PORTED = {
-    "plan": "scenario sharding (plan=, shard_devices=) is not ported yet: "
-            "ROADMAP queue A, parallel/",
-}
-
 
 # ---------------------------------------------------------------------------
 # axis declarations
@@ -162,6 +167,12 @@ def _as_seq(x) -> list:
 # row-level execution
 # ---------------------------------------------------------------------------
 
+def _is_primary() -> bool:
+    """Process 0 owns side effects (progress callbacks, checkpoint
+    writes); a run in one process is always primary."""
+    return distributed.is_primary()
+
+
 def _structure_groups(rows) -> List[List[int]]:
     """Row indices grouped by (device, rack) structure.  A None stage is a
     wildcard: it takes the first concrete structure of its stage."""
@@ -178,6 +189,19 @@ def _structure_groups(rows) -> List[List[int]]:
              struct(c.rack) if c.rack is not None else rack_first)
         groups.setdefault(k, []).append(r)
     return list(groups.values())
+
+
+def _same_on_every_process(plan: Optional[ScenarioShardPlan], call: str,
+                           skip: int) -> None:
+    """Raise unless every process restored the same rows of a call
+    stream from the resume directory."""
+    if plan is None or plan.n_processes <= 1:
+        return
+    skips = gather_parts([skip], plan)
+    if len(set(skips)) > 1:
+        raise ResumeError(f"call stream {call}: the processes restored "
+                          f"different row counts {skips} from the resume "
+                          "directory")
 
 
 def _chunk_size(stream) -> Optional[int]:
@@ -201,7 +225,8 @@ def run_rows(workloads: Mapping[str, IterationTimeline],
              sample_chips: int = 64,
              on_chunk: Optional[Callable[[int, int, float], None]] = None,
              resume: Optional[str] = None, keep_waveforms: bool = False,
-             device=None) -> "StudyResult":
+             plan: Optional[ScenarioShardPlan] = None,
+             shard_devices: bool = False, device=None) -> "StudyResult":
     """Run an explicit list of pipeline rows ``(workload_name, n_chips,
     MitigationConfig, seed)`` and return the columnar ``StudyResult``
     (record ``r * len(specs) + si`` is row ``r`` under spec ``si``).
@@ -217,8 +242,17 @@ def run_rows(workloads: Mapping[str, IterationTimeline],
     or a corrupt checkpoint raises ``ResumeError``.  ``resume`` needs
     ``stream`` and excludes ``keep_waveforms`` (waveforms are not
     checkpointed), which keeps every row's waveforms for
-    ``StudyResult.sim_result``."""
+    ``StudyResult.sim_result``.
+
+    ``plan`` / ``shard_devices`` shard every chunk's rows across devices
+    and processes (``engine.stream_batches``); every process calls this
+    with the same rows and gets the same result.  Progress is global and
+    primary-only: ``on_chunk`` counts the rows of the whole grid and runs
+    on process 0 alone, which alone writes checkpoints; every process
+    restores the same finished chunks (checked across processes)."""
     dev = resolve_device(device)
+    plan = _resolve_plan(plan, shard_devices, dev)
+    primary = _is_primary()
     cfg = wave_cfg or WaveformConfig()
     if padding not in PADDING_MODES:
         raise ValueError(f"padding must be one of {PADDING_MODES}")
@@ -248,7 +282,9 @@ def run_rows(workloads: Mapping[str, IterationTimeline],
         ckpt.validate_or_init(workloads=workloads, rows=rows, specs=specs,
                               keys=keys, cfg=cfg, hw=hw, mode=mode,
                               sample_chips=sample_chips,
-                              chunk_size=chunk_size)
+                              chunk_size=chunk_size, write=primary)
+    if not primary:
+        on_chunk = None
     cols = _empty_columns(len(rows) * len(specs))
     waveforms = [None] * len(rows) if keep_waveforms else None
     total, done = len(rows), 0
@@ -268,6 +304,7 @@ def run_rows(workloads: Mapping[str, IterationTimeline],
             skip = 0
             if ckpt is not None:
                 skip = ckpt.restore_call(call_key, idx, cs, cols, len(specs))
+                _same_on_every_process(plan, call_key, skip)
                 if skip:
                     done += skip
                     if on_chunk is not None:
@@ -287,7 +324,7 @@ def run_rows(workloads: Mapping[str, IterationTimeline],
                     levels=[levels[rows[r][0]] for r in idx],
                     pad_to=max(lens) if len(lens) > 1 else None,
                     chunk_size=cs, bands=True, skip_rows=skip,
-                    keep_waveforms=keep_waveforms, device=dev):
+                    keep_waveforms=keep_waveforms, plan=plan, device=dev):
                 _fill_chunk(cols, rows, row_len, idx, ch, specs=specs,
                             workloads=workloads)
                 if waveforms is not None:
@@ -297,7 +334,7 @@ def run_rows(workloads: Mapping[str, IterationTimeline],
                             "t": np.arange(L) * cfg.dt,
                             "dc_raw": ch.dc_raw[j, :L],
                             "dc_mitigated": ch.dc_mitigated[j, :L]}
-                if ckpt is not None:
+                if ckpt is not None and primary:
                     ckpt.save_chunk(call_key, idx, ch.start, ch.stop, cols,
                                     len(specs))
                 done += len(ch)
@@ -368,7 +405,8 @@ class Study:
     ``key`` is the PRNG root: an int seed, or a key (a tensor or array of
     two uint32 words, the port's form of a JAX key); pipeline row ``r``
     draws from ``fold_in(root, r)``.  ``None`` gives every row the shared
-    draw.
+    draw.  ``plan`` (a ``ScenarioShardPlan``) or ``shard_devices=True``
+    (every local card) shards the scenario axis (``run_rows``).
     """
 
     def __init__(self, workloads, *, fleets=(512,), configs=None,
@@ -376,11 +414,10 @@ class Study:
                  wave_cfg: Optional[WaveformConfig] = None,
                  hw: Hardware = DEFAULT_HW, key=0, padding: str = "auto",
                  sample_chips: int = 64, keep_waveforms: bool = False,
-                 device=None, plan=None):
+                 device=None, plan: Optional[ScenarioShardPlan] = None,
+                 shard_devices: bool = False):
         if padding not in PADDING_MODES:
             raise ValueError(f"padding must be one of {PADDING_MODES}")
-        if plan is not None:
-            raise NotImplementedError(NOT_PORTED["plan"])
         self.workloads = _as_workloads(workloads)
         self.fleets = [int(n) for n in _as_seq(fleets)]
         self.configs = _as_configs(configs)
@@ -393,6 +430,8 @@ class Study:
         self.sample_chips = sample_chips
         self.keep_waveforms = keep_waveforms
         self.device = device
+        self.plan = plan
+        self.shard_devices = shard_devices
         names = [c.name for c in self.configs]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate config names: {names}")
@@ -446,7 +485,8 @@ class Study:
         structure group (and per length in bucket mode), each in one chunk
         (``stream`` None or False), in chunks of ``DEFAULT_STREAM_CHUNK``
         rows (True) or of ``stream`` rows, the same records bit for bit
-        either way.  ``on_chunk`` and ``resume`` as in ``run_rows``."""
+        either way, and under the study's plan too.  ``on_chunk`` and
+        ``resume`` as in ``run_rows``."""
         rows = self.rows()
         keys = (None if self.key is None else
                 list(prng.fold_in(self.key,
@@ -456,6 +496,7 @@ class Study:
                         padding=padding or self.padding, stream=stream,
                         sample_chips=self.sample_chips, on_chunk=on_chunk,
                         resume=resume, keep_waveforms=self.keep_waveforms,
+                        plan=self.plan, shard_devices=self.shard_devices,
                         device=self.device)
 
     def optimize(self, *, method: str = "hybrid", seed: Optional[int] = None,

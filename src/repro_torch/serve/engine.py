@@ -24,8 +24,8 @@ def make_serve_step(cfg: ModelConfig, plan=None):
     """decode_step(params, inp, cache, index) -> (logits, cache)."""
     if plan is not None:
         raise NotImplementedError(
-            "a sharding plan is not ported yet: ROADMAP queue A, parallel/ "
-            "on torch.distributed")
+            "a model sharding plan (the reference's parallel/ Plan) is not "
+            "ported yet: ROADMAP queue A, sharding the model across cards")
     decode = make_decode_step(cfg)
 
     def serve_step(params, inp, cache, index):

@@ -166,16 +166,27 @@ def test_model_entry_points_without_a_card_raise_unless_cpu_is_asked(
     assert _model_entry(name, "cpu") is not None
 
 
-def test_unported_options_raise():
-    """Sharding still raises, naming its queue item by title;
+def test_unported_options_raise(tmp_path):
+    """Model sharding still raises, naming its queue item by title; the
+    scenario mesh (``Study(plan=)``, ``restore_pytree(shardings=)``),
     ``Study.optimize`` and a relaxed (``smooth_tau > 0``) Study, which
-    raised before the design path was ported, run."""
+    raised before their slices were ported, run."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import make_serve_step
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
-                  plan=object())
-    from repro_torch.ckpt import restore_pytree
+        make_serve_step(get_config("granite-3-8b"), plan=object())
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        restore_pytree("ckpt", {}, shardings={})
+        get_config("qwen1.5-110b")
+    plan = api.ScenarioShardPlan.make(["cpu", "cpu"])
+    sharded = api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
+                        wave_cfg=api.WaveformConfig(dt=0.01, steps=2),
+                        plan=plan)
+    assert len(sharded.run()) == 1
+    from repro_torch.ckpt import restore_pytree, save_pytree
+    save_pytree(str(tmp_path / "ckpt"), {"a": np.ones(2)}, step=0)
+    tree, _ = restore_pytree(str(tmp_path / "ckpt"), {"a": 0},
+                             shardings={"a": "cpu"})
+    assert tree["a"].device == torch.device("cpu")
     study = api.Study({"w": api.synthetic_timeline(1.0)}, device="cpu",
                       wave_cfg=api.WaveformConfig(dt=0.01, steps=2))
     assert len(study.optimize()) == 0          # no spec: no design cell
@@ -347,13 +358,27 @@ def test_rules_cover_the_serve_slice():
         assert ROOT / "src" / "repro_torch" / module in files
 
 
-def test_api_covers_the_reference_api_but_sharding():
-    """``repro_torch.api`` exports every name of ``repro.api`` except the
-    scenario-sharding pair, which comes with ``parallel/``."""
+def test_api_exports_every_name_of_the_reference_api():
+    """``repro_torch.api`` exports every name of ``repro.api`` (47 of 47
+    since the scenario mesh's pair, ``ScenarioShardPlan`` and
+    ``scenario_plan``, came with ``parallel/``), and each is defined."""
     from repro import api as ref_api
-    missing = set(ref_api.__all__) - set(api.__all__)
-    assert missing == {"ScenarioShardPlan", "scenario_plan"}
+    assert set(ref_api.__all__) <= set(api.__all__)
+    assert len(ref_api.__all__) == 47
     assert all(hasattr(api, name) for name in api.__all__)
+
+
+def test_rules_cover_the_parallel_slice():
+    """The import rule's walk reaches the scenario mesh's modules, and
+    none of them imports ``jax`` or ``repro``."""
+    files = _port_files()
+    for module in ("parallel/__init__.py", "parallel/sharding.py",
+                   "parallel/distributed.py", "parallel/collectives.py"):
+        path = ROOT / "src" / "repro_torch" / module
+        assert path in files
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in ("jax", "repro")]
+        assert not bad, (module, bad)
 
 
 def _serve_entry(name, device, tmp_path):

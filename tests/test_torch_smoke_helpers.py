@@ -134,12 +134,12 @@ def test_witness_compare_sees_one_ulp_in_each_output(out):
 
 
 @pytest.mark.parametrize("recorded_on,want", [(0, 0.015), (2, 0.015),
-                                              (None, None)])
+                                              (4, 0.015), (None, None)])
 def test_device_ms_profiles_again_then_reports_not_measured(
         monkeypatch, recorded_on, want):
-    """A profile that records no launch of the kernel is taken again (the
-    third time with device activity alone); when none records one, the
-    device time is None, not a failure."""
+    """A profile that records no launch of the kernel is taken again (from
+    the third time on with device activity alone), five times in all;
+    when none records one, the device time is None, not a failure."""
     import torch
     profiles = []
 
@@ -171,10 +171,10 @@ def test_device_ms_profiles_again_then_reports_not_measured(
     got = chip_smoke.device_ms(FakeTorch, lambda: calls.append(1),
                                "monitor_kernel", repeat=20)
     assert got == want
-    assert len(profiles) == (3 if recorded_on is None else recorded_on + 1)
+    assert len(profiles) == (5 if recorded_on is None else recorded_on + 1)
     assert len(calls) == 1 + 20 * len(profiles)
-    if len(profiles) == 3:
-        assert profiles[2].activities == [torch.profiler.ProfilerActivity.CUDA]
+    for p in profiles[2:]:
+        assert p.activities == [torch.profiler.ProfilerActivity.CUDA]
 
 
 def test_kernel_device_total_sums_time_and_launches():
@@ -788,3 +788,46 @@ def test_phase20_timeline_key_drops_latency_amplitude_and_margin():
                                              "dispatch:redesign"]
     assert chip_smoke.timeline_key(a) != chip_smoke.timeline_key(
         a.replace("  1   104", "  2   104"))
+
+
+def _mesh_reports(primary, other):
+    return [{"calls": {"grid": primary}}, {"calls": {"grid": other}}]
+
+
+def test_phase21_progress_gate_wants_process_zero_alone_to_the_end():
+    ok = [[16, 128], [64, 128], [128, 128]]
+    chip_smoke.mesh_progress_gate(_mesh_reports(ok, []), "grid", 128)
+    chip_smoke.mesh_progress_gate(_mesh_reports(ok, []), "grid", 128,
+                                  first=16)
+    with pytest.raises(AssertionError, match="non-primary"):
+        chip_smoke.mesh_progress_gate(_mesh_reports(ok, [[16, 128]]),
+                                      "grid", 128)
+    with pytest.raises(AssertionError, match="does not end"):
+        chip_smoke.mesh_progress_gate(_mesh_reports(ok[:2], []), "grid",
+                                      128)
+    with pytest.raises(AssertionError, match="does not end"):
+        chip_smoke.mesh_progress_gate(
+            _mesh_reports([[16, 100], [128, 128]], []), "grid", 128)
+    with pytest.raises(AssertionError, match="restored"):
+        chip_smoke.mesh_progress_gate(_mesh_reports(ok, []), "grid", 128,
+                                      first=32)
+
+
+def test_phase21_records_travel_through_a_pickle_bit_for_bit(tmp_path):
+    import numpy as np
+    from repro_torch import api
+    res = api.StudyResult({"index": np.arange(2), "x": np.array([np.nan,
+                                                                1.5]),
+                           "violations": np.array([(), ("a",)], object)})
+    path = tmp_path / "cols.pkl"
+    chip_smoke.save_columns(res, str(path))
+    got = chip_smoke.load_result(api, str(path))
+    assert chip_smoke.columns_equal(got, res) == []
+
+
+def test_phase21_worker_mode_is_wired_into_main():
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    assert '"--mesh-worker"' in src and "mesh_phase(" in src
+    assert chip_smoke.MESH_PREFIX < 128 and chip_smoke.MESH_PROCESSES == 2
+    assert chip_smoke.MESH_ELEMENTS % 256 == 0
