@@ -31,7 +31,8 @@ width (random f32 params from seed 0) prefilling 4 x 4096 tokens on the
 flash route (40 launches of F) and on the chunked route the reference
 serves on, the two compared; ``ServeEngine.generate`` of 32 greedy tokens
 against 32 tokens decoded from the flash route's cache; and the model cut
-to 2 layers in f32, run on the card and on the CPU.  Last (phase 15), the
+to 2 layers in f32, run on the card and on the CPU.  Phase 22 (below)
+serves dbrx-132b and deepseek-v2-lite-16b the same way.  Last (phase 15), the
 three kernels that only the reference's own entry points reach:
 ``bin_power`` (kernel H) on the 600 s replay, on it cut to leave a
 2765-sample tail window, on the 48 s ramp and on "day" (the 600 s trace
@@ -120,6 +121,36 @@ total``, B, C, D and A launched in each worker and no other kernel, the
 all-reduce equal to the mean of both ranks' dequantized payloads.  (c)
 ``python -m repro_torch.parallel.distributed --smoke`` as a subprocess
 beside (b), printing its OK line.
+Phase 22, right after phase 14: sparse experts and latent attention at
+the published widths, the depth cut to one card.  Kernel F at the two
+models' prefill shapes (q [4, 4096, 8, 6, 128] and MLA's [4, 4096, 16,
+1, 192] with Dv 128, bf16) against its plain version and the float64
+oracle.  (a) dbrx-132b with 4 of its 40 repeats, random bf16 params from
+seed 0 drawn on the card, and (b) deepseek-v2-lite-16b with its dense
+first layer and 8 of its 26 repeats, f32 params: one MoE layer's
+``moe_forward`` (dropless) against ``moe_forward_ref`` on 512 tokens;
+prefills of 4 x 4096 on the flash route (F once a layer: 4 and 9
+launches) and the chunked route (none), two runs of each equal bit for
+bit, their first layer's caches equal, and a free-running run of each
+with every MoE call's routing recorded (the routing rule: a token at a
+margin under 1e-5 between its k-th and (k+1)-th probabilities, whose
+experts differ, or whose kept slots differ because the capacity's edge
+moved, is set aside and counted; the other rows' last logits within
+2^-5); the routes walked layer by layer, each layer given the same input
+on both (its outputs within 2^-5 of max |.| past the routing rule's
+tokens, whose experts may differ only at a margin under 2^-7);
+``ServeEngine.generate`` of 32 greedy tokens against the flash route's
+own decode (the parting step and top-2 gap reported), then the engine's
+tokens fed teacher-forced through decode from both routes' caches (the
+chunked one's logits equal to the engine's bit for bit, the flash one's
+within 2^-5 past the routing rule's steps); decode ms per step beside
+its byte bound (the weights a step uses, the routed experts its tokens
+chose, and the cache read once, over 3.35 TB/s); a profiled flash
+prefill and four profiled decode steps; and each model's peak memory.
+(c) deepseek-v2-lite-16b with its prefix and 1 repeat in f32, a prefill
+of 1 x 256 and 4 greedy decode steps on the card and on the CPU (params
+from a CPU generator), logits within 1e-4 under the routing rule (no
+expert may differ at a wider margin), tokens equal.
 It prints:
 
   * the card's name and power limit (``nvidia-smi``);
@@ -153,7 +184,11 @@ It prints:
     bound and ``F.scaled_dot_product_attention``'s time, prefill walls,
     tokens/s,
     peak memory, the routes' gaps, the device busy share of a profiled
-    prefill, decode ms per token, and the CPU re-run's gaps;
+    prefill, decode ms per token, and the CPU re-run's gaps; for phase
+    22 also the routing rule's counts by layer (near ties, experts that
+    differ and their widest margin, moved capacity edges, dropped
+    slots), the teacher-forced decode's gaps, the decode bound and the
+    experts a step used;
   * for kernels G, H and I: errors, ``ms``, ``plain_ms``, ``bound_ms``,
     ``library_ms``, ``ptxas`` lines and launches on every path (H also its
     route and ``chain_floor_ms``); for G
@@ -2205,10 +2240,16 @@ def prefill_phase(torch, build, cfg, params, tokens):
                 "logit_gap": logit_gap, "busy_share": busy / wall}}
 
 
-def serve_phase(torch, build, cfg, params, tokens, flash_out):
-    """Phase 13: ServeEngine.generate (the chunked route, as the reference
-    serves) on the prompts, greedy; then the same number of greedy tokens
-    decoded from the flash route's cache, compared row by row."""
+def serve_phase(torch, build, cfg, params, tokens, flash_out, tag="serve",
+                gate_parting=True):
+    """Phase 13 (and 22's serving): ServeEngine.generate (the chunked
+    route, as the reference serves) on the prompts, greedy; then the same
+    number of greedy tokens decoded from the flash route's cache, compared
+    row by row.  With ``gate_parting`` the two may part only where
+    ServeEngine's top-2 logits are within ROUTE_TOL of max |logit|; a
+    routed model's caches differ at the tokens its routing rule sets
+    aside, so phase 22 reports the parting and gates a teacher-forced
+    decode instead (``zoo_decode_compare``)."""
     from repro_torch.models import make_decode_step
     from repro_torch.serve import ServeEngine
     B, S = tokens.shape
@@ -2235,7 +2276,7 @@ def serve_phase(torch, build, cfg, params, tokens, flash_out):
     counts = build.launch_counts()
     launches = counts["flash_fwd"]
     dec = rec["decode"]
-    log(f"[serve] ServeEngine.generate {B} x ({S} + {NEW_TOKENS}): "
+    log(f"[{tag}] ServeEngine.generate {B} x ({S} + {NEW_TOKENS}): "
         f"{wall_ms:.1f} ms, prefill {rec['prefill'][0]:.1f} ms, decode "
         f"p50 {pctl(dec, 50):.2f} ms max {max(dec):.2f} ms per step, "
         f"{B * NEW_TOKENS / wall_ms * 1e3:.1f} generated tokens/s "
@@ -2254,7 +2295,7 @@ def serve_phase(torch, build, cfg, params, tokens, flash_out):
         logits, cache = decode(params, tok[:, None], cache, S + i)
         tok = torch.argmax(logits[:, -1], dim=-1)
     own = torch.stack(own, 1).to(served.dtype)
-    leads = []
+    leads, partings = [], []
     for b in range(B):
         diff = (own[b] != served[b]).nonzero()
         lead = NEW_TOKENS if len(diff) == 0 else int(diff[0])
@@ -2264,19 +2305,23 @@ def serve_phase(torch, build, cfg, params, tokens, flash_out):
             top2 = torch.topk(lg[b], 2).values
             gap = (top2[0] - top2[1]).item()
             limit = ROUTE_TOL * lg.abs().max().item()
-            log(f"[serve] row {b}: the flash route's tokens part at step "
+            partings.append({"row": b, "step": lead, "top2_gap": gap,
+                             "limit": limit})
+            log(f"[{tag}] row {b}: the flash route's tokens part at step "
                 f"{lead}, where ServeEngine's top-2 logit gap is {gap:.4g} "
-                f"(limit {limit:.4g})")
-            if gap > limit:
+                f"({'limit' if gate_parting else 'not gated; ROUTE_TOL:'} "
+                f"{limit:.4g})")
+            if gap > limit and gate_parting:
                 raise AssertionError("the routes' tokens part where the "
                                      "logits are not near a tie")
-    log(f"[serve] flash-route decode vs ServeEngine: leading equal tokens "
+    log(f"[{tag}] flash-route decode vs ServeEngine: leading equal tokens "
         f"per row {leads} of {NEW_TOKENS}")
     return {"generate_ms": wall_ms, "prefill_ms": rec["prefill"][0],
             "decode_p50_ms": pctl(dec, 50), "decode_max_ms": max(dec),
             "tokens_per_s": B * NEW_TOKENS / wall_ms * 1e3,
             "decode_tokens_per_s": B * NEW_TOKENS / sum(dec) * 1e3,
-            "leading_equal_tokens": leads, "launches": counts}
+            "leading_equal_tokens": leads, "partings": partings,
+            "launches": counts, "served": served, "logits": rec["logits"]}
 
 
 def cpu_rerun_phase(torch, build, cfg_full):
@@ -2342,7 +2387,7 @@ def model_phases(torch, build, kernels, earlier_f_counts):
         0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).to(DEVICE)
     pre = prefill_phase(torch, build, cfg, params, tokens)
     serve = serve_phase(torch, build, cfg, params, tokens, pre["flash"])
-    del params, pre["flash"]
+    del params, pre["flash"], serve["served"], serve["logits"]
     torch.cuda.empty_cache()
     rerun = cpu_rerun_phase(torch, build, cfg)
     f_row["launches"] = pre["launches"]["flash"]["flash_fwd"]
@@ -2357,6 +2402,624 @@ def model_phases(torch, build, kernels, earlier_f_counts):
         k["launches_by_path"].update({p: c[nm] for p, c in paths.items()})
     return {"prefill": pre["summary"], "serve": serve, "cpu_rerun": rerun,
             "launches": paths}
+
+
+# ---------------------------------------------------------------------------
+# phase 22: sparse experts and latent attention at the published widths
+# (dbrx-132b, deepseek-v2-lite-16b), depth cut to what one card holds
+# ---------------------------------------------------------------------------
+
+# (arch, repeats kept): dbrx 4 of its 40 (bf16, 28.5 GB), deepseek its
+# dense first layer and 8 of its 26 (f32, 20.7 GB)
+ZOO = (("dbrx-132b", 4), ("deepseek-v2-lite-16b", 8))
+# kernel F at the two models' prefill shapes: q [B, S, KV, G, D], Dv
+ZOO_FLASH_SHAPES = {"dbrx-132b": ((PREFILL_B, PREFILL_S, 8, 6, 128), 128),
+                    "deepseek-v2-lite-16b": ((PREFILL_B, PREFILL_S, 16, 1,
+                                              192), 128)}
+MOE_CHECK_TOKENS = 512    # moe_forward against moe_forward_ref, dropless
+MOE_TOL = 2.0 ** -5       # of max |moe_forward_ref|, in the prefill's bf16
+NEAR_TIE = 1e-5           # routing margin (k-th minus (k+1)-th probability)
+                          # under which a token is set aside
+FLIP_MARGIN = 2.0 ** -7   # bf16: the widest margin at which the two routes'
+                          # experts for a token may differ
+PROFILED_STEPS = 4        # decode steps under torch.profiler
+# (c): deepseek at full width with its prefix and 1 repeat, f32, on the
+# card and on the CPU: a prefill of 1 x 256 and 4 greedy decode steps
+ZOO_RERUN = ("deepseek-v2-lite-16b", 1, 256, 4)
+
+
+def zoo_layers(cfg, params):
+    """(spec, params) of every layer in order: the prefix, then the unit
+    of each repeat."""
+    from repro_torch.models.model import _at
+    out = list(zip(cfg.prefix, params["prefix"]))
+    for r in range(cfg.n_repeats):
+        out += [(spec, _at(params["unit"][i], r))
+                for i, spec in enumerate(cfg.unit)]
+    return out
+
+
+def layer_parts(spec, p, x, ctx):
+    """``apply_layer``'s steps: the layer's output and its FFN's input."""
+    from repro_torch.models import model as M
+    eps = ctx.cfg.norm_eps
+    h, _ = M._apply_mixer(spec, p["mix"], M.rms_norm(x, p["norm1"], eps),
+                          ctx)
+    mid = x + h
+    r = M.rms_norm(mid, p["norm2"], eps)
+    f, _, _ = M._apply_ffn(spec, p["ffn"], r, ctx)
+    return mid + f, r
+
+
+def routing(torch, cfg, p_ffn, r, dropless):
+    """The router on FFN inputs ``r``: each token's experts, the experts
+    that keep it (the dispatch ranks a token in an expert by token order
+    and keeps the first C; a dropped one reads -1), both ascending, and
+    the margin between its k-th and (k+1)-th probabilities."""
+    from repro_torch.models.moe import capacity, route
+    k = cfg.moe.top_k
+    xt = r.reshape(-1, r.shape[-1])
+    probs, _, idx = route(xt, p_ffn["router"], k)
+    top = torch.topk(probs, k + 1, dim=-1).values
+    hot = torch.zeros(probs.shape, dtype=torch.int32, device=r.device)
+    hot.scatter_(1, idx, 1)
+    rank = (torch.cumsum(hot, 0) - hot).gather(1, idx)
+    C = capacity(cfg, xt.shape[0], dropless)
+    kept = torch.where(rank < C, idx, -1)
+    return (idx.sort(dim=1).values, kept.sort(dim=1).values,
+            top[:, k - 1] - top[:, k])
+
+
+class RecordRoutes:
+    """Within ``with``, every ``moe_forward`` call records its tokens'
+    ``routing`` in ``calls``, on the CPU."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+        self.mod, self.orig = moe_mod, moe_mod.moe_forward
+
+        def rec(p, x, cfg, ctx=None):
+            dropless = ctx is not None and ctx.dropless
+            self.calls.append(tuple(t.cpu() for t in routing(
+                self.torch, cfg, p, x, dropless)))
+            return self.orig(p, x, cfg, ctx)
+        moe_mod.moe_forward = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_forward = self.orig
+
+
+def routes_compare(torch, a, b):
+    """Two ``routing``s of the same tokens: the tokens at a margin under
+    NEAR_TIE on either side, the tokens whose experts differ, the tokens
+    whose experts agree but whose kept slots differ (a token that chose
+    another expert earlier in the order moved the capacity's edge), and
+    each token's smaller margin."""
+    margin = torch.minimum(a[2], b[2])
+    near = margin < NEAR_TIE
+    flip = (a[0] != b[0]).any(1)
+    moved = (a[1] != b[1]).any(1) & ~flip
+    return near, flip, moved, margin
+
+
+def moe_check(torch, cfg, params):
+    """One MoE layer's ``moe_forward`` (dropless) against its plain version
+    ``moe_forward_ref`` on MOE_CHECK_TOKENS tokens at the full width, in
+    the prefill's dtype, with their times."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import Ctx
+    spec, p = next((s, p) for s, p in zoo_layers(cfg, params)
+                   if s.ffn == "moe")
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    x = torch.randn((1, MOE_CHECK_TOKENS, cfg.d_model), generator=gen,
+                    device=DEVICE).to(getattr(torch, cfg.compute_dtype))
+    ctx = Ctx(cfg=cfg, dropless=True)
+    (got, aux), ms = timed_once(
+        torch, lambda: moe_mod.moe_forward(p["ffn"], x, cfg, ctx))
+    ref, ref_ms = timed_once(
+        torch, lambda: moe_mod.moe_forward_ref(p["ffn"], x, cfg))
+    again, _ = moe_mod.moe_forward(p["ffn"], x, cfg, ctx)
+    scale = ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    row = {"tokens": MOE_CHECK_TOKENS, "dtype": cfg.compute_dtype,
+           "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+           "shared": cfg.moe.n_shared, "max_abs_err": err,
+           "rel_err": err / scale, "tolerance": MOE_TOL, "ms": ms,
+           "plain_ms": ref_ms, "aux": aux.item(),
+           "bitwise_rerun": torch.equal(got, again)}
+    log(f"[{cfg.name}] moe_forward vs moe_forward_ref on {MOE_CHECK_TOKENS} "
+        f"tokens (dropless, {cfg.compute_dtype}, {cfg.moe.n_experts} experts"
+        f" top-{cfg.moe.top_k}, {cfg.moe.n_shared} shared): "
+        f"{err / scale:.3g} of max |plain| (tol {MOE_TOL:.3g}); {ms:.2f} ms "
+        f"(plain {ref_ms:.2f} ms, cold); rerun bitwise {row['bitwise_rerun']}")
+    if (err > MOE_TOL * scale or not row["bitwise_rerun"]
+            or not torch.isfinite(got).all()):
+        raise AssertionError(f"[{cfg.name}] moe_forward disagrees with "
+                             "moe_forward_ref or with itself")
+    return row
+
+
+def zoo_prefill(torch, build, cfg, params, tokens):
+    """Both routes' prefills, cold (launch counts from 0) and warm; the two
+    runs of each equal bit for bit; their first layer's caches equal; and
+    a third run of each, free-running with every MoE call's routing
+    recorded: a row whose last token the routing rule sets aside at some
+    layer is counted, every other row's last logits are held within
+    ROUTE_TOL."""
+    from repro_torch.models import Ctx, init_cache, make_prefill
+    B, S = tokens.shape
+    prefill = make_prefill(cfg)
+    cache0 = init_cache(cfg, B, S + NEW_TOKENS, torch.float32, DEVICE)
+    out = {}
+    for flash in (True, False):
+        ctx = Ctx(cfg=cfg, flash=flash)
+        tag = "flash" if flash else "chunked"
+        build.reset_launch_counts()
+        (logits, cache), cold_ms = timed_once(
+            torch, lambda: prefill(params, {"tokens": tokens}, cache0, ctx))
+        launches = build.launch_counts()
+        (logits_w, cache_w), warm_ms = timed_once(
+            torch, lambda: prefill(params, {"tokens": tokens}, cache0, ctx))
+        same = torch.equal(logits, logits_w) and all(
+            torch.equal(a[n], b[n])
+            for a, b in zip(cache["prefix"] + list(cache["unit"]),
+                            cache_w["prefix"] + list(cache_w["unit"]))
+            for n in a)
+        del cache_w
+        log(f"[{cfg.name} prefill {tag}] B {B} x S {S}: cold {cold_ms:.1f} "
+            f"ms, warm {warm_ms:.1f} ms ({B * S / warm_ms * 1e3:.0f} "
+            f"tokens/s); two runs bitwise {same}; launches "
+            + json.dumps(launches))
+        if launches["flash_fwd"] != (cfg.n_layers if flash else 0):
+            raise AssertionError(f"[{cfg.name} prefill {tag}] kernel F "
+                                 f"launched {launches['flash_fwd']} times")
+        if not same:
+            raise AssertionError(f"[{cfg.name} prefill {tag}] two runs "
+                                 "differ")
+        if (tuple(logits.shape) != (B, 1, cfg.vocab_size)
+                or not torch.isfinite(logits).all()):
+            raise AssertionError(f"[{cfg.name} prefill {tag}] logits are not "
+                                 "finite [B, 1, V]")
+        out[tag] = {"logits": logits, "cache": cache, "cold_ms": cold_ms,
+                    "warm_ms": warm_ms, "launches": launches}
+    # free-running, the routes' MoE calls recorded: the tokens that either
+    # route's routing rule sets aside at some layer
+    recs = {}
+    for flash in (True, False):
+        with RecordRoutes(torch) as rec:
+            prefill(params, {"tokens": tokens}, cache0,
+                    Ctx(cfg=cfg, flash=flash))
+        recs[flash] = rec.calls
+    wall, busy, top = profile_device(torch, lambda: prefill(
+        params, {"tokens": tokens}, cache0, Ctx(cfg=cfg, flash=True)))
+    log(f"[{cfg.name} prefill flash] profiled run {wall:.3f} s, device busy "
+        f"{busy:.3f} s ({100 * busy / wall:.1f}% of the traced wall)")
+    for ms, cnt, key in top:
+        log(f"  {ms:10.3f} ms {cnt:6d}x {key[:110]}")
+    del cache0
+    aside = torch.zeros(B * S, dtype=torch.bool)
+    aside_by_layer = []
+    for a, b in zip(recs[True], recs[False]):
+        near, flip, moved, _ = routes_compare(torch, a, b)
+        aside_by_layer.append(int((near | flip | moved).sum()))
+        aside |= near | flip | moved
+    last_aside = aside.view(B, S)[:, -1]
+    f, c = out["flash"], out["chunked"]
+    row_gaps = ((f["logits"].float() - c["logits"].float()).abs().amax(
+        (1, 2)) / c["logits"].float().abs().max()).cpu()
+    trees = list(zip(f["cache"]["prefix"] + list(f["cache"]["unit"]),
+                     c["cache"]["prefix"] + list(c["cache"]["unit"])))
+    first = trees[0][0] if cfg.prefix else {
+        n: t[0] for n, t in trees[0][0].items()}
+    first_c = trees[0][1] if cfg.prefix else {
+        n: t[0] for n, t in trees[0][1].items()}
+    layer0 = all(torch.equal(first[n], first_c[n]) for n in first)
+    cache_gap = max(rel_gap(torch, a[n], b[n]) for a, b in trees for n in a)
+    logit_gap = float(row_gaps[~last_aside].max()) if (
+        ~last_aside).any() else 0.0
+    log(f"[{cfg.name} prefill] flash vs chunked route: first layer's cache "
+        f"bitwise {layer0}; caches within {cache_gap:.3g} of their max |.| "
+        f"(all layers, the routing rule's tokens included); tokens set "
+        f"aside by the routing rule, free-running, per MoE layer "
+        f"{aside_by_layer} ({int(aside.sum())} of {B * S} in all); last "
+        f"logits per row {[round(float(g), 5) for g in row_gaps]} of max "
+        f"|logit|, the row's last token set aside "
+        f"{last_aside.tolist()}; the others within {logit_gap:.3g} (tol "
+        f"{ROUTE_TOL:.3g})")
+    if not layer0 or logit_gap > ROUTE_TOL:
+        raise AssertionError(f"[{cfg.name}] the flash and chunked routes "
+                             "disagree")
+    return {"flash": f, "chunked_cache": c["cache"],
+            "launches": {"flash": f["launches"], "chunked": c["launches"]},
+            "summary": {"B": B, "S": S, "layers": cfg.n_layers,
+                        "flash_warm_ms": f["warm_ms"],
+                        "chunked_warm_ms": c["warm_ms"],
+                        "flash_cold_ms": f["cold_ms"],
+                        "chunked_cold_ms": c["cold_ms"],
+                        "flash_tokens_per_s": B * S / f["warm_ms"] * 1e3,
+                        "chunked_tokens_per_s": B * S / c["warm_ms"] * 1e3,
+                        "layer0_bitwise": layer0, "cache_gap": cache_gap,
+                        "aside_by_layer": aside_by_layer,
+                        "row_logit_gaps": row_gaps.tolist(),
+                        "last_token_aside": last_aside.tolist(),
+                        "logit_gap": logit_gap, "busy_share": busy / wall,
+                        "profile_top": [[ms, cnt, key[:80]]
+                                        for ms, cnt, key in top]}}
+
+
+def zoo_walk(torch, cfg, params, tokens):
+    """The routes layer by layer, each layer given the same input on both
+    (the chunked route's, carried on): at each MoE layer the router is
+    recomputed on both routes' FFN inputs; tokens at a margin under
+    NEAR_TIE are set aside and counted, tokens whose experts differ are
+    counted with their margins (each under FLIP_MARGIN: a bf16 rounding of
+    the router's input moves its probabilities by up to a few 1e-3) and
+    set aside too, and so are tokens that only the capacity's edge, moved
+    by such a token earlier in the order, keeps on one route and drops on
+    the other; every other token's layer output is held within ROUTE_TOL
+    of max |.|."""
+    from repro_torch.models import Ctx
+    from repro_torch.models.model import _embed, apply_layer
+    B, S = tokens.shape
+    pos = torch.arange(S, device=DEVICE)
+    ctx_f = Ctx(cfg=cfg, positions=pos, flash=True)
+    ctx_c = Ctx(cfg=cfg, positions=pos, flash=False)
+    x = _embed(params, cfg, {"tokens": tokens}, ctx_c)
+    rows, t0 = [], time.perf_counter()
+    for i, (spec, p) in enumerate(zoo_layers(cfg, params)):
+        out_c, r_c = layer_parts(spec, p, x, ctx_c)
+        if i == 0:  # the walk's steps are apply_layer's
+            same = torch.equal(out_c, apply_layer(spec, p, x, ctx_c)[0])
+            if not same:
+                raise AssertionError("layer_parts differs from apply_layer")
+        out_f, r_f = layer_parts(spec, p, x, ctx_f)
+        keep = torch.ones(B * S, dtype=torch.bool)
+        row = {"layer": i, "mixer": spec.mixer, "ffn": spec.ffn}
+        if spec.ffn == "moe":
+            rc = routing(torch, cfg, p["ffn"], r_c, False)
+            near, flip, moved, margin = routes_compare(
+                torch, routing(torch, cfg, p["ffn"], r_f, False), rc)
+            wide = flip & ~near
+            row.update(near_ties=int(near.sum()), flips=int(flip.sum()),
+                       flips_wider=int(wide.sum()),
+                       widest_flip_margin=float(margin[flip].max())
+                       if flip.any() else 0.0,
+                       capacity_moved=int(moved.sum()),
+                       dropped_slots=int((rc[1] < 0).sum()),
+                       router_input_gap=rel_gap(torch, r_f, r_c))
+            keep = ~(near | flip | moved)
+            if flip.any() and margin[flip].max() >= FLIP_MARGIN:
+                log(f"[{cfg.name} walk] layer {i}: " + json.dumps(row))
+                raise AssertionError(
+                    f"[{cfg.name}] layer {i}: the routes' experts differ at "
+                    f"{int(flip.sum())} tokens, widest margin "
+                    f"{row['widest_flip_margin']:.3g}")
+        keep = keep.to(DEVICE).reshape(B, S)
+        gap = ((out_f.float() - out_c.float()).abs().amax(-1)[keep].max()
+               / out_c.float().abs().max()).item()
+        row["out_gap"] = gap
+        rows.append(row)
+        log(f"[{cfg.name} walk] layer {i} ({spec.mixer}, {spec.ffn}): "
+            + json.dumps({k: v for k, v in row.items()
+                          if k not in ("layer", "mixer", "ffn")}))
+        if gap > ROUTE_TOL:
+            raise AssertionError(f"[{cfg.name}] layer {i}: the routes' "
+                                 f"outputs differ by {gap:.3g} of max |.|")
+        x = out_c
+        del out_f, r_f, r_c
+    moe_rows = [r for r in rows if r["ffn"] == "moe"]
+    summary = {k: sum(r[k] for r in moe_rows)
+               for k in ("near_ties", "flips", "flips_wider",
+                         "capacity_moved", "dropped_slots")}
+    summary.update(widest_flip_margin=max(r["widest_flip_margin"]
+                                          for r in moe_rows),
+                   out_gap=max(r["out_gap"] for r in rows),
+                   tokens_per_layer=B * S, walk_s=time.perf_counter() - t0)
+    log(f"[{cfg.name} walk] {len(moe_rows)} MoE layers x {B * S} tokens: "
+        f"{summary['near_ties']} set aside at a margin under {NEAR_TIE:g}, "
+        f"experts differ at {summary['flips']} ({summary['flips_wider']} of "
+        f"them at a wider margin, the widest "
+        f"{summary['widest_flip_margin']:.3g}), the capacity's edge moved "
+        f"{summary['capacity_moved']} more; other tokens within "
+        f"{summary['out_gap']:.3g} of max |.| (tol {ROUTE_TOL:.3g}); "
+        f"{summary['dropped_slots']} slots dropped by capacity on the "
+        "chunked route")
+    return {"layers": rows, "summary": summary}
+
+
+def tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def decode_bound(torch, cfg, params, cache, index, experts_used, B):
+    """The least bytes one decode step at position ``index`` moves: every
+    weight it uses read once (the routed experts this step's tokens chose,
+    ``experts_used`` per MoE layer), the cache up to ``index`` read and its
+    entry written, the logits written; and its bf16 operations (2 a
+    multiply-add of the weights it uses, per token).  Returns (ms, by,
+    bytes)."""
+    emb = params["embed"]["emb"]
+    nb = B * emb.shape[1] * emb.element_size()
+    nb += tree_bytes(params["final_norm"]) + tree_bytes(params["lm_head"])
+    macs = params["lm_head"].numel()
+    it = iter(experts_used)
+    for spec, p in zoo_layers(cfg, params):
+        nb += tree_bytes(p["norm1"]) + tree_bytes(p["norm2"])
+        nb += tree_bytes(p["mix"])
+        macs += sum(t.numel() for t in p["mix"].values())
+        f = p["ffn"]
+        if spec.ffn == "moe":
+            per = sum(f[n][0].numel() for n in ("w_in", "w_gate", "w_out"))
+            used = next(it)
+            nb += tree_bytes(f["router"]) + used * per * f["w_in"].element_size()
+            macs += f["router"].numel() + cfg.moe.top_k * per
+            if "shared" in f:
+                nb += tree_bytes(f["shared"])
+                macs += sum(t.numel() for t in f["shared"].values())
+        else:
+            nb += tree_bytes(f)
+            macs += sum(t.numel() for t in f.values())
+    seq = {"k": 2, "v": 2, "ckv": 1, "krope": 1}  # a layer cache's S axis
+    for trees, lead in ((cache["prefix"], 0), (cache["unit"], 1)):
+        for tree in trees:  # the unit's caches carry a leading repeat axis
+            for n, t in tree.items():
+                per_pos = t.numel() // t.shape[seq[n] + lead]
+                nb += per_pos * t.element_size() * (index + 2)
+    nb += B * cfg.vocab_size * 2  # bf16 logits
+    t_bytes = nb / PEAK_BYTES_S * 1e3
+    t_ops = 2 * macs * B / PEAK_FLOPS["bfloat16"] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nb)
+
+
+def zoo_decode_bound(torch, cfg, params, cache, index, tokens):
+    """One more decode step from ``cache`` at ``index`` with its routes
+    recorded: the experts its tokens use per MoE layer, and its bound."""
+    from repro_torch.models import make_decode_step
+    with RecordRoutes(torch) as rec:
+        make_decode_step(cfg)(params, tokens, cache, index)
+    used = [int(idx.unique().numel()) for idx, _, _ in rec.calls]
+    ms, by, nb = decode_bound(torch, cfg, params, cache, index, used,
+                              tokens.shape[0])
+    return {"bound_ms": ms, "bound_by": by, "bytes": nb,
+            "experts_used": used}
+
+
+def zoo_decode_compare(torch, cfg, params, serve, caches):
+    """ServeEngine's tokens fed back, teacher-forced, through decode steps
+    from the chunked route's prefill cache (the engine's own route: its
+    logits must equal the engine's bit for bit) and from the flash
+    route's, with every MoE call's routing recorded.  A step's token whose
+    experts differ between the two, or sit at a margin under NEAR_TIE, or
+    whose kept slots differ, is set aside and counted; every other step's
+    logits are held within ROUTE_TOL of max |logit|.  The two caches
+    differ at the tokens the prefill's routing rule set aside, so a
+    decode token's router input moves by more than a rounding, and its
+    flips are counted with their widest margin but not bounded by
+    FLIP_MARGIN."""
+    from repro_torch.models import make_decode_step
+    served, B = serve["served"], serve["served"].shape[0]
+    n, S = served.shape[1], PREFILL_S
+    decode = make_decode_step(cfg)
+    runs = {}
+    for tag, cache in caches.items():
+        with RecordRoutes(torch) as rec:
+            logits = []
+            for i in range(n):
+                lg, cache = decode(params, served[:, i:i + 1].long(), cache,
+                                   S + i)
+                logits.append(lg[:, -1].float())
+        runs[tag] = (torch.stack(logits), rec.calls)  # [n, B, V]
+    own, engine = runs["chunked"][0], serve["logits"]
+    same = all(torch.equal(own[i], engine[i + 1]) for i in range(n))
+    if not same:
+        raise AssertionError(f"[{cfg.name}] decode from the chunked route's "
+                             "prefill differs from ServeEngine's")
+    n_moe = len(runs["flash"][1]) // n
+    keep = torch.ones((n, B), dtype=torch.bool)
+    near_n = flip_n = moved_n = 0
+    widest = 0.0
+    for j, (a, b) in enumerate(zip(runs["flash"][1], runs["chunked"][1])):
+        near, flip, moved, margin = routes_compare(torch, a, b)
+        near_n, flip_n = near_n + int(near.sum()), flip_n + int(flip.sum())
+        moved_n += int(moved.sum())
+        if flip.any():
+            widest = max(widest, float(margin[flip].max()))
+        keep[j // n_moe] &= ~(near | flip | moved)
+    f, c = runs["flash"][0], runs["chunked"][0]
+    gap = ((f - c).abs().amax(-1)[keep].max() / c.abs().max()).item() \
+        if keep.any() else 0.0
+    log(f"[{cfg.name} decode] teacher-forced on ServeEngine's tokens: the "
+        f"chunked route's cache gives the engine's logits bit for bit; "
+        f"flash against chunked over {n} steps x {B} rows: {near_n} "
+        f"routings at a margin under {NEAR_TIE:g}, experts differ at "
+        f"{flip_n} (widest margin {widest:.3g}), the capacity's edge moved "
+        f"{moved_n}; logits of {int(keep.sum())} of {n * B} within "
+        f"{gap:.3g} of max |logit| (tol {ROUTE_TOL:.3g})")
+    if gap > ROUTE_TOL:
+        raise AssertionError(f"[{cfg.name}] the routes' decodes disagree")
+    return {"engine_bitwise": same, "near_ties": near_n, "flips": flip_n,
+            "widest_flip_margin": widest, "capacity_moved": moved_n,
+            "compared": int(keep.sum()), "logit_gap": gap}
+
+
+def zoo_cpu_rerun(torch, build):
+    """(c): deepseek-v2-lite at full width with its prefix and 1 repeat, in
+    f32: a prefill of 1 x 256 and 4 greedy decode steps on the card and on
+    the CPU, every MoE call's routing recorded on both.  A token at a
+    margin under NEAR_TIE on either side is set aside (its logits not
+    compared: the one MoE layer is the last, so a token's experts reach
+    only its own logits); a token whose experts differ at a wider margin
+    fails the run; the other logits are held within CPU_RERUN_TOL."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import (Ctx, init_cache, init_params,
+                                    make_decode_step, make_prefill)
+    arch, repeats, S, n = ZOO_RERUN
+    cfg = dataclasses.replace(get_config(arch), n_repeats=repeats,
+                              compute_dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    init_s = time.perf_counter() - t0
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, S)))
+
+    def run(p, device):
+        with RecordRoutes(torch) as rec:
+            cache = init_cache(cfg, 1, S + n, torch.float32, device)
+            logits, cache = make_prefill(cfg)(
+                p, {"tokens": prompt.to(device)}, cache,
+                Ctx(cfg=cfg, flash=True))
+            decode = make_decode_step(cfg)
+            seen, toks = [logits[:, -1].cpu()], []
+            for i in range(n):
+                toks.append(torch.argmax(logits[:, -1], dim=-1))
+                logits, cache = decode(p, toks[-1][:, None], cache, S + i)
+                seen.append(logits[:, -1].cpu())
+        return torch.stack(toks, 1).cpu(), torch.cat(seen), rec.calls
+
+    build.reset_launch_counts()
+    (card_toks, card_logits, card_routes), card_ms = timed_once(
+        torch, lambda: run(tree_to(params, DEVICE), DEVICE))
+    counts = build.launch_counts()
+    t0 = time.perf_counter()
+    cpu_toks, cpu_logits, cpu_routes = run(params, "cpu")
+    cpu_s = time.perf_counter() - t0
+    # the compared logits: the prompt's last token, then each decode token
+    # (MoE calls: the prefill's, then one a decode step)
+    keep = torch.ones(n + 1, dtype=torch.bool)
+    near_n = flip_n = moved_n = dropped = 0
+    for j, (a, b) in enumerate(zip(card_routes, cpu_routes)):
+        near, flip, moved, margin = routes_compare(torch, a, b)
+        near_n += int(near.sum())
+        flip_n += int(flip.sum())
+        moved_n += int(moved.sum())
+        dropped += int((b[1] < 0).sum())
+        if (flip & ~near).any():
+            raise AssertionError(
+                f"[cpu re-run {arch}] MoE call {j}: experts differ at a "
+                f"margin of {float(margin[flip & ~near].min()):.3g}")
+        # the prefill's last token, or the step's one token
+        if near[-1] or moved[-1]:
+            keep[j] = False
+    scale = cpu_logits[keep].abs().max()
+    gap = ((card_logits[keep] - cpu_logits[keep]).abs().max()
+           / scale).item()
+    equal = torch.equal(card_toks, cpu_toks)
+    log(f"[cpu re-run] {arch} x {repeats} repeat + prefix, f32, 1 x {S} + "
+        f"{n}: card {card_ms:.0f} ms, CPU {cpu_s:.1f} s (params drawn in "
+        f"{init_s:.1f} s); {near_n} routings set aside at a margin under "
+        f"{NEAR_TIE:g}, experts differ at {flip_n}, the capacity's edge "
+        f"moved {moved_n}, {dropped} slots dropped (CPU); logits of "
+        f"{int(keep.sum())} of {n + 1} tokens within {gap:.3g} of max "
+        f"|logit| (tol {CPU_RERUN_TOL}), tokens equal {equal}; launches "
+        + json.dumps(counts))
+    if gap > CPU_RERUN_TOL or not equal:
+        raise AssertionError(f"[cpu re-run {arch}] the CPU disagrees with "
+                             "the card")
+    return {"arch": arch, "repeats": repeats, "S": S, "steps": n,
+            "logit_gap": gap, "tokens_equal": equal, "near_ties": near_n,
+            "flips": flip_n, "capacity_moved": moved_n,
+            "dropped_slots": dropped, "compared": int(keep.sum()),
+            "cpu_s": cpu_s,
+            "card_ms": card_ms, "init_s": init_s, "launches": counts}
+
+
+def zoo_model(torch, build, arch, repeats):
+    """(a) or (b): one model at its published widths with ``repeats``
+    repeats, random params from seed 0 drawn on the card."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_decode_step
+    cfg = dataclasses.replace(get_config(arch), n_repeats=repeats)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = timed_once(torch, lambda: init_params(
+        torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE))
+    log(f"[{arch}] {cfg.n_layers} layers ({repeats} of "
+        f"{get_config(arch).n_repeats} repeats), {cfg.param_count()} params "
+        f"({cfg.param_dtype}; the whole model {get_config(arch).param_count()}"
+        f") drawn on the card in {init_ms:.0f} ms, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    moe = moe_check(torch, cfg, params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).to(DEVICE)
+    pre = zoo_prefill(torch, build, cfg, params, tokens)
+    walk = zoo_walk(torch, cfg, params, tokens)
+    serve = serve_phase(torch, build, cfg, params, tokens, pre["flash"],
+                        tag=f"{arch} serve", gate_parting=False)
+    forced = zoo_decode_compare(torch, cfg, params, serve,
+                                {"flash": pre["flash"]["cache"],
+                                 "chunked": pre.pop("chunked_cache")})
+    cache = pre["flash"]["cache"]
+    tok = torch.argmax(pre["flash"]["logits"][:, -1], dim=-1)[:, None]
+    bound = zoo_decode_bound(torch, cfg, params, cache,
+                             PREFILL_S + NEW_TOKENS - 1, tok)
+    log(f"[{arch} decode] {serve['decode_p50_ms']:.2f} ms a step (p50), its "
+        f"bound {bound['bound_ms']:.3f} ms by {bound['bound_by']} "
+        f"({bound['bytes'] / 1e9:.2f} GB at {PEAK_BYTES_S / 1e12:.2f} TB/s; "
+        f"experts used per MoE layer {bound['experts_used']}), "
+        f"{serve['decode_p50_ms'] / bound['bound_ms']:.2f} x the bound")
+    decode = make_decode_step(cfg)
+
+    def steps():
+        c = cache
+        for i in range(PROFILED_STEPS):
+            _, c = decode(params, tok, c, PREFILL_S + NEW_TOKENS - 1 - i)
+
+    wall, busy, top = profile_device(torch, steps)
+    log(f"[{arch} decode] {PROFILED_STEPS} profiled steps {wall * 1e3:.1f} "
+        f"ms, device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}% of "
+        "the traced wall)")
+    for ms, cnt, key in top:
+        log(f"  {ms:10.3f} ms {cnt:6d}x {key[:110]}")
+    bound.update(profiled_ms_per_step=wall * 1e3 / PROFILED_STEPS,
+                 busy_share=busy / wall,
+                 profile_top=[[ms, cnt, key[:80]] for ms, cnt, key in top])
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, pre["flash"]
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    log(f"[{arch}] peak {peak / 2**30:.2f} GiB allocated; {phase_s:.1f} s")
+    return {"arch": arch, "repeats": repeats, "layers": cfg.n_layers,
+            "params": cfg.param_count(), "moe_check": moe,
+            "prefill": pre["summary"], "walk": walk["summary"],
+            "serve": {k: v for k, v in serve.items()
+                      if k not in ("launches", "served", "logits")},
+            "decode_forced": forced, "decode_bound": bound, "peak_gib": peak / 2**30,
+            "phase_s": phase_s,
+            "launches": {"prefill_flash": pre["launches"]["flash"],
+                         "prefill_chunked": pre["launches"]["chunked"],
+                         "serve_generate": serve["launches"]}}
+
+
+def zoo_phase(torch, build):
+    """Phase 22: kernel F at the two models' prefill shapes, then (a) dbrx,
+    (b) deepseek-v2-lite, (c) the CPU re-run; (d), the decode bound, is in
+    (a) and (b)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    f_cases = {arch: flash_case(torch, gen, shape, Dv, True, "bfloat16")
+               for arch, (shape, Dv) in ZOO_FLASH_SHAPES.items()}
+    models = [zoo_model(torch, build, arch, r) for arch, r in ZOO]
+    rerun = zoo_cpu_rerun(torch, build)
+    launches = {}
+    for m in models:
+        launches.update({f"{m['arch']} {p}": c
+                         for p, c in m.pop("launches").items()})
+    launches["zoo_cpu_rerun_card"] = rerun.pop("launches")
+    phase_s = time.perf_counter() - t0
+    log(f"phase 22: {phase_s:.1f} s")
+    return {"flash_cases": f_cases, "models": models, "cpu_rerun": rerun,
+            "launches": launches, "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------
@@ -5593,6 +6256,20 @@ def main() -> int:
     log(f"phases 11-14: {time.perf_counter() - t_model:.1f} s; peak "
         f"{peak:.2f} GiB allocated in phases 12-14")
     late.update(model["launches"])
+
+    # 22. sparse experts and latent attention: dbrx-132b and
+    # deepseek-v2-lite-16b at the published widths, depth cut; kernel F at
+    # their prefill shapes, both routes, serving, a CPU re-run
+    zoo = zoo_phase(torch, build)
+    late.update(zoo["launches"])
+    f_row = next(k for k in kernels if k["name"] == "flash_forward")
+    f_row["zoo_cases"] = zoo["flash_cases"]
+    for k in kernels:
+        nm = COUNT_NAME[k["name"]]
+        k["launches_by_path"].update({p: c[nm] for p, c in
+                                      zoo["launches"].items()})
+    log("zoo: " + json.dumps({k: v for k, v in zoo.items()
+                              if k != "launches"}))
 
     # 16. the keyed Study (Firefly, CombinedMitigation, noisy telemetry),
     # chunked, resumed and on the CPU; it runs before phase 15, so that

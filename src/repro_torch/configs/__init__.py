@@ -1,8 +1,10 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
-The same ids as the reference's registry.  Only the dense GQA archs
-(granite-3-8b, minitron-4b) have every mixer and FFN ported; the others
-raise ``NotImplementedError`` naming the ROADMAP slice that brings them.
+The same ids as the reference's registry.  The dense GQA archs
+(granite-3-8b, minitron-4b), the sparse-expert dbrx-132b (GQA + MoE) and
+deepseek-v2-lite-16b (MLA + MoE, a dense first layer) have every mixer
+and FFN ported; the others raise ``NotImplementedError`` naming the
+ROADMAP slice that brings them.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from repro_torch.configs.base import (AttentionConfig, LayerSpec, MLAConfig,
 _MODULES: Dict[str, str] = {
     "granite-3-8b": "granite_3_8b",
     "minitron-4b": "minitron_4b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
+    "dbrx-132b": "dbrx_132b",
 }
 
 # arch id -> what it needs that the port lacks (ROADMAP queue A, "The rest
@@ -25,9 +29,7 @@ _NOT_PORTED: Dict[str, str] = {
     "nemotron-4-340b": "sharding its 680 GB of bf16 params (parallel/)",
     "qwen1.5-110b": "sharding its 220 GB of bf16 params (parallel/)",
     "musicgen-medium": "the audio frontend stub (input_mode='embeddings')",
-    "deepseek-v2-lite-16b": "MLA and MoE",
-    "dbrx-132b": "MoE",
-    "jamba-v0.1-52b": "Mamba and MoE",
+    "jamba-v0.1-52b": "Mamba",
     "rwkv6-3b": "RWKV",
     "llama-3.2-vision-11b": "cross-attention (vision)",
 }

@@ -6,10 +6,10 @@ Every architecture is a ``ModelConfig``: a repeating ``unit`` of
 ``LayerSpec``s (mixer + ffn kind per position) applied ``n_repeats``
 times, with optional non-repeated ``prefix`` layers.  Unit params are
 stacked on a leading ``[n_repeats]`` axis, as in the reference; the port
-walks that axis with a Python loop where the reference scans it.  Only
-the dense GQA family runs in the port so far (``configs.get_config``
-raises for the rest); the other sub-configs are kept as plain data so
-``reduced`` keeps its meaning.
+walks that axis with a Python loop where the reference scans it.  The
+dense GQA family, MoE and MLA run in the port so far
+(``configs.get_config`` raises for the rest); the other sub-configs are
+kept as plain data so ``reduced`` keeps its meaning.
 """
 from __future__ import annotations
 

@@ -19,7 +19,11 @@ port's, so a stream started in the reference resumes in the port.
 
 ``params_from_reference(tree)`` carries a model's params across: the
 reference's params pytree, its leaves as numpy arrays, becomes the
-port's dict of tensors with the same structure and values.
+port's dict of tensors with the same structure and values (the MoE FFN's
+f32 ``router`` and ``[E, d_in, d_out]`` experts with ``shared``, MLA's
+``wq``, ``wdkv``, ``wkr``, ``kv_norm``, ``wuk``, ``wuv``, ``wo``, and the
+``prefix`` list included).  A decode cache tree (``k``/``v``, or MLA's
+``ckv``/``krope``) goes across the same way.
 
 ``predictor_from_reference(pred)`` carries a trained warm-start
 predictor across: the reference's ``params``, ``norm`` and ``meta`` become

@@ -1,5 +1,6 @@
-"""The model zoo's dense GQA family (granite-3-8b, minitron-4b), ported
-from the reference's ``repro.models``."""
+"""The model zoo's dense GQA family (granite-3-8b, minitron-4b) and its
+sparse-expert and latent-attention archs (dbrx-132b, deepseek-v2-lite-16b),
+ported from the reference's ``repro.models``."""
 from repro_torch.models.model import (Ctx, Model, forward, init_cache,
                                       init_params, make_decode_step,
                                       make_prefill)

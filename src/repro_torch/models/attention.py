@@ -1,11 +1,13 @@
-"""GQA attention: dense, KV-chunked online softmax, and the flash kernel
-route (reference: ``repro/models/attention.py``).
+"""Attention mixers: GQA (dense, KV-chunked online softmax, and the flash
+kernel route) and DeepSeek-V2's Multi-head Latent Attention (reference:
+``repro/models/attention.py``).
 
 Layouts, as in the reference:
   activations      x      [B, S, d]
   queries          q      [B, S, KV, G, D]   (KV*G = n_q_heads)
   keys/values      k, v   [B, T, KV, D]
   decode KV cache  ck, cv [B, KV, S_max, D]
+  MLA decode cache ckv [B, S_max, kv_lora_rank], krope [B, S_max, rope]
 
 ``sdpa`` picks the reference's branch under the reference's conditions:
 the flash kernel (``kernels/flash``, kernel F) only when the caller's
@@ -15,14 +17,21 @@ S > chunk.  The reference computes its einsums with
 before the product, which is the same arithmetic (a product of two bf16
 values is exact in f32).
 
-Only kv-head duplication factor 1 is ported: duplication exists for
-tensor-parallel sharding, which is the ``parallel/`` slice.  MLA and
-cross-attention are not ported (``models/model.py`` raises for them).
+MLA's full-sequence form (``mla_forward``) expands the latent into
+per-head K ``[qk_nope | rope]`` (192) and V (128) and goes through ``sdpa``
+as MHA (KV = H, G = 1), so its flash route runs kernel F at D 192, Dv 128;
+its decode (``mla_decode``) is the weight-absorbed form that attends in
+the latent space.
 
-In place, unlike the reference: ``_write_prefill_cache`` fills the cache
-slices it is given (``make_prefill`` hands it freshly allocated ones, so
-the caller's cache is untouched), and ``attn_decode`` writes the new
-token's k, v into the given cache and returns it.  A full-width f32
+Only kv-head duplication factor 1 is ported: duplication exists for
+tensor-parallel sharding, which is the ``parallel/`` slice.
+Cross-attention is not ported (``models/model.py`` raises for it).
+
+In place, unlike the reference: ``_write_prefill_cache`` and
+``mla_forward`` fill the cache slices they are given (``make_prefill``
+hands them freshly allocated ones, so the caller's cache is untouched),
+and ``attn_decode`` and ``mla_decode`` write the new token's entries into
+the given cache and return it.  A full-width f32
 cache is 5.4 GB; a functional copy per decode step would double it.
 """
 from __future__ import annotations
@@ -31,7 +40,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
 F32 = torch.float32
 NEG = -1e30
@@ -56,6 +65,21 @@ def init_attn(gen, cfg, dtype):
         p["bk"] = torch.zeros((a.n_kv_heads, a.head_dim), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((a.n_kv_heads, a.head_dim), dtype=dtype, device=dev)
     return p
+
+
+def init_mla(gen, cfg, dtype):
+    a, m = cfg.attention, cfg.mla
+    d = cfg.d_model
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": dense_init(gen, d, a.n_heads * qk_dim, dtype).reshape(d, a.n_heads, qk_dim),
+        "wdkv": dense_init(gen, d, m.kv_lora_rank, dtype),
+        "wkr": dense_init(gen, d, m.qk_rope_head_dim, dtype),
+        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dtype, device=gen.device),
+        "wuk": dense_init(gen, m.kv_lora_rank, a.n_heads * m.qk_nope_head_dim, dtype).reshape(m.kv_lora_rank, a.n_heads, m.qk_nope_head_dim),
+        "wuv": dense_init(gen, m.kv_lora_rank, a.n_heads * m.v_head_dim, dtype).reshape(m.kv_lora_rank, a.n_heads, m.v_head_dim),
+        "wo": dense_init(gen, a.n_heads * m.v_head_dim, d, dtype).reshape(a.n_heads, m.v_head_dim, d),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +226,49 @@ def _write_prefill_cache(cache, k, v, ctx):
     return cache
 
 
+def _mla_latent(p, x, pos, ctx):
+    """The latent ``ckv [B,T,L]`` and the shared rope key ``krope
+    [B,T,1,R]`` of tokens ``x`` at positions ``pos``."""
+    a = ctx.cfg.attention
+    ckv = rms_norm(x @ p["wdkv"].to(x.dtype), p["kv_norm"], ctx.cfg.norm_eps)
+    krope = apply_rope((x @ p["wkr"].to(x.dtype))[:, :, None, :],
+                       pos[None, :, None], a.rope_theta)
+    return ckv, krope
+
+
+def _mla_query(p, x, pos, ctx):
+    a, m = ctx.cfg.attention, ctx.cfg.mla
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q_nope, q_rope = torch.split(
+        q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, pos[None, :, None], a.rope_theta)
+
+
+def mla_forward(p, x, ctx, *, cache=None):
+    """DeepSeek-V2 Multi-head Latent Attention (full sequence).  With a
+    cache, writes ``ckv`` and ``krope`` into it (zero past the sequence)."""
+    a, m = ctx.cfg.attention, ctx.cfg.mla
+    pos = ctx.positions
+    q_nope, q_rope = _mla_query(p, x, pos, ctx)
+    ckv, krope = _mla_latent(p, x, pos, ctx)
+    # expand: per-head K = [k_nope | k_rope (broadcast)], V from the latent
+    k_nope = torch.einsum("btl,lhn->bthn", ckv, p["wuk"].to(x.dtype))
+    v = torch.einsum("btl,lhv->bthv", ckv, p["wuv"].to(x.dtype))
+    k = torch.cat([k_nope, krope.expand(*k_nope.shape[:3],
+                                        m.qk_rope_head_dim)], dim=-1)
+    qh = torch.cat([q_nope, q_rope], dim=-1)
+    # MHA layout: KV = H, G = 1; v's head dim (128) differs from qk's (192)
+    out = sdpa(qh[:, :, :, None, :], k, v, pos_q=pos, causal=True,
+               chunk=a.chunk_size, flash=ctx.flash)[:, :, :, 0, :]
+    out = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(x.dtype))
+    if cache is not None:
+        S = x.shape[1]
+        for name, t in (("ckv", ckv), ("krope", krope[:, :, 0, :])):
+            cache[name][:, :S].copy_(t)
+            cache[name][:, S:].zero_()
+    return out, cache
+
+
 # ---------------------------------------------------------------------------
 # Single-token decode
 # ---------------------------------------------------------------------------
@@ -231,6 +298,34 @@ def attn_decode(p, x, cache, index, ctx):
     return out, cache
 
 
+def mla_decode(p, x, cache, index, ctx):
+    """Weight-absorbed MLA decode, attending in the compressed latent
+    space.  Writes the token's ``ckv`` and ``krope`` into ``cache`` in
+    place and returns it."""
+    m = ctx.cfg.mla
+    index = int(index)
+    pos = torch.full((1,), index, device=x.device)
+    q_nope, q_rope = _mla_query(p, x, pos, ctx)
+    ckv_t, kr_t = _mla_latent(p, x, pos, ctx)
+    ckv, krope = cache["ckv"], cache["krope"]
+    ckv[:, index].copy_(ckv_t[:, 0])
+    krope[:, index].copy_(kr_t[:, 0, 0])
+    # absorb W_uk into q; attend over the latent cache (f32 scores)
+    q_lat = torch.einsum("bshn,lhn->bshl", q_nope, p["wuk"].to(x.dtype))
+    ckv_x = ckv.to(x.dtype)
+    s = (torch.einsum("bshl,btl->bhst", q_lat.float(), ckv_x.float())
+         + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                        krope.to(x.dtype).float()))
+    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    mask = torch.arange(ckv.shape[1], device=x.device) <= index
+    s = torch.where(mask, s, NEG)
+    prob = torch.softmax(s, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhst,btl->bshl", prob, ckv_x)
+    out = torch.einsum("bshl,lhv->bshv", o_lat, p["wuv"].to(x.dtype))
+    out = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(x.dtype))
+    return out, cache
+
+
 # ---------------------------------------------------------------------------
 # Cache initializers
 # ---------------------------------------------------------------------------
@@ -240,3 +335,11 @@ def init_attn_cache(cfg, batch, seq, dtype, device=None):
     shp = (batch, a.n_kv_heads, seq, a.head_dim)
     return {"k": torch.zeros(shp, dtype=dtype, device=device),
             "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+def init_mla_cache(cfg, batch, seq, dtype, device=None):
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, seq, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((batch, seq, m.qk_rope_head_dim),
+                                 dtype=dtype, device=device)}

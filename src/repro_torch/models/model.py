@@ -8,8 +8,12 @@ position, every leaf stacked on a leading ``[n_repeats]`` axis),
 the reference's tree into this one by copying leaves.  The reference
 scans the repeat axis with ``lax.scan``; here a Python loop indexes it.
 
-Only the ``attn`` mixer and the ``dense`` FFN are ported; any other kind
-raises ``NotImplementedError``.
+Ported: the ``attn`` (GQA) and ``mla`` (latent attention) mixers, the
+``dense`` and ``moe`` FFNs, so the dense zoo, dbrx-132b and
+deepseek-v2-lite-16b run; any other kind raises ``NotImplementedError``.
+``forward`` sums the MoE layers' aux losses over the prefix and the unit.
+The prefill keeps the reference's default ``Ctx`` (MoE capacity
+dropping); the decode step sets ``dropless``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, dt, embed_init, rms_norm,
                                        stack_init)
 
@@ -41,8 +46,9 @@ class Ctx:
     cfg: ModelConfig
     positions: Any = None            # [S] int64 absolute positions
     kv_repeat: int = 1               # kv-head duplication factor (TP)
-    # MoE dropless mode (decode/serving); kept for the reference's
-    # signature, no ported FFN reads it yet
+    # MoE dropless mode (decode/serving): capacity = all slots, no token
+    # drops; ``make_decode_step`` sets it, the prefill keeps capacity
+    # dropping, as in the reference
     dropless: bool = False
     # Use the flash-attention kernel (kernel F) for full-sequence
     # self-attention (forward-only paths: prefill; see kernels/flash).
@@ -61,6 +67,8 @@ def _not_ported(kind: str):
 def _init_mixer(gen, cfg, spec: LayerSpec, dtype):
     if spec.mixer == "attn":
         return attn_mod.init_attn(gen, cfg, dtype)
+    if spec.mixer == "mla":
+        return attn_mod.init_mla(gen, cfg, dtype)
     if spec.mixer == "none":
         return {}
     raise _not_ported(f"the {spec.mixer!r} mixer")
@@ -69,6 +77,8 @@ def _init_mixer(gen, cfg, spec: LayerSpec, dtype):
 def _init_ffn(gen, cfg, spec: LayerSpec, dtype):
     if spec.ffn == "dense":
         return mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype)
+    if spec.ffn == "moe":
+        return moe_mod.init_moe(gen, cfg, dtype)
     raise _not_ported(f"the {spec.ffn!r} FFN")
 
 
@@ -85,6 +95,8 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, dtype):
 def _apply_mixer(spec, p, x, ctx, cache=None):
     if spec.mixer == "attn":
         return attn_mod.attn_forward(p, x, ctx, cache=cache)
+    if spec.mixer == "mla":
+        return attn_mod.mla_forward(p, x, ctx, cache=cache)
     if spec.mixer == "none":
         return x, None
     raise _not_ported(f"the {spec.mixer!r} mixer")
@@ -93,6 +105,8 @@ def _apply_mixer(spec, p, x, ctx, cache=None):
 def _decode_mixer(spec, p, x, cache, index, ctx):
     if spec.mixer == "attn":
         return attn_mod.attn_decode(p, x, cache, index, ctx)
+    if spec.mixer == "mla":
+        return attn_mod.mla_decode(p, x, cache, index, ctx)
     if spec.mixer == "none":
         return x, None
     raise _not_ported(f"the {spec.mixer!r} mixer")
@@ -102,6 +116,9 @@ def _apply_ffn(spec, p, x, ctx, cache=None):
     """Returns (out, aux_loss, new_cache)."""
     if spec.ffn == "dense":
         return mlp_mod.mlp_forward(p, x, ctx.cfg.mlp_kind, ctx), 0.0, None
+    if spec.ffn == "moe":
+        out, aux = moe_mod.moe_forward(p, x, ctx.cfg, ctx)
+        return out, aux, None
     if spec.ffn == "none":
         return torch.zeros_like(x), 0.0, None
     raise _not_ported(f"the {spec.ffn!r} FFN")
@@ -229,6 +246,8 @@ def forward(params, cfg: ModelConfig, batch, ctx: Optional[Ctx] = None):
 def _init_layer_cache(cfg, spec: LayerSpec, batch, seq, dtype, device):
     if spec.mixer == "attn":
         return attn_mod.init_attn_cache(cfg, batch, seq, dtype, device)
+    if spec.mixer == "mla":
+        return attn_mod.init_mla_cache(cfg, batch, seq, dtype, device)
     if spec.mixer == "none":
         return {}
     raise _not_ported(f"the {spec.mixer!r} mixer's cache")

@@ -51,7 +51,8 @@ def _close(got, ref, tol):
     assert gap <= tol * np.abs(ref).max(), (gap, np.abs(ref).max())
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "minitron-4b"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "minitron-4b", "dbrx-132b",
+                                  "deepseek-v2-lite-16b"])
 def test_configs_are_the_references(arch):
     ref, port = jcfgs.get_config(arch), tcfgs.get_config(arch)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -64,7 +65,8 @@ def test_configs_are_the_references(arch):
 
 def test_unported_archs_raise():
     for arch in jcfgs.ARCH_IDS:
-        if arch in ("granite-3-8b", "minitron-4b"):
+        if arch in ("granite-3-8b", "minitron-4b", "dbrx-132b",
+                    "deepseek-v2-lite-16b"):
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcfgs.get_config(arch)
@@ -187,12 +189,12 @@ def test_unported_mixers_and_kv_repeat_raise():
     _, tc = _cfgs("float32")
     with pytest.raises(NotImplementedError, match="parallel/"):
         tattn._repeat_kv(torch.zeros(1, 2, 2, 4), 2, None)
-    with pytest.raises(NotImplementedError, match="'mla'"):
-        tmodel._apply_mixer(tcfgs.LayerSpec("mla", "dense"), {}, None, None)
+    with pytest.raises(NotImplementedError, match="'rwkv'"):
+        tmodel._apply_mixer(tcfgs.LayerSpec("rwkv", "dense"), {}, None, None)
     with pytest.raises(NotImplementedError, match="'xattn'"):
         tmodel._decode_mixer(tcfgs.LayerSpec("xattn", "dense"), {}, None,
                              None, 0, None)
     with pytest.raises(NotImplementedError, match="'mamba'"):
         tmodel._apply_mixer(tcfgs.LayerSpec("mamba", "dense"), {}, None, None)
-    with pytest.raises(NotImplementedError, match="'moe'"):
-        tmodel._apply_ffn(tcfgs.LayerSpec("attn", "moe"), {}, None, None)
+    with pytest.raises(NotImplementedError, match="'rwkv_cm'"):
+        tmodel._apply_ffn(tcfgs.LayerSpec("attn", "rwkv_cm"), {}, None, None)

@@ -831,3 +831,82 @@ def test_phase21_worker_mode_is_wired_into_main():
     assert '"--mesh-worker"' in src and "mesh_phase(" in src
     assert chip_smoke.MESH_PREFIX < 128 and chip_smoke.MESH_PROCESSES == 2
     assert chip_smoke.MESH_ELEMENTS % 256 == 0
+
+
+def _moe_cfg(capacity_factor):
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.reduced(configs.get_config("deepseek-v2-lite-16b"))
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor))
+
+
+def test_routing_keeps_what_the_dispatch_keeps():
+    """Phase 22's ``routing`` marks dropped slots as the sort-based
+    dispatch of ``moe_forward`` drops them (capacity 0.7: many drops)."""
+    import torch
+    from repro_torch.models import moe
+    cfg = _moe_cfg(0.7)
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(gen, cfg, torch.float32)
+    N, k = 300, cfg.moe.top_k
+    x = torch.randn((1, N, cfg.d_model), generator=gen)
+    idx_sorted, kept, margin = chip_smoke.routing(torch, cfg, p, x, False)
+    _, _, idx = moe.route(x.reshape(N, -1), p["router"], k)
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=cfg.moe.n_experts)
+    rank = torch.arange(N * k) - (torch.cumsum(counts, 0) - counts)[
+        flat[order]]
+    keep = torch.empty(N * k, dtype=torch.bool)
+    keep[order] = rank < moe.capacity(cfg, N, False)
+    assert torch.equal(kept, torch.where(keep.view(N, k), idx, -1).sort(
+        1).values)
+    assert torch.equal(idx_sorted, idx.sort(1).values)
+    assert (kept < 0).sum() > 0 and (margin >= 0).all()
+    # dropless: every slot kept
+    assert (chip_smoke.routing(torch, cfg, p, x, True)[1] >= 0).all()
+
+
+def test_routes_compare_sets_apart_ties_flips_and_moved_edges():
+    import torch
+    idx = torch.tensor([[0, 1], [0, 2], [1, 3]])
+    a = (idx, torch.tensor([[0, 1], [0, 2], [1, 3]]),
+         torch.tensor([1e-6, 0.1, 0.1]))
+    b = (torch.tensor([[0, 1], [0, 3], [1, 3]]),
+         torch.tensor([[0, 1], [0, 3], [-1, 3]]),
+         torch.tensor([0.2, 0.1, 0.1]))
+    near, flip, moved, margin = chip_smoke.routes_compare(torch, a, b)
+    assert near.tolist() == [True, False, False]
+    assert flip.tolist() == [False, True, False]
+    assert moved.tolist() == [False, False, True]
+    assert margin.tolist() == pytest.approx([1e-6, 0.1, 0.1])
+
+
+def test_decode_bound_counts_the_experts_a_step_uses():
+    """The bound's bytes grow by one expert's three matrices for each
+    expert a step's tokens use, in each MoE layer; with RecordRoutes the
+    step records one routing per MoE layer and moe_forward is restored."""
+    import torch
+    from repro_torch.models import init_cache, init_params, moe
+    cfg = _moe_cfg(8.0)
+    params = init_params(0, cfg, device="cpu")
+    cache = init_cache(cfg, 2, 16, torch.float32, "cpu")
+    n_moe = cfg.n_repeats  # the prefix layer is dense
+    _, _, none = chip_smoke.decode_bound(torch, cfg, params, cache, 3,
+                                         [0] * n_moe, 2)
+    _, _, two = chip_smoke.decode_bound(torch, cfg, params, cache, 3,
+                                        [2] * n_moe, 2)
+    per = 3 * cfg.d_model * cfg.moe.d_ff_expert * 4
+    assert two - none == 2 * per * n_moe
+    _, _, later = chip_smoke.decode_bound(torch, cfg, params, cache, 4,
+                                          [0] * n_moe, 2)
+    m = cfg.mla
+    per_pos = 2 * (m.kv_lora_rank + m.qk_rope_head_dim) * 4
+    assert later - none == per_pos * cfg.n_layers
+    orig = moe.moe_forward
+    out = chip_smoke.zoo_decode_bound(
+        torch, cfg, params, cache, 3, torch.zeros((2, 1), dtype=torch.long))
+    assert moe.moe_forward is orig
+    assert len(out["experts_used"]) == n_moe
+    assert all(1 <= u <= 2 * cfg.moe.top_k for u in out["experts_used"])
