@@ -143,7 +143,10 @@ tokens, whose experts may differ only at a margin under 2^-7);
 own decode (the parting step and top-2 gap reported), then the engine's
 tokens fed teacher-forced through decode from both routes' caches (the
 chunked one's logits equal to the engine's bit for bit, the flash one's
-within 2^-5 past the routing rule's steps); decode ms per step beside
+within 2^-5 past the routing rule's steps), and the flash route's decode
+again with the chunked route's experts and gates forced on every MoE
+call (``moe.forced_routes``), every set-aside step within 2^-5 there
+(the steps still set aside counted); decode ms per step beside
 its byte bound (the weights a step uses, the routed experts its tokens
 chose, and the cache read once, over 3.35 TB/s); a profiled flash
 prefill and four profiled decode steps; and each model's peak memory.
@@ -151,6 +154,30 @@ prefill and four profiled decode steps; and each model's peak memory.
 of 1 x 256 and 4 greedy decode steps on the card and on the CPU (params
 from a CPU generator), logits within 1e-4 under the routing rule (no
 expert may differ at a wider margin), tokens equal.
+Phase 23, after 21 and before 15: training granite-3-8b at its
+published widths (``repro_torch.train``), launching none of the kernels
+A-K or A'.  (a) 6 of its 40 repeats (1.598 B params), f32 params and
+bf16 compute, ``SyntheticLM`` batches of 4 x 4096 in 2 microbatches,
+``remat="full"``: 1 cold and 5 warm steps, every loss and grad norm
+finite, the median warm step's wall, tokens/s, 6 N tokens over it as a
+share of 989 TFLOP/s, peak memory, and one profiled step's busy share
+and top device ops.  (d) From the last state, the next step profiled,
+again (bit for bit), with 100 GFLOPs of ballast a microbatch (loss,
+metrics and params bit for bit, both walls printed) and with the ballast
+profiled (2 x 2980 products of [256 x 256] bf16 counted, with their
+device time).  (c) The ``CheckpointManager`` checkpoint taken after step
+3 restored into a fresh state and steps 4-5 run again: losses and params
+bit for bit the uninterrupted run's.  (b) 1 repeat in f32 on 1 x 256
+tokens (``loss_chunk`` 128) on the card and on the CPU from one state:
+step 0's gradients within 1e-4 of each leaf's max |g|, 2 steps' losses
+within 1e-5.  (e) Two gloo workers on the card (``--train-dp-worker``)
+take 2 int8 data-parallel steps of 1 repeat in bf16 on 2 x 512 tokens:
+both ranks' params equal bit for bit and equal to a one-process
+emulation (each rank's rows' gradients quantized with its own residual,
+the payloads summed and halved, clipping and AdamW), each rank's
+residual the emulation's.  (f) ``python -m repro_torch.launch.train
+--reduced --steps 4`` and ``launch.serve --reduced`` as subprocesses on
+the card beside (a)-(e), each exiting 0.
 It prints:
 
   * the card's name and power limit (``nvidia-smi``);
@@ -217,6 +244,12 @@ It prints:
     backend, start-up
     seconds, walls, merges and their seconds, all-reduce seconds and
     launches, and the smoke's OK line;
+  * for phase 23: each step's loss, grad norm, lr and wall, the warm
+    median, tokens/s, the FLOP share, peak memory, the profiled step's
+    busy share and top device ops, the ballast's product count and
+    walls, the restore's seconds, the card-vs-CPU gaps, the workers'
+    losses and checks, the launchers' last lines, and the phase's
+    seconds;
   * one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again,
     and, last, ``{"ok": true, "device": {...}}``.
 
@@ -253,6 +286,7 @@ from __future__ import annotations
 import atexit
 import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2472,10 +2506,11 @@ def routing(torch, cfg, p_ffn, r, dropless):
 
 class RecordRoutes:
     """Within ``with``, every ``moe_forward`` call records its tokens'
-    ``routing`` in ``calls``, on the CPU."""
+    ``routing`` in ``calls``, on the CPU, and its router's own ``(idx,
+    gate)`` in ``raw`` (what ``moe.forced_routes`` takes)."""
 
     def __init__(self, torch):
-        self.torch, self.calls = torch, []
+        self.torch, self.calls, self.raw = torch, [], []
 
     def __enter__(self):
         from repro_torch.models import moe as moe_mod
@@ -2485,6 +2520,9 @@ class RecordRoutes:
             dropless = ctx is not None and ctx.dropless
             self.calls.append(tuple(t.cpu() for t in routing(
                 self.torch, cfg, p, x, dropless)))
+            _, gate, idx = moe_mod.route(x.reshape(-1, x.shape[-1]),
+                                         p["router"], cfg.moe.top_k)
+            self.raw.append((idx, gate))
             return self.orig(p, x, cfg, ctx)
         moe_mod.moe_forward = rec
         return self
@@ -2802,20 +2840,29 @@ def zoo_decode_compare(torch, cfg, params, serve, caches):
     differ at the tokens the prefill's routing rule set aside, so a
     decode token's router input moves by more than a rounding, and its
     flips are counted with their widest margin but not bounded by
-    FLIP_MARGIN."""
+    FLIP_MARGIN.  Then the flash route's decode runs again from its cache
+    with the chunked route's experts and gates forced on every MoE call
+    (``moe.forced_routes``): every set-aside step is held within
+    ROUTE_TOL there, and the steps still set aside are counted."""
     from repro_torch.models import make_decode_step
+    from repro_torch.models import moe as moe_mod
     served, B = serve["served"], serve["served"].shape[0]
     n, S = served.shape[1], PREFILL_S
     decode = make_decode_step(cfg)
-    runs = {}
+    runs, raw = {}, {}
+
+    def teacher_forced(cache):
+        logits = []
+        for i in range(n):
+            lg, cache = decode(params, served[:, i:i + 1].long(), cache,
+                               S + i)
+            logits.append(lg[:, -1].float())
+        return torch.stack(logits)  # [n, B, V]
+
     for tag, cache in caches.items():
         with RecordRoutes(torch) as rec:
-            logits = []
-            for i in range(n):
-                lg, cache = decode(params, served[:, i:i + 1].long(), cache,
-                                   S + i)
-                logits.append(lg[:, -1].float())
-        runs[tag] = (torch.stack(logits), rec.calls)  # [n, B, V]
+            logits = teacher_forced(cache)
+        runs[tag], raw[tag] = (logits, rec.calls), rec.raw
     own, engine = runs["chunked"][0], serve["logits"]
     same = all(torch.equal(own[i], engine[i + 1]) for i in range(n))
     if not same:
@@ -2844,9 +2891,33 @@ def zoo_decode_compare(torch, cfg, params, serve, caches):
         f"{gap:.3g} of max |logit| (tol {ROUTE_TOL:.3g})")
     if gap > ROUTE_TOL:
         raise AssertionError(f"[{cfg.name}] the routes' decodes disagree")
+    # the set-aside steps again: the flash route's decode with the chunked
+    # route's experts and gates forced (a step rewrites only its own cache
+    # entry, so the flash cache serves again)
+    routes = iter(raw["chunked"])
+    with moe_mod.forced_routes(routes):
+        forced = teacher_forced(caches["flash"])
+    if next(routes, None) is not None:
+        raise AssertionError(f"[{cfg.name}] the forced decode took fewer "
+                             "routes than the chunked route's decode made")
+    aside = ~keep
+    rerun = ((forced - c).abs().amax(-1) / c.abs().max()).cpu()  # [n, B]
+    held = aside & (rerun <= ROUTE_TOL)
+    still = int(aside.sum() - held.sum())
+    forced_gap = rerun[aside].max().item() if aside.any() else 0.0
+    log(f"[{cfg.name} decode] the flash route again with the chunked "
+        f"route's routing forced: {int(aside.sum())} set-aside steps "
+        f"within {forced_gap:.3g} of max |logit| (tol {ROUTE_TOL:.3g}), "
+        f"{still} of {n * B} still set aside; every step "
+        f"{rerun.max().item():.3g}")
+    if still:
+        raise AssertionError(f"[{cfg.name}] {still} set-aside decode steps "
+                             "disagree with the routing forced")
     return {"engine_bitwise": same, "near_ties": near_n, "flips": flip_n,
             "widest_flip_margin": widest, "capacity_moved": moved_n,
-            "compared": int(keep.sum()), "logit_gap": gap}
+            "compared": int(keep.sum()), "logit_gap": gap,
+            "set_aside": int(aside.sum()), "forced_gap": forced_gap,
+            "forced_gap_all": rerun.max().item(), "still_set_aside": still}
 
 
 def zoo_cpu_rerun(torch, build):
@@ -5248,6 +5319,542 @@ def mesh_phase(torch, api, build, res5):
 
 
 # ---------------------------------------------------------------------------
+# phase 23: training granite-3-8b on the card
+# ---------------------------------------------------------------------------
+
+# (a) granite-3-8b at its published widths, 6 of its 40 repeats (1.598 B
+# params: 25.6 GB of f32 params, grads and moments, 6.4 GB more for the
+# microbatches' accumulator), f32 params and bf16 compute, loss_chunk 512
+TRAIN_REPEATS = 6
+TRAIN_B, TRAIN_S = 4, 4096
+TRAIN_MICRO = 2
+TRAIN_REMAT = "full"
+TRAIN_KW = dict(learning_rate=3e-4, warmup_steps=2, total_steps=8)
+TRAIN_WARM = 5            # warm steps after the cold one
+TRAIN_SAVE_AFTER = 3      # (c): checkpoint after step 3, restart at 4
+TRAIN_PROFILE_TOP = 12
+BALLAST_TRAIN_GFLOPS = 100.0  # (d): 2980 products of 256^3 a microbatch
+# (b) the same widths, 1 repeat in f32, 1 x 256 tokens, loss_chunk 128
+TRAIN_CPU = dict(repeats=1, B=1, S=256, loss_chunk=128, steps=2)
+TRAIN_LOSS_RTOL = 1e-5    # card against CPU, each step's loss
+TRAIN_GRAD_TOL = 1e-4     # step 0's gradients, of each leaf's max |g|
+# (e) two gloo workers on the card: 1 repeat in bf16, 2 x 512, 2 steps
+TRAIN_DP = dict(repeats=1, B=2, S=512, steps=2)
+TRAIN_DP_TIMEOUT_S = 300
+# (f) the launchers as subprocesses, on the card
+TRAIN_LAUNCHERS = (("train", ["repro_torch.launch.train", "--reduced",
+                              "--steps", "4"]),
+                   ("serve", ["repro_torch.launch.serve", "--reduced"]))
+
+
+def train_cfg(repeats, **kw):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(GRANITE), n_repeats=repeats, **kw)
+
+
+def kept_leaves(torch, tree):
+    """Copies of a tree's leaves on their device (a state's 6.4 GB of
+    params fit beside a step; two states do not)."""
+    from repro_torch.core.optim import tree_leaves
+    return [t.detach().clone() for t in tree_leaves(tree)]
+
+
+def equal_leaves(torch, tree, kept):
+    from repro_torch.core.optim import tree_leaves
+    leaves = tree_leaves(tree)
+    return len(leaves) == len(kept) and all(
+        torch.equal(a, b) for a, b in zip(leaves, kept))
+
+
+def train_timed_step(torch, step, state, batch):
+    sync(torch)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    sync(torch)
+    return state, {k: v.item() for k, v in m.items()}, time.perf_counter() - t0
+
+
+def ballast_products(torch, run):
+    """``run()`` once under ``torch.profiler`` with shapes recorded: its
+    output, and the ``aten::mm`` calls of two [256 x 256] operands (the
+    ballast's products) with their device ms."""
+    from torch.profiler import ProfilerActivity, profile
+    sync(torch)
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
+    with profile(activities=acts, record_shapes=True) as prof:
+        out = run()
+        sync(torch)
+    mm = [e for e in prof.key_averages(group_by_input_shape=True)
+          if e.key == "aten::mm"
+          and [list(x) for x in e.input_shapes[:2]] == [[256, 256]] * 2]
+    return out, (sum(e.count for e in mm),
+                 sum(getattr(e, "device_time_total", 0.0) for e in mm) / 1e3)
+
+
+def train_full(torch, out):
+    """(a), (d) and (c) on one model: 1 cold and TRAIN_WARM warm steps of
+    granite-3-8b (TRAIN_REPEATS repeats) with a checkpoint after step
+    TRAIN_SAVE_AFTER; one more step profiled, again (bitwise), with the
+    ballast (bitwise, timed) and with the ballast profiled (its products
+    counted); then the checkpoint restored into a fresh state and its
+    steps run again, bit for bit the uninterrupted run's."""
+    import dataclasses
+    import shutil
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.ballast_inject import ballast_iters
+    from repro_torch.core.optim import tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = train_cfg(TRAIN_REPEATS)
+    tcfg = TrainConfig(**TRAIN_KW, microbatches=TRAIN_MICRO,
+                       remat=TRAIN_REMAT)
+    n_params = cfg.param_count()
+    tokens = TRAIN_B * TRAIN_S
+    t_part = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state, init_ms = timed_once(torch, lambda: init_train_state(
+        0, cfg, tcfg, device=DEVICE))
+    log(f"[train] {GRANITE} x {TRAIN_REPEATS} of "
+        f"{get_config(GRANITE).n_repeats} repeats: {n_params} params "
+        f"({cfg.param_dtype}, compute {cfg.compute_dtype}), state drawn on "
+        f"the card in {init_ms:.0f} ms, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    step = make_train_step(cfg, tcfg)
+    data = SyntheticLM(cfg, batch=TRAIN_B, seq=TRAIN_S, seed=0)
+    work = os.path.join(HERE, "build", "phase23_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    mgr = CheckpointManager(work, keep=1, async_save=True)
+    losses, gnorms, walls = [], [], []
+    for i in range(1 + TRAIN_WARM):
+        state, m, wall = train_timed_step(torch, step, state, data(i))
+        losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
+        walls.append(wall)
+        log(f"[train] (a) step {i}: loss {m['loss']:.6f} grad norm "
+            f"{m['grad_norm']:.4f} lr {m['lr']:.3g}, {wall:.3f} s")
+        if i == TRAIN_SAVE_AFTER:
+            t0 = time.perf_counter()
+            mgr.save(i + 1, state)          # the host copy, then a thread
+            out["ckpt_host_copy_s"] = time.perf_counter() - t0
+    bad = [x for x in losses + gnorms if not math.isfinite(x)]
+    if bad:
+        raise AssertionError(f"[train] (a) non-finite loss or grad norm: "
+                             f"{losses}, {gnorms}")
+    warm = sorted(walls[1:])[len(walls[1:]) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flops = 6 * n_params * tokens
+    out["a"] = {"repeats": TRAIN_REPEATS, "params": n_params,
+                "tokens": tokens, "microbatches": TRAIN_MICRO,
+                "remat": TRAIN_REMAT, "losses": losses, "grad_norms": gnorms,
+                "cold_s": walls[0], "warm_s": walls[1:],
+                "step_wall_s": warm, "tokens_per_s": tokens / warm,
+                "flop_share": flops / warm / PEAK_FLOPS["bfloat16"],
+                "peak_gib": peak}
+    log(f"[train] (a) cold step {walls[0]:.3f} s; warm steps "
+        f"{[round(w, 3) for w in walls[1:]]} s, median {warm:.3f} s, "
+        f"{tokens / warm:.0f} tokens/s, 6 N tokens / wall = "
+        f"{flops / warm / 1e12:.1f} TFLOP/s = "
+        f"{100 * flops / warm / PEAK_FLOPS['bfloat16']:.2f}% of 989 "
+        f"TFLOP/s; peak {peak:.2f} GiB allocated")
+    out["a_s"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    # (d) and the two-run check, from the state after the last step
+    nxt = data(1 + TRAIN_WARM)
+    final = kept_leaves(torch, state.params)
+    got = []
+    wall, busy, top = profile_device(
+        torch, lambda: got.append(step(state, nxt)), TRAIN_PROFILE_TOP)
+    (a, ma), = got
+    ref = kept_leaves(torch, a.params)
+    ma = {k: v.item() for k, v in ma.items()}
+    del a, got
+    out["a"]["profile"] = {"wall_s": wall, "busy_s": busy,
+                           "busy_share": busy / wall,
+                           "top": [[ms, cnt, key[:90]]
+                                   for ms, cnt, key in top]}
+    out["a"]["busy_of_warm_wall"] = busy / warm
+    log(f"[train] (a) one profiled step: {wall:.3f} s, device busy "
+        f"{busy:.3f} s ({100 * busy / wall:.1f}% of the traced wall, "
+        f"{100 * busy / warm:.1f}% of the median warm step's)")
+    for ms, cnt, key in top:
+        log(f"  {ms:10.3f} ms {cnt:6d}x {key[:110]}")
+    b, mb, wall_b = train_timed_step(torch, step, state, nxt)
+    twice = mb == ma and equal_leaves(torch, b.params, ref)
+    del b
+    ballast_step = make_train_step(cfg, dataclasses.replace(
+        tcfg, ballast=True, ballast_gflops=BALLAST_TRAIN_GFLOPS))
+    c, mc, wall_c = train_timed_step(torch, ballast_step, state, nxt)
+    same = mc == ma and equal_leaves(torch, c.params, ref)
+    del c
+    (c, _), (n_mm, mm_ms) = ballast_products(
+        torch, lambda: ballast_step(state, nxt))
+    same = same and equal_leaves(torch, c.params, ref)
+    del c, ref
+    want = TRAIN_MICRO * ballast_iters(BALLAST_TRAIN_GFLOPS)
+    out["d"] = {"gflops": BALLAST_TRAIN_GFLOPS,
+                "products_per_microbatch": ballast_iters(BALLAST_TRAIN_GFLOPS),
+                "products_seen": n_mm, "products_device_ms": mm_ms,
+                "step_s": wall_b, "ballast_step_s": wall_c,
+                "two_runs_bitwise": twice, "ballast_bitwise": same}
+    log(f"[train] (d) the step again {wall_b:.3f} s (bitwise the profiled "
+        f"run's: {twice}); with {BALLAST_TRAIN_GFLOPS:g} GFLOPs of ballast "
+        f"a microbatch {wall_c:.3f} s (loss and params bitwise: {same}); "
+        f"the profiler saw {n_mm} products of [256 x 256] bf16 (want "
+        f"{want}: {ballast_iters(BALLAST_TRAIN_GFLOPS)} a microbatch x "
+        f"{TRAIN_MICRO}), {mm_ms:.2f} ms on the device")
+    if not (twice and same) or n_mm != want or (
+            DEVICE == "cuda" and not mm_ms > 0):
+        raise AssertionError("[train] (d) a repeated or ballasted step "
+                             "differs, or the ballast did not run")
+
+    out["d_s"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    # (c) the restart: the checkpoint after step TRAIN_SAVE_AFTER restored
+    # into a fresh state, its steps run again
+    template = tree_map(lambda _: 0, state)
+    del state
+    t0 = time.perf_counter()
+    mgr.wait()
+    out["ckpt_write_wait_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, manifest = mgr.restore_latest(
+        template, shardings=tree_map(lambda _: DEVICE, template))
+    sync(torch)
+    restore_s = time.perf_counter() - t0
+    start = int(restored.step)
+    again = []
+    for i in range(start, 1 + TRAIN_WARM):
+        restored, m, _ = train_timed_step(torch, step, restored, data(i))
+        again.append(m["loss"])
+    equal = (start == TRAIN_SAVE_AFTER + 1 == manifest["step"]
+             and again == losses[start:]
+             and equal_leaves(torch, restored.params, final))
+    del restored, final
+    shutil.rmtree(work, ignore_errors=True)
+    out["c_s"] = time.perf_counter() - t_part
+    out["c"] = {"restored_step": start, "restore_s": restore_s,
+                "losses": again, "bitwise": equal}
+    log(f"[train] (c) restored step {start} in {restore_s:.1f} s (the "
+        f"write's wait {out['ckpt_write_wait_s']:.1f} s), steps "
+        f"{start}-{TRAIN_WARM} again: losses and params bitwise the "
+        f"uninterrupted run's: {equal}")
+    if not equal:
+        raise AssertionError("[train] (c) the restarted run differs")
+
+
+def train_cpu(torch, out):
+    """(b): the same widths with 1 repeat in f32, 1 x 256 tokens, on the
+    card and on the CPU from one state (drawn on the card, copied): step
+    0's gradients before clipping within TRAIN_GRAD_TOL of each leaf's max
+    |g| (step 0 is ``make_train_step``'s own gradient, clip and AdamW,
+    taken apart to read the gradients), each step's loss within
+    TRAIN_LOSS_RTOL."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.optim import tree_leaves, tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import trainer
+    k = TRAIN_CPU
+    cfg = train_cfg(k["repeats"], compute_dtype="float32",
+                    loss_chunk=k["loss_chunk"])
+    tcfg = TrainConfig(**TRAIN_KW)
+    data = SyntheticLM(cfg, batch=k["B"], seq=k["S"], seed=0)
+    card = init_train_state(0, cfg, tcfg, device=DEVICE)
+    cpu = tree_map(lambda t: t.to("cpu", copy=True), card)
+    grad_fn = trainer.make_value_and_grad(cfg, tcfg)
+    step = make_train_step(cfg, tcfg)
+
+    def first(state, dev):
+        batch = {n: torch.from_numpy(v).to(dev) for n, v in data(0).items()}
+        (loss, _), grads = grad_fn(state.params, batch)
+        return loss.item(), grads
+
+    (loss_card, g_card), card_ms = timed_once(torch, lambda: first(
+        card, DEVICE))
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = first(cpu, "cpu")
+    cpu_grad_s = time.perf_counter() - t0
+    gaps = [((a.cpu() - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu))]
+    card, _ = trainer._apply(card, g_card, tcfg,
+                             trainer.lr_schedule(0, tcfg).to(DEVICE))
+    cpu, _ = trainer._apply(cpu, g_cpu, tcfg, trainer.lr_schedule(0, tcfg))
+    del g_card, g_cpu
+    rel = [abs(loss_card - loss_cpu) / abs(loss_cpu)]
+    for i in range(1, k["steps"]):
+        card, mc = step(card, data(i))
+        cpu, mp = step(cpu, data(i))
+        rel.append(abs(mc["loss"].item() - mp["loss"].item())
+                   / abs(mp["loss"].item()))
+    cpu_s = time.perf_counter() - t0
+    del card, cpu
+    out["b"] = {"repeats": k["repeats"], "tokens": k["B"] * k["S"],
+                "grad_gap_max": max(gaps), "grad_tol": TRAIN_GRAD_TOL,
+                "loss_rel": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+                "card_grad_ms": card_ms, "cpu_grad_s": cpu_grad_s,
+                "cpu_s": cpu_s}
+    log(f"[train] (b) card against CPU, 1 repeat in f32, {k['B']} x "
+        f"{k['S']}: step 0's gradients within {max(gaps):.3g} of each "
+        f"leaf's max |g| (tol {TRAIN_GRAD_TOL}), {len(gaps)} leaves; "
+        f"losses within {max(rel):.3g} relative (tol {TRAIN_LOSS_RTOL}); "
+        f"card {card_ms:.0f} ms a gradient, CPU {cpu_grad_s:.1f} s "
+        f"({cpu_s:.1f} s with the steps), beside (e)'s workers")
+    if max(gaps) > TRAIN_GRAD_TOL or max(rel) > TRAIN_LOSS_RTOL:
+        raise AssertionError("[train] (b) the CPU disagrees with the card")
+
+
+def train_dp_worker(torch, out_dir, t_launch):
+    """One rank of (e): join the job (gloo, both ranks on the card), take
+    TRAIN_DP's steps of the int8 data-parallel step, and save its params
+    and residuals (``rank_<r>.pt``) and a report of its losses and
+    seconds (``rank_<r>.json``)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.optim import tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.parallel import distributed as D
+    from repro_torch.train import init_train_state
+    from repro_torch.train.trainer import make_dp_compressed_train_step
+    rep = {"startup_s": time.time() - t_launch}
+    if not D.initialize(device=DEVICE):
+        raise SystemExit("train worker launched without REPRO_DIST_*")
+    k = TRAIN_DP
+    cfg = train_cfg(k["repeats"], param_dtype="bfloat16")
+    tcfg = TrainConfig(**TRAIN_KW)
+    state = init_train_state(0, cfg, tcfg, device=DEVICE)
+    step, init_err = make_dp_compressed_train_step(cfg, tcfg)
+    err = init_err(state.params)
+    data = SyntheticLM(cfg, batch=k["B"], seq=k["S"], seed=0)
+    losses = []
+    rep["steps_s"] = []
+    for i in range(k["steps"]):
+        sync(torch)
+        t0 = time.perf_counter()
+        state, err, m = step(state, err, data(i))
+        losses.append(m["loss"].item())
+        rep["steps_s"].append(time.perf_counter() - t0)
+    rank = D.process_index()
+    t0 = time.perf_counter()
+    torch.save({n: [t.cpu() for t in tree_leaves(tree)]
+                for n, tree in (("params", state.params), ("err", err))},
+               os.path.join(out_dir, f"rank_{rank}.pt"))
+    rep.update(rank=rank, world=D.process_count(),
+               backend=str(torch.distributed.get_backend()), losses=losses,
+               save_s=time.perf_counter() - t0)
+    with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as fh:
+        json.dump(rep, fh)
+    D.shutdown()
+    return 0
+
+
+def train_dp_emulate(torch):
+    """(e)'s one-process emulation on the card: each rank's rows'
+    gradients quantized with that rank's residual, the two dequantized
+    payloads summed and halved (cast to the gradient's dtype, as the
+    all-reduce's mean is), clipping and AdamW; the ranks' mean loss."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.optim import tree_leaves, tree_unflatten
+    from repro_torch.data import SyntheticLM
+    from repro_torch.parallel import collectives as C
+    from repro_torch.train import init_train_state
+    from repro_torch.train import trainer
+    k = TRAIN_DP
+    cfg = train_cfg(k["repeats"], param_dtype="bfloat16")
+    tcfg = TrainConfig(**TRAIN_KW)
+    state = init_train_state(0, cfg, tcfg, device=DEVICE)
+    grad_fn = trainer.make_value_and_grad(cfg, tcfg)
+    data = SyntheticLM(cfg, batch=k["B"], seq=k["S"], seed=0)
+    world, per = 2, k["B"] // 2
+    errs = [[torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for p in tree_leaves(state.params)] for _ in range(world)]
+    losses = []
+    for i in range(k["steps"]):
+        lr = trainer.lr_schedule(state.step, tcfg).to(DEVICE)
+        batch = {n: torch.from_numpy(v).to(DEVICE)
+                 for n, v in data(i).items()}
+        deq, loss_sum = [], 0.0
+        for r in range(world):
+            (loss, _), g = grad_fn(state.params, {
+                n: v[r * per:(r + 1) * per] for n, v in batch.items()})
+            loss_sum = loss_sum + loss
+            mine = []
+            for j, x in enumerate(tree_leaves(g)):
+                flat = C._flat_padded(x.float() + errs[r][j])
+                q, s = C._quantize_int8(flat)
+                d = C._dequantize_int8(q, s)
+                errs[r][j] = (flat - d)[:x.numel()].reshape(
+                    x.shape).to(x.dtype).float()
+                mine.append(d)
+            deq.append(mine)
+        mean = [((deq[0][j] + deq[1][j]) / 2.0)[:p.numel()].reshape(
+            p.shape).to(p.dtype)
+            for j, p in enumerate(tree_leaves(state.params))]
+        state, _ = trainer._apply(state, tree_unflatten(state.params, mean),
+                                  tcfg, lr)
+        losses.append((loss_sum / world).item())
+    return state, errs, losses
+
+
+def train_dp_start(torch):
+    """(e): two gloo workers on the card (as phase 21's) take TRAIN_DP's
+    steps, launched from a thread so that (b) runs beside them; returns
+    what ``train_dp_finish`` waits for."""
+    import shutil
+    import threading
+    from repro_torch.parallel import distributed
+    work = os.path.join(HERE, "build", "phase23_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    job = {"work": work, "t0": time.perf_counter()}
+
+    def run():
+        try:
+            distributed.launch_workers(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--train-dp-worker", work, repr(time.time())],
+                num_processes=2, timeout=TRAIN_DP_TIMEOUT_S)
+        except BaseException as e:  # raised again by train_dp_finish
+            job["error"] = e
+        job["launch_s"] = time.perf_counter() - job["t0"]
+
+    job["thread"] = threading.Thread(target=run, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def train_dp_finish(torch, out, job):
+    """(e), once its workers ended (the emulation needs the card's memory
+    they held): both ranks' params are equal bit for bit, and equal to
+    the one-process emulation's; each rank's residual is the emulation's
+    for its rows."""
+    import shutil
+    from repro_torch.core.optim import tree_leaves
+    job["thread"].join()
+    if "error" in job:
+        raise job["error"]
+    t0 = time.perf_counter()
+    reps, saved = [], []
+    for r in range(2):
+        with open(os.path.join(job["work"], f"rank_{r}.json")) as fh:
+            reps.append(json.load(fh))
+        saved.append(torch.load(os.path.join(job["work"], f"rank_{r}.pt"),
+                                weights_only=True))
+    shutil.rmtree(job["work"], ignore_errors=True)
+    state, errs, losses = train_dp_emulate(torch)
+
+    def same(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y.cpu())
+                                        for x, y in zip(a, b))
+
+    ranks_equal = same(saved[0]["params"], saved[1]["params"])
+    emulated = same(saved[0]["params"], tree_leaves(state.params)) and all(
+        same(saved[r]["err"], errs[r]) for r in range(2))
+    del state, errs, saved
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(reps[0]["losses"],
+                                                      losses))
+    out["e"] = {"world": [r["world"] for r in reps],
+                "backend": reps[0]["backend"], "launch_s": job["launch_s"],
+                "workers": [{k: r[k] for k in ("startup_s", "steps_s",
+                                               "save_s")} for r in reps],
+                "check_s": time.perf_counter() - t0,
+                "losses": reps[0]["losses"], "ranks_bitwise": ranks_equal,
+                "emulation_bitwise": emulated, "loss_rel_gap": loss_gap}
+    log(f"[train] (e) two gloo workers on the card ({reps[0]['backend']}), "
+        f"{TRAIN_DP['steps']} steps of 1 repeat in bf16 on "
+        f"{TRAIN_DP['B']} x {TRAIN_DP['S']}: ranks' params bitwise "
+        f"{ranks_equal}, equal to the one-process emulation (params and "
+        f"each rank's residual) {emulated}, losses {reps[0]['losses']} "
+        f"(emulation within {loss_gap:.3g}); the workers "
+        f"{job['launch_s']:.1f} s beside (b) (" + json.dumps(
+            out["e"]["workers"]) + f"), the check {out['e']['check_s']:.1f}"
+        " s")
+    if not (ranks_equal and emulated and loss_gap <= 1e-6
+            and reps[0]["losses"] == reps[1]["losses"]):
+        raise AssertionError("[train] (e) the data-parallel step differs "
+                             "between ranks or from its emulation")
+
+
+def launchers_start():
+    """(f): the train and serve launchers as subprocesses on the card
+    (their default device)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    dev = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    return [(tag, subprocess.Popen(
+        [sys.executable, "-m", *argv, *dev], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for tag, argv in TRAIN_LAUNCHERS]
+
+
+def launchers_stop(procs):
+    for _, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def launchers_finish(procs, out, timeout=300):
+    res = {}
+    try:
+        for tag, p in procs:
+            so, se = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"[train] (f) launcher {tag} exited "
+                                     f"{p.returncode}:\n{se[-2000:]}")
+            res[tag] = [ln for ln in so.splitlines()
+                        if ln.startswith(("done:", "generated"))]
+    finally:
+        launchers_stop(procs)
+    out["f"] = res
+    log("[train] (f) launchers: " + json.dumps(res))
+
+
+def train_phase(torch, build):
+    """Phase 23: training granite-3-8b at its published widths on the
+    card: (a) full width, depth cut, with (d) the ballast and (c) the
+    restart on the same model; (b) card against CPU; (e) the int8
+    data-parallel step on two gloo workers; (f) the launchers as
+    subprocesses, started first; (b) runs beside (e)'s workers.  No
+    kernel of A-K or A' launches."""
+    t0 = time.perf_counter()
+    out = {}
+    procs = launchers_start()
+    try:
+        build.reset_launch_counts()
+        train_full(torch, out)
+        # (e)'s workers need the memory this process's cache holds; (b)
+        # runs beside them (its card part needs about 10 GB)
+        torch.cuda.empty_cache()
+        job = train_dp_start(torch)
+        try:
+            t = time.perf_counter()
+            train_cpu(torch, out)
+            out["b_s"] = time.perf_counter() - t
+        finally:
+            job["thread"].join()
+        torch.cuda.empty_cache()
+        train_dp_finish(torch, out, job)
+        counts = build.launch_counts()
+    except BaseException:
+        launchers_stop(procs)
+        raise
+    launchers_finish(procs, out)
+    torch.cuda.empty_cache()
+    if any(counts.values()):
+        raise AssertionError(f"[train] a kernel launched on the training "
+                             f"path: {counts}")
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t0
+    parts = {k: round(out[k], 1) for k in ("a_s", "d_s", "c_s", "b_s")}
+    log(f"[train] no kernel of A-K or A' launched; phase 23: "
+        f"{out['phase_s']:.1f} s (" + json.dumps(parts) + ", (e)'s "
+        f"workers {out['e']['launch_s']:.1f} s from their start, its "
+        f"emulation and check {out['e']['check_s']:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 15: kernels G, H and I through the reference's own entry points
 # ---------------------------------------------------------------------------
 
@@ -6014,6 +6621,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--mesh-worker"] and len(sys.argv) == 5:
         return mesh_worker(torch, sys.argv[2], sys.argv[3],
                            float(sys.argv[4]))
+    if sys.argv[1:2] == ["--train-dp-worker"] and len(sys.argv) == 4:
+        return train_dp_worker(torch, sys.argv[2], float(sys.argv[3]))
     from repro_torch import api
     from repro_torch.kernels import build
     # the kernels that api does not import register here: F, G, H and I
@@ -6302,9 +6911,16 @@ def main() -> int:
     log("mesh: " + json.dumps({k: v for k, v in mesh.items()
                                if k != "launches"}))
     log(f"phase 21: {mesh['phase_s']:.1f} s")
+    # 23. training granite-3-8b on the card (no kernel of A-K or A'); it
+    # runs before phase 15, so that phase 15's check that no earlier path
+    # launched G, H or I covers it
+    train = train_phase(torch, build)
+    late["training"] = train["launches"]
+    log("train: " + json.dumps({k: v for k, v in train.items()
+                                if k != "launches"}))
     for k in kernels:
         for p in ("serial_reference", "design", "backstop_gradient",
-                  "compliance_service", "scenario_mesh"):
+                  "compliance_service", "scenario_mesh", "training"):
             k["launches_by_path"][p] = late[p][COUNT_NAME[k["name"]]]
 
     # 15. kernels G, H and I through the reference's own entry points:

@@ -1,7 +1,9 @@
 """Checkpoints of trees of arrays on the host.
 
-- A tree is nested dicts, lists and tuples of arrays (numpy arrays, or
-  tensors, which are copied to the host).  Each leaf is saved as one
+- A tree is nested dicts, lists, tuples and named tuples (a training
+  state) of arrays (numpy arrays, or tensors, which are copied to the
+  host; a bfloat16 tensor is saved as its 16-bit pattern and its dtype
+  named in the manifest).  Each leaf is saved as one
   ``.npy`` file named by its path in the tree (``"cols/energy_overhead"``,
   ``"layers/0/w"``); a JSON manifest holds the step, each leaf's file,
   dtype and shape, and the caller's ``extra``.
@@ -28,6 +30,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.optim import tree_map, tree_unflatten
+
 def _flatten(tree, prefix: str = "") -> List[Tuple[str, object]]:
     """``(path, leaf)`` pairs in the tree's order: dict keys and sequence
     indices joined by ``/``."""
@@ -43,29 +47,32 @@ def _flatten(tree, prefix: str = "") -> List[Tuple[str, object]]:
     return out
 
 
-def _unflatten(template, leaves: Dict[str, object], prefix: str = ""):
-    if isinstance(template, dict):
-        return {k: _unflatten(v, leaves, f"{prefix}/{k}" if prefix
-                              else str(k)) for k, v in template.items()}
-    if isinstance(template, (list, tuple)):
-        out = [_unflatten(v, leaves, f"{prefix}/{i}" if prefix else str(i))
-               for i, v in enumerate(template)]
-        return type(template)(out)
-    return leaves[prefix]
+def _unflatten(template, leaves: Dict[str, object]):
+    """``template``'s structure (a named tuple rebuilt field by field)
+    holding the leaves saved under its paths."""
+    return tree_unflatten(template, [leaves[p] for p, _ in
+                                     _flatten(template)])
+
+
+class _BF16(np.ndarray):
+    """A bfloat16 tensor's bits on the host, as uint16 (numpy has no
+    bfloat16): saved as such, its dtype named ``bfloat16``."""
 
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(np.uint16).view(_BF16)
+        return leaf.numpy()
+    return np.asanyarray(leaf)
 
 
-def _host_tree(tree):
-    if isinstance(tree, dict):
-        return {k: _host_tree(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_host_tree(v) for v in tree)
-    return _host(tree)
+def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
+    t = torch.from_numpy(a)
+    if dtype == "bfloat16":
+        return t.view(torch.int16).view(torch.bfloat16)
+    return t
 
 
 def save_pytree(directory: str, tree, step: int,
@@ -78,8 +85,9 @@ def save_pytree(directory: str, tree, step: int,
     for key, leaf in _flatten(tree):
         arr = _host(leaf)
         fn = key.replace("/", "__") + ".npy"
-        np.save(os.path.join(tmp, fn), arr)
-        manifest["leaves"][key] = {"file": fn, "dtype": str(arr.dtype),
+        dtype = "bfloat16" if isinstance(arr, _BF16) else str(arr.dtype)
+        np.save(os.path.join(tmp, fn), np.asarray(arr))
+        manifest["leaves"][key] = {"file": fn, "dtype": dtype,
                                    "shape": list(arr.shape),
                                    "object": bool(arr.dtype == object)}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -122,7 +130,7 @@ def restore_pytree(directory: str, template, shardings=None):
         if a.dtype == object:
             out[k] = a
             continue
-        t = torch.from_numpy(a)
+        t = _tensor(a, manifest["leaves"][k]["dtype"])
         dev = placed.get(k)
         out[k] = t if dev is None else t.to(torch.device(dev))
     return _unflatten(template, out), manifest
@@ -154,7 +162,7 @@ class CheckpointManager:
     def save(self, step: int, tree, extra: Optional[Dict] = None) -> None:
         # copy to the host before the thread starts, so the caller may
         # overwrite its tensors at once
-        host_tree = _host_tree(tree)
+        host_tree = tree_map(_host, tree)
 
         def commit():
             save_pytree(self._dir(step), host_tree, step, extra)

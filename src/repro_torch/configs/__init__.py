@@ -13,7 +13,7 @@ from typing import Dict
 
 from repro_torch.configs.base import (AttentionConfig, LayerSpec, MLAConfig,
                                       MambaConfig, ModelConfig, MoEConfig,
-                                      RWKVConfig, ShapeConfig,
+                                      RWKVConfig, ShapeConfig, TrainConfig,
                                       VisionStubConfig, LM_SHAPES, reduced)
 
 _MODULES: Dict[str, str] = {
@@ -59,7 +59,7 @@ def get_shape(name: str) -> ShapeConfig:
 
 __all__ = [
     "ARCH_IDS", "get_config", "get_shape", "reduced",
-    "ModelConfig", "ShapeConfig", "LayerSpec",
+    "ModelConfig", "ShapeConfig", "TrainConfig", "LayerSpec",
     "AttentionConfig", "MLAConfig", "MoEConfig", "MambaConfig", "RWKVConfig",
     "VisionStubConfig", "LM_SHAPES",
 ]

@@ -171,6 +171,31 @@ LM_SHAPES = (
 
 
 # ---------------------------------------------------------------------------
+# Training config
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    # memory knobs
+    remat: str = "full"  # none | dots | full
+    microbatches: int = 1
+    moment_dtype: str = "float32"  # bf16 for the >=100B archs in dry-run
+    # distributed-optimization tricks
+    compress_grads: bool = False  # int8 error-feedback reduce
+    # power-stabilization hook (the paper's technique, in-graph)
+    ballast: bool = False
+    ballast_gflops: float = 0.0
+
+
+# ---------------------------------------------------------------------------
 # Analytic parameter counting
 # ---------------------------------------------------------------------------
 

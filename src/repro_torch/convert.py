@@ -25,6 +25,11 @@ f32 ``router`` and ``[E, d_in, d_out]`` experts with ``shared``, MLA's
 ``prefix`` list included).  A decode cache tree (``k``/``v``, or MLA's
 ``ckv``/``krope``) goes across the same way.
 
+``train_state_from_reference(state)`` carries a training state across:
+the reference's ``TrainState`` (params, the optimizer's ``m``, ``v`` and
+``count``, and ``step``, as numpy arrays) becomes the port's, so both
+packages can take steps from one state.
+
 ``predictor_from_reference(pred)`` carries a trained warm-start
 predictor across: the reference's ``params``, ``norm`` and ``meta`` become
 the port's ``WarmStartPredictor``.
@@ -187,6 +192,26 @@ def params_from_reference(tree, device=None):
         return _leaf_tensor(t, dev)
 
     return walk(tree)
+
+
+def train_state_from_reference(state, device=None):
+    """The port's ``train.TrainState`` from the reference's: ``state``
+    has ``params``, ``opt`` (``{"m", "v", "count"}``) and ``step``, their
+    leaves as numpy arrays (``jax.tree.map(np.asarray, state)``).  The
+    moments keep their dtype; ``count`` and ``step`` become int32 0-d
+    tensors.  ``device=None`` means the card."""
+    from repro_torch.train.trainer import TrainState
+    dev = resolve_device(device)
+
+    def count(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
+                            device=dev)
+
+    opt = {"m": params_from_reference(state.opt["m"], dev),
+           "v": params_from_reference(state.opt["v"], dev),
+           "count": count(state.opt["count"])}
+    return TrainState(params_from_reference(state.params, dev), opt,
+                      count(state.step))
 
 
 def predictor_from_reference(pred, device=None):

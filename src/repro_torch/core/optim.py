@@ -3,8 +3,10 @@ of the gradient design (``core/engine.py`` ``design_gradient``).
 
 Functional, like the reference's ``core/optim.py``: every call returns new
 tensors, and the update math runs in float32 with the results cast back to
-the parameter dtypes.  A tree is a dict whose values are tensors or
-nested dicts (the warm-start predictor's params, ``serve/warmstart.py``).
+the parameter dtypes.  A tree is a tensor or a dict, list or tuple (a
+named tuple too) of trees: the warm-start predictor's params
+(``serve/warmstart.py``), or a model's params and the training state
+(``train/``).
 A tree's leaves may carry a leading batch axis of independent problems (the design's starts); ``global_norm`` and
 ``clip_by_global_norm`` then reduce over every axis but ``batch_dims``
 leading ones, so one start's norm never sees another's gradient.
@@ -19,10 +21,19 @@ F32 = torch.float32
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a nested dict, in its order."""
+    """The leaves of a tree, in its order."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def _rebuild(like, items):
+    """A list or tuple of ``like``'s type (a named tuple field by field)."""
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*items)
+    return type(like)(items)
 
 
 def tree_map(fn, tree, *rest):
@@ -31,7 +42,16 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return _rebuild(tree, [tree_map(fn, v, *(r[i] for r in rest))
+                               for i, v in enumerate(tree)])
     return fn(tree, *rest)
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def global_norm(tree: Dict[str, torch.Tensor], batch_dims: int = 0
@@ -95,9 +115,10 @@ def adam_update(params: Dict[str, torch.Tensor],
     """One Adam step on every leaf: ``(new_params, new_state)``."""
     count = state["count"] + 1
     c = torch.tensor(float(count), dtype=F32)
-    out = tree_map(lambda p, g, m, v: adam_leaf(
-        p, g, m, v, c.to(p.device), lr=lr, b1=b1, b2=b2, eps=eps,
-        weight_decay=weight_decay), params, grads, state["m"], state["v"])
-    new_p, new_m, new_v = (tree_map(lambda t, i=i: t[i], out)
+    out = [adam_leaf(p, g, m, v, c.to(p.device), lr=lr, b1=b1, b2=b2,
+                     eps=eps, weight_decay=weight_decay)
+           for p, g, m, v in zip(*(tree_leaves(t) for t in (
+               params, grads, state["m"], state["v"])))]
+    new_p, new_m, new_v = (tree_unflatten(params, [o[i] for o in out])
                            for i in range(3))
     return new_p, {"m": new_m, "v": new_v, "count": count}

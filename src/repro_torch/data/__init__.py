@@ -1,0 +1,4 @@
+"""Data pipelines (reference: ``repro/data``)."""
+from repro_torch.data.synthetic import SyntheticLM
+
+__all__ = ["SyntheticLM"]

@@ -14,6 +14,14 @@ deepseek-v2-lite-16b run; any other kind raises ``NotImplementedError``.
 ``forward`` sums the MoE layers' aux losses over the prefix and the unit.
 The prefill keeps the reference's default ``Ctx`` (MoE capacity
 dropping); the decode step sets ``dropless``.
+
+Training: ``loss_fn`` is the reference's mean next-token cross-entropy
+(chunked over the sequence when ``cfg.loss_chunk`` divides it) plus the
+MoE aux.  ``Ctx.remat`` recomputes each repeat of the unit in the
+backward, as the reference's ``jax.checkpoint`` of its scan body does:
+``"full"`` keeps only a repeat's input, ``"dots"`` also keeps its
+matrix products' outputs.  Recomputation repeats the forward's
+operations on the same inputs, so all three modes give the same bits.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint as checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
@@ -40,12 +49,13 @@ F32 = torch.float32
 @dataclasses.dataclass
 class Ctx:
     """The reference's ``Ctx`` without the fields that only steer XLA or
-    sharding (``unroll``, ``remat``, ``constrain_fn``, ``moe_sm``) and
-    without ``vision_embeds`` (cross-attention is not ported)."""
+    sharding (``unroll``, ``constrain_fn``, ``moe_sm``) and without
+    ``vision_embeds`` (cross-attention is not ported)."""
 
     cfg: ModelConfig
     positions: Any = None            # [S] int64 absolute positions
     kv_repeat: int = 1               # kv-head duplication factor (TP)
+    remat: str = "none"              # none | dots | full (see ``forward``)
     # MoE dropless mode (decode/serving): capacity = all slots, no token
     # drops; ``make_decode_step`` sets it, the prefill keeps capacity
     # dropping, as in the reference
@@ -223,20 +233,91 @@ def _with_positions(ctx, cfg, batch):
     return ctx
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the matrix products' outputs (the
+    reference's ``checkpoint_dots``), recompute everything else."""
+    return (checkpoint.CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _unbind(tree, n: int):
+    """The ``n`` repeats of a stacked unit tree: one tree of views a
+    repeat (its backward stacks the repeats' gradients once)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[r] for k, v in parts.items()} for r in range(n)]
+    return tree.unbind(0)
+
+
+def _unit_repeat(cfg, ctx, layers, x, aux):
+    for spec, p in zip(cfg.unit, layers):
+        x, a, _ = apply_layer(spec, p, x, ctx)
+        aux = aux + a
+    return x, aux
+
+
 def forward(params, cfg: ModelConfig, batch, ctx: Optional[Ctx] = None):
-    """Returns (final-normed activations [B,S,d], moe_aux scalar)."""
+    """Returns (final-normed activations [B,S,d], moe_aux scalar).
+
+    With ``ctx.remat`` other than ``"none"``, each repeat of the unit runs
+    under ``torch.utils.checkpoint`` (non-reentrant): ``"full"`` saves
+    nothing inside it, ``"dots"`` saves the matrix products' outputs."""
     ctx = _with_positions(ctx, cfg, batch)
+    if ctx.remat not in ("none", "dots", "full"):
+        raise ValueError(f"remat {ctx.remat!r}: none, dots or full")
     x = _embed(params, cfg, batch, ctx)
     aux = torch.zeros((), dtype=F32, device=x.device)
     for spec, p in zip(cfg.prefix, params["prefix"]):
         x, a, _ = apply_layer(spec, p, x, ctx)
         aux = aux + a
-    for r in range(cfg.n_repeats):
-        for i, spec in enumerate(cfg.unit):
-            x, a, _ = apply_layer(spec, _at(params["unit"][i], r), x, ctx)
-            aux = aux + a
+    kw = {}
+    if ctx.remat == "dots":
+        kw["context_fn"] = lambda: (
+            checkpoint.create_selective_checkpoint_contexts(_save_dots))
+    for layers in zip(*(_unbind(u, cfg.n_repeats) for u in params["unit"])):
+        if ctx.remat == "none":
+            x, aux = _unit_repeat(cfg, ctx, layers, x, aux)
+        else:
+            x, aux = checkpoint.checkpoint(_unit_repeat, cfg, ctx, layers, x,
+                                           aux, use_reentrant=False, **kw)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
+
+
+def _ce(logits, labels):
+    logits = logits.to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - gold
+
+
+def loss_fn(params, cfg: ModelConfig, batch, ctx: Optional[Ctx] = None):
+    """Mean next-token CE (+ MoE aux): ``(loss, {"ce", "moe_aux"})``.
+
+    Chunked over the sequence when ``cfg.loss_chunk`` divides S and is
+    smaller: each chunk's logits ``x_i @ w_head`` in the compute dtype,
+    its CE in f32, the chunks' sums added in f32 and divided by B * S, as
+    in the reference.  The head is cast to the compute dtype once, not
+    once a chunk (the same values)."""
+    x, aux = forward(params, cfg, batch, ctx)
+    labels = batch["labels"]
+    w_head = params["lm_head"].to(x.dtype)
+    chunk = cfg.loss_chunk
+    B, S = x.shape[0], x.shape[1]
+    if chunk and S % chunk == 0 and S > chunk:
+        tot = torch.zeros((), dtype=F32, device=x.device)
+        for lo in range(0, S, chunk):
+            logits = x[:, lo:lo + chunk] @ w_head
+            tot = tot + _ce(logits, labels[:, lo:lo + chunk]).sum()
+        ce = tot / (B * S)
+    else:
+        ce = _ce(x @ w_head, labels).mean()
+    coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
+    return ce + coef * aux, {"ce": ce, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +415,9 @@ class Model:
 
     def init(self, key, device=None):
         return init_params(key, self.cfg, device)
+
+    def loss(self, params, batch, ctx=None):
+        return loss_fn(params, self.cfg, batch, ctx)
 
     def forward(self, params, batch, ctx=None):
         return forward(params, self.cfg, batch, ctx)

@@ -24,11 +24,17 @@ Where the port takes other means to the same result:
 
 ``moe_forward_shardmap`` (expert parallelism on a model sharding plan) is
 not ported: ROADMAP queue A, sharding the model across cards.
+
+``forced_routes`` is a hook for checks only: within it, each ``route``
+call takes its ``idx`` and ``gate`` from a given sequence instead of the
+router (its ``probs``, and so the aux, stay the router's), so two runs
+whose routers part on near ties can be held on the same experts.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Tuple
+from typing import Iterable, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +73,36 @@ def init_moe(gen, cfg, dtype):
     return p
 
 
+_FORCED = None   # an iterator of (idx, gate) while ``forced_routes`` runs
+
+
+@contextlib.contextmanager
+def forced_routes(routes: Iterable[Tuple[torch.Tensor, torch.Tensor]]):
+    """For checks only: within ``with``, the n-th ``route`` call returns
+    the n-th ``(idx [N, k], gate [N, k])`` of ``routes`` (moved to the
+    call's device) in place of its own; a call past the end, or a pair of
+    another shape, raises."""
+    global _FORCED
+    if _FORCED is not None:
+        raise RuntimeError("forced_routes does not nest")
+    _FORCED = iter(routes)
+    try:
+        yield
+    finally:
+        _FORCED = None
+
+
+def _forced(idx, gate):
+    try:
+        f_idx, f_gate = next(_FORCED)
+    except StopIteration:
+        raise RuntimeError("forced_routes: more route calls than routes")
+    if f_idx.shape != idx.shape or f_gate.shape != gate.shape:
+        raise ValueError(f"forced_routes: a route of {tuple(f_idx.shape)} "
+                         f"for a call of {tuple(idx.shape)}")
+    return f_idx.to(idx.device), f_gate.to(gate.device, gate.dtype)
+
+
 def route(xt, router, k: int):
     """The router on tokens ``xt [N, d]``: ``probs [N, E]`` (f32), the
     renormalised ``gate [N, k]`` and ``idx [N, k]``, highest first."""
@@ -75,6 +111,8 @@ def route(xt, router, k: int):
     top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = top[:, :k], order[:, :k]
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    if _FORCED is not None:
+        idx, gate = _forced(idx, gate)
     return probs, gate, idx
 
 

@@ -422,3 +422,100 @@ def test_serve_entry_points_without_a_card_raise(monkeypatch, tmp_path,
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _serve_entry(name, None, tmp_path)
     assert _serve_entry(name, "cpu", tmp_path) is not None
+
+
+def test_rules_cover_the_training_slice():
+    """The import rule's walk reaches ``train/``, ``data/`` and
+    ``launch/``, and none of their modules imports ``jax`` or
+    ``repro``."""
+    files = _port_files()
+    for package in ("train", "data", "launch"):
+        paths = sorted((ROOT / "src" / "repro_torch" / package).glob("*.py"))
+        assert len(paths) >= 2, package
+        for path in paths:
+            assert path in files
+            bad = [m for m in _imported_modules(path)
+                   if m.split(".")[0] in FORBIDDEN]
+            assert not bad, (path.name, bad)
+    for module in ("train/optimizer.py", "data/synthetic.py",
+                   "launch/train.py", "launch/serve.py",
+                   "core/ballast_inject.py"):
+        assert ROOT / "src" / "repro_torch" / module in files
+
+
+def test_core_exports_the_ballast_as_the_reference_does():
+    import repro_torch.core as port_core
+    for name in ("attach_ballast", "ballast_gflops_for_cell"):
+        assert hasattr(core, name) and hasattr(port_core, name)
+        assert name in port_core.__all__
+    from repro_torch.core import ballast_inject
+    assert port_core.attach_ballast is ballast_inject.attach_ballast
+
+
+def test_train_exports_what_the_reference_exports():
+    import repro.train as ref_train
+    import repro_torch.train as port_train
+    names = {n for n in dir(ref_train) if not n.startswith("_")
+             and n not in ("optimizer", "trainer")}
+    assert names <= set(port_train.__all__)
+    assert all(hasattr(port_train, n) for n in port_train.__all__)
+
+
+def _train_entry(name, device):
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.convert import train_state_from_reference
+    from repro_torch.train import init_train_state
+    cfg = reduced(get_config("granite-3-8b"))
+    if name == "init_train_state":
+        return init_train_state(0, cfg, TrainConfig(), device=device)
+    from repro.train import init_train_state as ref_init
+    from repro import configs as ref_configs
+    import jax
+    ref = ref_init(jax.random.PRNGKey(0),
+                   ref_configs.reduced(ref_configs.get_config(
+                       "granite-3-8b")), ref_configs.TrainConfig())
+    return train_state_from_reference(jax.tree.map(np.asarray, ref),
+                                      device=device)
+
+
+@pytest.mark.parametrize("name", ["init_train_state",
+                                  "train_state_from_reference"])
+def test_training_entry_points_without_a_card_raise(monkeypatch, name):
+    """``device=None`` means the card: without CUDA they raise, and with
+    ``device="cpu"`` every tensor of the state is on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _train_entry(name, None)
+    from repro_torch.core.optim import tree_leaves
+    state = _train_entry(name, "cpu")
+    assert {t.device.type for t in tree_leaves(state)} == {"cpu"}
+
+
+@pytest.mark.parametrize("dp", [False, True])
+def test_train_steps_run_where_the_state_is(monkeypatch, dp):
+    """A train step moves its numpy batch to the state's device (the card
+    for a state made with the defaults) and returns everything there."""
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.core.optim import tree_leaves
+    from repro_torch.models import model
+    from repro_torch.train import init_train_state, make_train_step, trainer
+    cfg = reduced(get_config("granite-3-8b"))
+    tcfg = TrainConfig()
+    state = init_train_state(0, cfg, tcfg, device="cpu")
+    seen = []
+    orig = model.loss_fn
+
+    def spy(params, cfg, batch, ctx=None):
+        seen.extend(v.device for v in batch.values())
+        return orig(params, cfg, batch, ctx)
+
+    monkeypatch.setattr(trainer, "loss_fn", spy)
+    batch = {"tokens": np.zeros((2, 8), np.int32),
+             "labels": np.zeros((2, 8), np.int32)}
+    if dp:
+        step, init_err = trainer.make_dp_compressed_train_step(cfg, tcfg)
+        out, _, m = step(state, init_err(state.params), batch)
+    else:
+        out, m = make_train_step(cfg, tcfg)(state, batch)
+    assert seen and {d.type for d in seen} == {"cpu"}
+    assert {t.device.type for t in tree_leaves((out, m))} == {"cpu"}
