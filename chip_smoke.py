@@ -168,7 +168,9 @@ profiled (2 x 2980 products of [256 x 256] bf16 counted, with their
 device time).  (c) The ``CheckpointManager`` checkpoint taken after step
 3 restored into a fresh state and steps 4-5 run again: losses and params
 bit for bit the uninterrupted run's.  (b) 1 repeat in f32 on 1 x 256
-tokens (``loss_chunk`` 128) on the card and on the CPU from one state:
+tokens (``loss_chunk`` 128) on the card and on the CPU from one state,
+in a worker process (``--train-cpu OUT``) started before phase 17, whose
+card half ends before (a) starts and whose CPU half runs beside (a)-(c):
 step 0's gradients within 1e-4 of each leaf's max |g|, 2 steps' losses
 within 1e-5.  (e) Two gloo workers on the card (``--train-dp-worker``)
 take 2 int8 data-parallel steps of 1 repeat in bf16 on 2 x 512 tokens:
@@ -178,6 +180,29 @@ the payloads summed and halved, clipping and AdamW), each rank's
 residual the emulation's.  (f) ``python -m repro_torch.launch.train
 --reduced --steps 4`` and ``launch.serve --reduced`` as subprocesses on
 the card beside (a)-(e), each exiting 0.
+Phase 24, right after phase 22: Mamba and RWKV-6 at the published
+widths.  Kernels L (the selective scan) and M (the wkv recurrence)
+against their plain versions (1e-5 of max |plain|, each output) and
+float64 plain versions (1e-4) at jamba-v0.1-52b's prefill shape [4 x
+4096, d_inner 8192, d_state 16] and rwkv6-3b's [4 x 4096, 40 heads of
+64], bf16, at a decode step and at a ragged shape; calls that carry the
+state every 1000 steps and 64 one-step calls equal one call bit for bit;
+grad-enabled inputs refused; event, device and plain ms beside each
+bound (L's expf counted on the special function units); M's chain alone
+(``wkv6_step_cycles``) and its floor.  (a) jamba-v0.1-52b with 1 of its 4
+repeats (7 Mamba layers, 1 attention, 4 MoE; bf16, random from seed 0)
+and (b) rwkv6-3b with all 32 layers (f32) through phase 22's
+``zoo_model``: every gate there, L or M launched once a layer a pass,
+F once on jamba's flash prefill, rwkv6-3b's two routes equal bit for
+bit.  (c) Each cut in depth (jamba: a unit of two Mamba layers with
+dense FFNs; rwkv6-3b: 2 layers) in f32: a prefill of 1 x 256 and 4
+greedy steps on the card and, in a worker process per model (``--ssm-cpu
+ARCH OUT``, its params drawn on the card and copied) started first, on
+the CPU: logits within 1e-4 of max |logit|, tokens equal.  L and M
+launch on no other path.  Phase 9's 600 000-sample row of kernel C's
+plain version (``--battery-plain IN OUT``) and phase 6's 16 CPU rows
+(``--cpu-subset OUT``) run in worker processes beside the later phases
+and are gated at the end.
 It prints:
 
   * the card's name and power limit (``nvidia-smi``);
@@ -244,6 +269,9 @@ It prints:
     backend, start-up
     seconds, walls, merges and their seconds, all-reduce seconds and
     launches, and the smoke's OK line;
+  * for phase 24: L's and M's errors, bitwise checks, event, device and
+    plain ms and bounds at each shape, M's chain floor, each model's
+    phase-22 lines and its seconds by part, and (c)'s gaps;
   * for phase 23: each step's loss, grad norm, lr and wall, the warm
     median, tokens/s, the FLOP share, peak memory, the profiled step's
     busy share and top device ops, the ballast's product count and
@@ -272,7 +300,8 @@ has them), with event and device ms, and J and K forward and adjoint at
 the design's shapes with the sha256 of each forward's outputs (saved
 under ``chiprun_out/ad_jk/``) and A's adjoint where the tree has it (run
 this script from the root of each tree; it prints one ``{"ad": ...}``
-line).
+line).  It also times L and M at their prefill shapes where the tree
+has them.
 
     python3 chip_smoke.py --study-time
 
@@ -1658,16 +1687,73 @@ def profile_device(torch, run, top_n=12, totals=None):
     return wall, busy, [(dev_us(e) / 1e3, e.count, e.key) for e in top]
 
 
-def compare_cpu_subset(api, gpu_res):
+def cpu_subset_study(api):
+    """Phase 6's 16 rows of phase 5's Study, on the CPU."""
+    return build_study(api, workloads=["dense_1s", "dense_3s"],
+                       fleets=(32768,),
+                       configs=["none", "mpf75+bat8MJ", "bs8",
+                                "mpf75+bat8MJ+bs8"], device="cpu")
+
+
+def cpu_subset_job(torch, path_out):
+    """Phase 6's CPU half (``chip_smoke.py --cpu-subset OUT``): the 16 rows
+    on the CPU's plain versions, on 4 threads at a low CPU priority; saves
+    their records and seconds as JSON."""
+    from repro_torch import api
+    os.nice(10)
+    torch.set_num_threads(4)
+    sub = cpu_subset_study(api)
+    t0 = time.perf_counter()
+    res = sub.run()
+    secs = time.perf_counter() - t0
+    with open(path_out, "w") as fh:
+        json.dump({"records": [dict(r) for r in res], "secs": secs}, fh,
+                  default=lambda o: o.item() if hasattr(o, "item") else
+                  list(o))
+    return 0
+
+
+def cpu_subset_start():
+    """Phase 6's worker (``cpu_subset_job``), started after phase 5; its
+    records are compared at the end (``compare_cpu_subset``)."""
+    work = os.path.join(HERE, "build", "phase6_cpu")
+    os.makedirs(work, exist_ok=True)
+    stem = os.path.join(work, "rows")
+    for ext in (".json", ".log"):
+        if os.path.exists(stem + ext):
+            os.remove(stem + ext)
+    logf = open(stem + ".log", "w")
+    job = {"stem": stem, "log": logf, "t0": time.perf_counter(),
+           "proc": subprocess.Popen(
+               [sys.executable, os.path.abspath(__file__), "--cpu-subset",
+                stem + ".json"], cwd=HERE, stdout=logf,
+               stderr=subprocess.STDOUT)}
+    atexit.register(stop_worker, job)
+    return job
+
+
+def compare_cpu_subset(api, gpu_res, job, timeout=900):
+    """Phase 6, gated: the worker's 16 CPU rows against the card's records
+    of the same rows (STUDY_RTOL), verdicts equal off the limits."""
+    t_wait = time.perf_counter()
+    try:
+        rc = job["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"phase 6's CPU worker took more than {timeout}"
+                             " s") from None
+    finally:
+        stop_worker(job)
+    if rc != 0:
+        with open(job["stem"] + ".log") as f:
+            raise AssertionError(f"phase 6's CPU worker exited {rc}: "
+                                 + f.read()[-2000:])
+    waited = time.perf_counter() - t_wait
+    with open(job["stem"] + ".json") as fh:
+        out = json.load(fh)
+    cpu_res, secs = out["records"], out["secs"]
     key = ("workload", "n_chips", "config", "seed", "spec")
     gpu = {tuple(r[k] for k in key): r for r in gpu_res}
-    sub = build_study(api, workloads=["dense_1s", "dense_3s"],
-                      fleets=(32768,),
-                      configs=["none", "mpf75+bat8MJ", "bs8",
-                               "mpf75+bat8MJ+bs8"], device="cpu")
-    t0 = time.perf_counter()
-    cpu_res = sub.run()
-    secs = time.perf_counter() - t0
+    sub = cpu_subset_study(api)
     specs = dict(zip(SPEC_NAMES, (s for _, s in sub.specs)))
     limit_of = {"max_ramp_up_w_per_s": "ramp_up_w_per_s",
                 "max_ramp_down_w_per_s": "ramp_down_w_per_s",
@@ -1697,10 +1783,11 @@ def compare_cpu_subset(api, gpu_res):
                 g["spec_ok"], tuple(g["violations"])):
             raise AssertionError(f"cpu vs card verdicts differ: {c} {g}")
         equal += 1
-    log(f"cpu re-run of {sub.n_rows} rows: {secs:.1f} s; verdicts equal on "
-        f"{equal} records, {near} near-limit records not compared; worst "
-        f"metric rel diff {worst:.3g} (rtol {STUDY_RTOL}, energy_overhead "
-        "abs 1e-6)")
+    log(f"cpu re-run of {sub.n_rows} rows: {secs:.1f} s in a worker beside "
+        f"phases 18 and 7-10 (waited {waited:.1f} s for it at the end); "
+        f"verdicts equal on {equal} records, {near} near-limit records not "
+        f"compared; worst metric rel diff {worst:.3g} (rtol {STUDY_RTOL}, "
+        "energy_overhead abs 1e-6)")
 
 
 # ---------------------------------------------------------------------------
@@ -1959,6 +2046,76 @@ def check_chunked(torch, w, dt, device="cuda"):
 # kernel C at the replay's and a ragged shape, and its chain's floor
 # ---------------------------------------------------------------------------
 
+# phase 9's CPU worker: the plain version's 600 000 steps (about 100 s)
+BATTERY_WAIT_S = 600
+
+
+def battery_plain_start(torch, tag, w, p, dt, got):
+    """Save one case's operands and start its CPU worker
+    (``battery_plain_job``); returns what ``battery_finish`` waits for."""
+    work = os.path.join(HERE, "build", "phase9_battery")
+    os.makedirs(work, exist_ok=True)
+    stem = os.path.join(work, tag)
+    torch.save({"w": w, "p": p, "dt": dt}, stem + ".in.pt")
+    logf = open(stem + ".log", "w")
+    return {"got": got, "stem": stem, "log": logf, "t0": time.perf_counter(),
+            "proc": subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--battery-plain", stem + ".in.pt", stem + ".out.pt"],
+                cwd=HERE, stdout=logf, stderr=subprocess.STDOUT)}
+
+
+def battery_stop(extra):
+    for case in extra.values():
+        job = case.get("job")
+        if job is not None:
+            if job["proc"].poll() is None:
+                job["proc"].kill()
+            job["proc"].wait()
+            job["log"].close()
+
+
+def battery_finish(torch, extra, timeout=BATTERY_WAIT_S):
+    """Phase 9's CPU checks, at the end: wait for each worker, then kernel
+    C's outputs bit for bit against its plain version's."""
+    t0 = time.perf_counter()
+    try:
+        for tag, case in extra.items():
+            job = case.get("job")
+            if job is None:
+                continue
+            try:
+                rc = job["proc"].wait(timeout=max(
+                    timeout - (time.perf_counter() - t0), 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"kernel C's plain version at {tag} "
+                                     f"took more than {timeout} s") from None
+            if rc != 0:
+                job["log"].flush()
+                with open(job["stem"] + ".log") as f:
+                    tail = f.read()[-2000:]
+                raise AssertionError(f"kernel C's plain worker at {tag} "
+                                     f"exited {rc}: {tail}")
+            ref = torch.load(job["stem"] + ".out.pt", weights_only=True)
+            equal = all(torch.equal(g, r) for g, r in zip(job["got"],
+                                                          ref["ref"]))
+            case.update(bitwise=equal, plain_ms=ref["plain_ms"],
+                        worker_wall_s=time.perf_counter() - job["t0"])
+            log(f"battery {case['shape']}: bitwise {equal} against the plain "
+                f"version (CPU, {ref['plain_ms']:.0f} ms in a worker, its "
+                f"wall {case['worker_wall_s']:.1f} s)")
+            if not equal:
+                raise AssertionError(f"kernel C differs from its plain "
+                                     f"version at {case['shape']}")
+    finally:
+        battery_stop(extra)
+    for case in extra.values():
+        for k in ("job",):
+            case.pop(k, None)
+    log(f"phase 9's CPU check: waited {time.perf_counter() - t0:.1f} s for "
+        "it at the end")
+
+
 def battery_chain(torch, w, params, dt, ieee=False, reps=200):
     """The chain alone (``battery_step_cycles`` in ``battery.cu``): lane 0
     steps over 512 samples already in shared memory, ``reps`` times, with
@@ -1987,14 +2144,31 @@ def battery_chain(torch, w, params, dt, ieee=False, reps=200):
     return cycles.item() / steps, ms / steps * 1e6
 
 
+def battery_plain_job(torch, path_in, path_out):
+    """Phase 9's CPU check (``chip_smoke.py --battery-plain IN OUT``): kernel
+    C's plain version on one thread at the lowest CPU priority, on the
+    operands ``battery_phase`` saved; saves its outputs and milliseconds."""
+    from repro_torch.core.smoothing import battery
+    torch.set_num_threads(1)
+    os.nice(19)
+    job = torch.load(path_in, weights_only=True)
+    t0 = time.perf_counter()
+    ref = battery.battery_scan_plain(job["w"], job["p"], job["dt"])
+    torch.save({"ref": ref, "plain_ms": (time.perf_counter() - t0) * 1e3},
+               path_out)
+    return 0
+
+
 def battery_phase(torch, canon_call, w_long, dt_long):
     """Kernel C bitwise against its plain version on one 600 000-sample
     row (the 600 s replay's trace) and on a ragged [3 x 4099] cut of it,
     both with the canonical loop's battery parameters (the grid target
     starting at each row's mean, as ``RackBattery.apply_batch`` sets it);
     the 600 000-sample row's plain version runs on the CPU (600 000 steps
-    of a Python loop: the card's launches would take longer).  Then the
-    chain's own cycles per step, from which each shape's floor follows."""
+    of a Python loop: the card's launches would take longer), in a worker
+    process beside the later phases (``battery_finish`` gates it).  Then
+    the chain's own cycles per step, from which each shape's floor
+    follows."""
     from repro_torch.core.smoothing import battery
     _, args, _ = canon_call
     params0 = args[1]
@@ -2003,26 +2177,32 @@ def battery_phase(torch, canon_call, w_long, dt_long):
              "3x4099": torch.stack([x[i * 4099:(i + 1) * 4099]
                                     for i in range(3)])}
     out = {}
+    atexit.register(battery_stop, out)
     for tag, w in cases.items():
         p = params0[:w.shape[0]].clone()
         p[:, 7] = w.double().mean(1).float()
         got = battery.battery_scan(w, p, dt_long)
         torch.cuda.synchronize()
-        on_cpu = w.shape[-1] > 100_000
-        dev_args = (w.cpu(), p.cpu()) if on_cpu else (w, p)
-        ref, plain_ms = timed_once(
-            torch, lambda: battery.battery_scan_plain(*dev_args, dt_long))
-        equal = all(torch.equal(g.cpu(), r.cpu()) for g, r in zip(got, ref))
         ms = cuda_ms(torch, lambda: battery.battery_scan(w, p, dt_long), 3)
+        out[tag] = {"shape": list(w.shape), "ms": ms}
+        if w.shape[-1] > 100_000:
+            out[tag]["plain_device"] = "cpu"
+            out[tag]["job"] = battery_plain_start(
+                torch, tag, w.cpu(), p.cpu(), dt_long,
+                tuple(g.cpu() for g in got))
+            log(f"battery [{w.shape[0]} x {w.shape[1]}]: {ms:.4g} ms; its "
+                "plain version runs on the CPU in a worker")
+            continue
+        ref, plain_ms = timed_once(
+            torch, lambda: battery.battery_scan_plain(w, p, dt_long))
+        equal = all(torch.equal(g, r) for g, r in zip(got, ref))
         log(f"battery [{w.shape[0]} x {w.shape[1]}]: bitwise {equal} "
-            f"against the plain version ({'CPU' if on_cpu else 'card'}, "
-            f"{plain_ms:.0f} ms); {ms:.4g} ms")
+            f"against the plain version (card, {plain_ms:.0f} ms); "
+            f"{ms:.4g} ms")
         if not equal:
             raise AssertionError(f"kernel C differs from its plain version "
                                  f"at [{w.shape[0]} x {w.shape[1]}]")
-        out[tag] = {"shape": list(w.shape), "bitwise": True, "ms": ms,
-                    "plain_ms": plain_ms,
-                    "plain_device": "cpu" if on_cpu else "cuda"}
+        out[tag].update(bitwise=True, plain_ms=plain_ms, plain_device="cuda")
     p1 = params0[:1].contiguous()
     cyc, ns = battery_chain(torch, cases["600000"], p1, dt_long)
     cyc_ieee, ns_ieee = battery_chain(torch, cases["600000"], p1, dt_long,
@@ -2195,6 +2375,19 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+def fresh_states(cache):
+    """``cache`` for one more decode run: its recurrent layers' states
+    (``STATE_KEYS``, which a decode step overwrites in place) copied, its
+    attention caches shared (a run writes only the positions it then
+    reads, the same ones from the same tokens)."""
+    from repro_torch.models.model import STATE_KEYS
+
+    def layer(c):
+        return {k: t.clone() if k in STATE_KEYS else t for k, t in c.items()}
+    return {"prefix": [layer(c) for c in cache["prefix"]],
+            "unit": tuple(layer(c) for c in cache["unit"])}
+
+
 def rel_gap(torch, a, b):
     return ((a.float() - b.float()).abs().max()
             / b.float().abs().max()).item()
@@ -2321,7 +2514,7 @@ def serve_phase(torch, build, cfg, params, tokens, flash_out, tag="serve",
                              f"{tuple(served.shape)}")
     del eng
     decode = make_decode_step(cfg)
-    cache = flash_out["cache"]
+    cache = fresh_states(flash_out["cache"])
     tok = torch.argmax(flash_out["logits"][:, -1], dim=-1)
     own = []
     for i in range(NEW_TOKENS):
@@ -2612,9 +2805,11 @@ def zoo_prefill(torch, build, cfg, params, tokens):
             f"ms, warm {warm_ms:.1f} ms ({B * S / warm_ms * 1e3:.0f} "
             f"tokens/s); two runs bitwise {same}; launches "
             + json.dumps(launches))
-        if launches["flash_fwd"] != (cfg.n_layers if flash else 0):
-            raise AssertionError(f"[{cfg.name} prefill {tag}] kernel F "
-                                 f"launched {launches['flash_fwd']} times")
+        want = model_launches(cfg, flash)
+        if {k: launches[k] for k in want} != want or any(
+                c for k, c in launches.items() if k not in want):
+            raise AssertionError(f"[{cfg.name} prefill {tag}] launches "
+                                 f"{launches}, want {want} and no other")
         if not same:
             raise AssertionError(f"[{cfg.name} prefill {tag}] two runs "
                                  "differ")
@@ -2625,9 +2820,10 @@ def zoo_prefill(torch, build, cfg, params, tokens):
         out[tag] = {"logits": logits, "cache": cache, "cold_ms": cold_ms,
                     "warm_ms": warm_ms, "launches": launches}
     # free-running, the routes' MoE calls recorded: the tokens that either
-    # route's routing rule sets aside at some layer
-    recs = {}
-    for flash in (True, False):
+    # route's routing rule sets aside at some layer (a model with no MoE
+    # layer records none)
+    recs = {True: [], False: []}
+    for flash in (True, False) if cfg.moe is not None else ():
         with RecordRoutes(torch) as rec:
             prefill(params, {"tokens": tokens}, cache0,
                     Ctx(cfg=cfg, flash=flash))
@@ -2657,6 +2853,12 @@ def zoo_prefill(torch, build, cfg, params, tokens):
         n: t[0] for n, t in trees[0][1].items()}
     layer0 = all(torch.equal(first[n], first_c[n]) for n in first)
     cache_gap = max(rel_gap(torch, a[n], b[n]) for a, b in trees for n in a)
+    # a model with no attention layer takes one path on both routes
+    one_path = not model_launches(cfg, True)["flash_fwd"]
+    if one_path and not (torch.equal(f["logits"], c["logits"]) and all(
+            torch.equal(a[n], b[n]) for a, b in trees for n in a)):
+        raise AssertionError(f"[{cfg.name}] the routes differ, but the model "
+                             "has no attention layer")
     logit_gap = float(row_gaps[~last_aside].max()) if (
         ~last_aside).any() else 0.0
     log(f"[{cfg.name} prefill] flash vs chunked route: first layer's cache "
@@ -2674,6 +2876,7 @@ def zoo_prefill(torch, build, cfg, params, tokens):
     return {"flash": f, "chunked_cache": c["cache"],
             "launches": {"flash": f["launches"], "chunked": c["launches"]},
             "summary": {"B": B, "S": S, "layers": cfg.n_layers,
+                        "one_path_bitwise": one_path,
                         "flash_warm_ms": f["warm_ms"],
                         "chunked_warm_ms": c["warm_ms"],
                         "flash_cold_ms": f["cold_ms"],
@@ -2706,6 +2909,7 @@ def zoo_walk(torch, cfg, params, tokens):
     pos = torch.arange(S, device=DEVICE)
     ctx_f = Ctx(cfg=cfg, positions=pos, flash=True)
     ctx_c = Ctx(cfg=cfg, positions=pos, flash=False)
+    one_path = not model_launches(cfg, True)["flash_fwd"]
     x = _embed(params, cfg, {"tokens": tokens}, ctx_c)
     rows, t0 = [], time.perf_counter()
     for i, (spec, p) in enumerate(zoo_layers(cfg, params)):
@@ -2740,6 +2944,10 @@ def zoo_walk(torch, cfg, params, tokens):
         gap = ((out_f.float() - out_c.float()).abs().amax(-1)[keep].max()
                / out_c.float().abs().max()).item()
         row["out_gap"] = gap
+        if one_path and not torch.equal(out_f, out_c):
+            raise AssertionError(f"[{cfg.name}] layer {i}: the routes' "
+                                 "outputs differ, but the model has no "
+                                 "attention layer")
         rows.append(row)
         log(f"[{cfg.name} walk] layer {i} ({spec.mixer}, {spec.ffn}): "
             + json.dumps({k: v for k, v in row.items()
@@ -2753,8 +2961,8 @@ def zoo_walk(torch, cfg, params, tokens):
     summary = {k: sum(r[k] for r in moe_rows)
                for k in ("near_ties", "flips", "flips_wider",
                          "capacity_moved", "dropped_slots")}
-    summary.update(widest_flip_margin=max(r["widest_flip_margin"]
-                                          for r in moe_rows),
+    summary.update(widest_flip_margin=max((r["widest_flip_margin"]
+                                           for r in moe_rows), default=0.0),
                    out_gap=max(r["out_gap"] for r in rows),
                    tokens_per_layer=B * S, walk_s=time.perf_counter() - t0)
     log(f"[{cfg.name} walk] {len(moe_rows)} MoE layers x {B * S} tokens: "
@@ -2769,6 +2977,17 @@ def zoo_walk(torch, cfg, params, tokens):
     return {"layers": rows, "summary": summary}
 
 
+def model_launches(cfg, flash, passes=1):
+    """Launches of the kernels a model's layers launch, F (attention), L
+    (Mamba) and M (RWKV-6), that ``passes`` passes over every layer of
+    ``cfg`` make (F only on the flash route, and only in a prefill)."""
+    n = collections.Counter(s.mixer for s in list(cfg.prefix)
+                            + list(cfg.unit) * cfg.n_repeats)
+    return {"flash_fwd": n["attn"] + n["mla"] if flash else 0,
+            "selective_scan": n["mamba"] * passes,
+            "wkv6": n["rwkv"] * passes}
+
+
 def tree_bytes(tree):
     if isinstance(tree, dict):
         return sum(tree_bytes(v) for v in tree.values())
@@ -2779,7 +2998,8 @@ def decode_bound(torch, cfg, params, cache, index, experts_used, B):
     """The least bytes one decode step at position ``index`` moves: every
     weight it uses read once (the routed experts this step's tokens chose,
     ``experts_used`` per MoE layer), the cache up to ``index`` read and its
-    entry written, the logits written; and its bf16 operations (2 a
+    entry written (a recurrent layer's state read and written whole), the
+    logits written; and its bf16 operations (2 a
     multiply-add of the weights it uses, per token).  Returns (ms, by,
     bytes)."""
     emb = params["embed"]["emb"]
@@ -2803,10 +3023,14 @@ def decode_bound(torch, cfg, params, cache, index, experts_used, B):
         else:
             nb += tree_bytes(f)
             macs += sum(t.numel() for t in f.values())
+    from repro_torch.models.model import STATE_KEYS
     seq = {"k": 2, "v": 2, "ckv": 1, "krope": 1}  # a layer cache's S axis
     for trees, lead in ((cache["prefix"], 0), (cache["unit"], 1)):
         for tree in trees:  # the unit's caches carry a leading repeat axis
             for n, t in tree.items():
+                if n in STATE_KEYS:  # a recurrent state: read, then written
+                    nb += 2 * t.numel() * t.element_size()
+                    continue
                 per_pos = t.numel() // t.shape[seq[n] + lead]
                 nb += per_pos * t.element_size() * (index + 2)
     nb += B * cfg.vocab_size * 2  # bf16 logits
@@ -2852,6 +3076,7 @@ def zoo_decode_compare(torch, cfg, params, serve, caches):
     runs, raw = {}, {}
 
     def teacher_forced(cache):
+        cache = fresh_states(cache)
         logits = []
         for i in range(n):
             lg, cache = decode(params, served[:, i:i + 1].long(), cache,
@@ -2892,11 +3117,16 @@ def zoo_decode_compare(torch, cfg, params, serve, caches):
     if gap > ROUTE_TOL:
         raise AssertionError(f"[{cfg.name}] the routes' decodes disagree")
     # the set-aside steps again: the flash route's decode with the chunked
-    # route's experts and gates forced (a step rewrites only its own cache
-    # entry, so the flash cache serves again)
+    # route's experts and gates forced (a step rewrites only its own
+    # attention cache entry, and each run takes fresh recurrent states, so
+    # the flash cache serves again); a model with no MoE layer has no
+    # routing to force, and its first run serves
     routes = iter(raw["chunked"])
-    with moe_mod.forced_routes(routes):
-        forced = teacher_forced(caches["flash"])
+    if raw["chunked"]:
+        with moe_mod.forced_routes(routes):
+            forced = teacher_forced(caches["flash"])
+    else:
+        forced = f
     if next(routes, None) is not None:
         raise AssertionError(f"[{cfg.name}] the forced decode took fewer "
                              "routes than the chunked route's decode made")
@@ -3020,19 +3250,36 @@ def zoo_model(torch, build, arch, repeats):
         f"({cfg.param_dtype}; the whole model {get_config(arch).param_count()}"
         f") drawn on the card in {init_ms:.0f} ms, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    moe = moe_check(torch, cfg, params)
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        t = time.perf_counter()
+        parts[name] = t - t_part[0]
+        t_part[0] = t
+    part("init")
+    moe = moe_check(torch, cfg, params) if cfg.moe is not None else None
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).to(DEVICE)
+    part("moe_check")
     pre = zoo_prefill(torch, build, cfg, params, tokens)
+    part("prefill")
     walk = zoo_walk(torch, cfg, params, tokens)
+    part("walk")
     serve = serve_phase(torch, build, cfg, params, tokens, pre["flash"],
                         tag=f"{arch} serve", gate_parting=False)
+    part("serve")
+    # the engine's prefill and NEW_TOKENS decode steps: each runs every layer
+    want = model_launches(cfg, False, passes=1 + NEW_TOKENS)
+    if {k: serve["launches"][k] for k in want} != want:
+        raise AssertionError(f"[{arch} serve] launches {serve['launches']}, "
+                             f"want {want}")
     forced = zoo_decode_compare(torch, cfg, params, serve,
                                 {"flash": pre["flash"]["cache"],
                                  "chunked": pre.pop("chunked_cache")})
+    part("decode_compare")
     cache = pre["flash"]["cache"]
     tok = torch.argmax(pre["flash"]["logits"][:, -1], dim=-1)[:, None]
-    bound = zoo_decode_bound(torch, cfg, params, cache,
+    bound = zoo_decode_bound(torch, cfg, params, fresh_states(cache),
                              PREFILL_S + NEW_TOKENS - 1, tok)
     log(f"[{arch} decode] {serve['decode_p50_ms']:.2f} ms a step (p50), its "
         f"bound {bound['bound_ms']:.3f} ms by {bound['bound_by']} "
@@ -3042,11 +3289,13 @@ def zoo_model(torch, build, arch, repeats):
     decode = make_decode_step(cfg)
 
     def steps():
-        c = cache
+        c = fresh_states(cache)
         for i in range(PROFILED_STEPS):
             _, c = decode(params, tok, c, PREFILL_S + NEW_TOKENS - 1 - i)
 
+    part("decode_bound")
     wall, busy, top = profile_device(torch, steps)
+    part("decode_profile")
     log(f"[{arch} decode] {PROFILED_STEPS} profiled steps {wall * 1e3:.1f} "
         f"ms, device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}% of "
         "the traced wall)")
@@ -3059,14 +3308,15 @@ def zoo_model(torch, build, arch, repeats):
     del params, cache, pre["flash"]
     torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t0
-    log(f"[{arch}] peak {peak / 2**30:.2f} GiB allocated; {phase_s:.1f} s")
+    log(f"[{arch}] peak {peak / 2**30:.2f} GiB allocated; {phase_s:.1f} s ("
+        + json.dumps({k: round(v, 2) for k, v in parts.items()}) + ")")
     return {"arch": arch, "repeats": repeats, "layers": cfg.n_layers,
             "params": cfg.param_count(), "moe_check": moe,
             "prefill": pre["summary"], "walk": walk["summary"],
             "serve": {k: v for k, v in serve.items()
                       if k not in ("launches", "served", "logits")},
             "decode_forced": forced, "decode_bound": bound, "peak_gib": peak / 2**30,
-            "phase_s": phase_s,
+            "phase_s": phase_s, "part_s": parts,
             "launches": {"prefill_flash": pre["launches"]["flash"],
                          "prefill_chunked": pre["launches"]["chunked"],
                          "serve_generate": serve["launches"]}}
@@ -3091,6 +3341,382 @@ def zoo_phase(torch, build):
     log(f"phase 22: {phase_s:.1f} s")
     return {"flash_cases": f_cases, "models": models, "cpu_rerun": rerun,
             "launches": launches, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 24: Mamba and RWKV-6 at the published widths (jamba-v0.1-52b,
+# rwkv6-3b), kernels L and M
+# ---------------------------------------------------------------------------
+
+# (arch, repeats kept): jamba 1 of its 4 (8 layers: 7 Mamba, 1 attention,
+# 4 MoE; bf16, 13.30 B params, 26.6 GB), rwkv6-3b all 32 (f32, 12.3 GB)
+SSM_ZOO = (("jamba-v0.1-52b", 1), ("rwkv6-3b", 32))
+SCAN_TOL = 1e-5           # kernel against its plain version, of max |plain|
+SCAN_ORACLE_TOL = 1e-4    # kernel against the float64 plain version
+SCAN_CHUNK = 1000         # chunked calls: the state carried every 1000 steps
+SCAN_ONE_BY_ONE = 64      # one-step calls against one call of as many steps
+# each kernel's shapes: L (B, T, d_inner, d_state) at jamba's prefill, a
+# decode step and a ragged cut (d_inner not a multiple of the block of 64);
+# M (B, T, H, head_dim) at rwkv6-3b's
+SCAN_SHAPES = {
+    "selective_scan": {"prefill": (4, 4096, 8192, 16),
+                       "decode": (4, 1, 8192, 16),
+                       "ragged": (1, 1001, 8190, 16)},
+    "wkv6": {"prefill": (4, 4096, 40, 64), "decode": (4, 1, 40, 64),
+             "ragged": (1, 1001, 40, 64)}}
+SCAN_SOURCE = {"selective_scan": ("src/repro_torch/kernels/scans/csrc/"
+                                  "selective_scan.cu",
+                                  "src/repro/models/mamba.py:90"),
+               "wkv6": ("src/repro_torch/kernels/scans/csrc/wkv6.cu",
+                        "src/repro/models/rwkv.py:89")}
+# f32 operations of one step's element as the sources write them: L per
+# (b, t, d, s): dt*A, dt*B, *x, dA*h, +, h*C, + (and one expf); M per (b, t,
+# h, i, j): k*v, u*kv, +S, r*a, +y, w*S, +kv
+SCAN_OPS = {"selective_scan": 7, "wkv6": 7}
+# special-function results a second (H100 SXM: 16 a clock an SM, the CUDA
+# C++ Programming Guide's throughput table for compute capability 9.0; 132
+# SMs at 1.98 GHz): L's expf runs on these units
+SFU_OPS_S = 132 * 16 * 1.98e9
+# (c): the published widths cut in depth, in f32 (params and compute), on
+# the card and on the CPU: a prefill of 1 x 256 and 4 greedy decode steps
+SSM_RERUN_S, SSM_RERUN_STEPS = 256, 4
+SSM_RERUN_TIMEOUT_S = 300
+
+
+def scan_fns(name):
+    from repro_torch.kernels.scans import selective_scan, wkv6
+    if name == "selective_scan":
+        return (selective_scan.selective_scan,
+                selective_scan.selective_scan_plain,
+                selective_scan.SELECTIVE_SCAN_KERNEL)
+    return wkv6.wkv6, wkv6.wkv6_plain, wkv6.WKV6_KERNEL
+
+
+def scan_operands(torch, name, shape, seed):
+    """Operands of kernel L or M at ``shape`` on the card, from a seeded
+    generator: the compute-dtype ones in bf16, as the models pass them.  L:
+    x, B, C ~ N(0, 1), dt in [1e-3, 0.1] (softplus of the initial dt_bias'
+    range), A = -(1..ds) (-exp(A_log) at init), h0 ~ 0.1 N(0, 1).  M: r, k,
+    v ~ N(0, 1), w = exp(-exp(U[-8, 0])) (decays from 0.37 to 1), u and S0
+    ~ 0.1 N(0, 1)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def n(*shape_, dtype=torch.float32):
+        return torch.randn(shape_, generator=gen, device=DEVICE).to(dtype)
+
+    def u(lo, hi, *shape_):
+        return lo + (hi - lo) * torch.rand(shape_, generator=gen,
+                                           device=DEVICE)
+    bf = torch.bfloat16
+    if name == "selective_scan":
+        B, T, di, ds = shape
+        A = -torch.arange(1, ds + 1, dtype=torch.float32,
+                          device=DEVICE).repeat(di, 1)
+        return (n(B, T, di, dtype=bf), u(1e-3, 0.1, B, T, di),
+                n(B, T, ds, dtype=bf), n(B, T, ds, dtype=bf), A,
+                0.1 * n(B, di, ds))
+    B, T, H, hd = shape
+    return (n(B, T, H, hd, dtype=bf), n(B, T, H, hd, dtype=bf),
+            n(B, T, H, hd, dtype=bf),
+            torch.exp(-torch.exp(u(-8.0, 0.0, B, T, H, hd))),
+            0.1 * n(H, hd), 0.1 * n(B, H, hd, hd))
+
+
+def scan_cut(ops, lo, hi, state):
+    """The operands of steps [lo, hi) with ``state`` as the initial one
+    (the time axis is 1 in every per-step operand)."""
+    return tuple(t[:, lo:hi] for t in ops[:4]) + (ops[4], state)
+
+
+def scan_bound(name, ops, outs):
+    """(ms, by): the bytes (each operand read once, each output written
+    once) over 3.35 TB/s, against the f32 operations over 67 TFLOP/s and,
+    for L, its expf calls over the special function units' rate."""
+    nb = nbytes(*ops, *outs)
+    elems = outs[0].numel() * (ops[4].shape[-1] if name == "selective_scan"
+                               else ops[0].shape[-1])
+    t_bytes = nb / PEAK_BYTES_S * 1e3
+    t_ops = max(SCAN_OPS[name] * elems / PEAK_OPS_S,
+                elems / SFU_OPS_S if name == "selective_scan" else 0.0) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nb)
+
+
+def scan_case(torch, name, tag, shape, seed):
+    """Kernel L or M at one shape against its plain version (SCAN_TOL of
+    max |plain|, each output) and, at the prefill's and the ragged shape,
+    the float64 plain version (SCAN_ORACLE_TOL); chunked calls that carry
+    the state (every SCAN_CHUNK steps) and SCAN_ONE_BY_ONE one-step calls
+    equal one call bit for bit; event ms, device ms, plain ms and bound."""
+    fn, plain, _ = scan_fns(name)
+    ops = scan_operands(torch, name, shape, seed)
+    got = fn(*ops)
+    ref, plain_ms = timed_once(torch, lambda: plain(*ops))
+    row = {"shape": list(shape), "dtype": "bfloat16", "plain_ms": plain_ms}
+    errs = [((g - r).abs().max() / r.abs().max()).item()
+            for g, r in zip(got, ref)]
+    row.update(max_abs_err=max((g - r).abs().max().item()
+                               for g, r in zip(got, ref)),
+               rel_err=max(errs), tolerance=SCAN_TOL)
+    ok = max(errs) <= SCAN_TOL and all(torch.isfinite(g).all() for g in got)
+    T = shape[1]
+    if tag != "decode":
+        r64 = plain(*(t.double() for t in ops))
+        row["oracle_rel_err"] = max(
+            ((g.double() - r).abs().max() / p.abs().max()).item()
+            for g, r, p in zip(got, r64, ref))
+        ok = ok and row["oracle_rel_err"] <= SCAN_ORACLE_TOL
+        del r64
+        parts, state = [], ops[5]
+        for lo in range(0, T, SCAN_CHUNK):
+            y, state = fn(*scan_cut(ops, lo, min(lo + SCAN_CHUNK, T), state))
+            parts.append(y)
+        row["chunked_bitwise"] = (torch.equal(torch.cat(parts, 1), got[0])
+                                  and torch.equal(state, got[1]))
+        n1 = min(SCAN_ONE_BY_ONE, T)
+        whole = fn(*scan_cut(ops, 0, n1, ops[5]))
+        parts, state = [], ops[5]
+        for i in range(n1):
+            y, state = fn(*scan_cut(ops, i, i + 1, state))
+            parts.append(y)
+        row["one_step_bitwise"] = (torch.equal(torch.cat(parts, 1), whole[0])
+                                   and torch.equal(state, whole[1]))
+        ok = ok and row["chunked_bitwise"] and row["one_step_bitwise"]
+    row["ms"] = cuda_ms(torch, lambda: fn(*ops), 20 if T > 1 else 50)
+    row["device_ms"] = device_ms(torch, lambda: fn(*ops), f"{name}_kernel",
+                                 repeat=10)
+    row["bound_ms"], row["bound_by"], row["bytes"] = scan_bound(name, ops,
+                                                                got)
+    log(f"[{name} {tag}] {list(shape)}: {row['rel_err']:.3g} of max |plain|"
+        f" (tol {SCAN_TOL}), float64 {row.get('oracle_rel_err', 'n/a')}, "
+        f"chunked bitwise {row.get('chunked_bitwise', 'n/a')}, one-step "
+        f"bitwise {row.get('one_step_bitwise', 'n/a')}; {row['ms']:.4g} ms "
+        f"(device {row['device_ms']}, plain {plain_ms:.1f} ms, bound "
+        f"{row['bound_ms']:.4g} ms by {row['bound_by']}, "
+        f"{row['bytes'] / 1e9:.3f} GB)")
+    if not ok:
+        raise AssertionError(f"kernel {name} disagrees with its plain "
+                             f"version at {tag} {list(shape)}: {row}")
+    return row
+
+
+def scan_kernel_rows(torch, build):
+    """Kernels L and M at each of their shapes (``scan_case``); the grad
+    rule on the card; M's chain alone.  No launch here counts on a path."""
+    from repro_torch.kernels.scans import wkv6
+    rows = {}
+    for i, name in enumerate(SCAN_SHAPES):
+        fn, _, kernel = scan_fns(name)
+        cases = {tag: scan_case(torch, name, tag, shape, 240 + 10 * i + j)
+                 for j, (tag, shape) in enumerate(SCAN_SHAPES[name].items())}
+        ops = [t.clone().requires_grad_(True) for t in scan_operands(
+            torch, name, SCAN_SHAPES[name]["decode"], 7)]
+        try:
+            fn(*ops)
+            raise AssertionError(f"kernel {name} ran grad-enabled inputs")
+        except NotImplementedError as e:
+            refused = str(e)
+        src, replaces = SCAN_SOURCE[name]
+        pre = cases["prefill"]
+        rows[name] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "max_abs_err": pre["max_abs_err"],
+            "ms": pre["ms"], "device_ms": pre["device_ms"],
+            "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+            "bound_by": pre["bound_by"], "library_ms": None,
+            "library_note": "no PyTorch call computes the recurrence",
+            "tolerance": f"{SCAN_TOL} x max |plain|", "shapes": cases,
+            "grad_refused": refused,
+            "ptxas": ptxas_lines(kernel)}
+    cycles = wkv6.wkv6_step_cycles()
+    ghz = sm_clock_ghz()
+    T = SCAN_SHAPES["wkv6"]["prefill"][1]
+    rows["wkv6"].update(chain_cycles_per_step=cycles, chain_clock_ghz=ghz,
+                        chain_floor_ms=T * cycles / ghz / 1e6)
+    log(f"[wkv6] chain alone: {cycles:.1f} SM cycles a step (a dependent "
+        f"sum of 64 products), at {ghz:.3f} GHz a floor of "
+        f"{rows['wkv6']['chain_floor_ms']:.4g} ms for {T} steps; grad-"
+        f"enabled inputs refused on the card: "
+        + json.dumps({n: r["grad_refused"][:60] for n, r in rows.items()}))
+    return rows
+
+
+def ssm_rerun_cfg(arch):
+    """(c)'s configuration: jamba cut to a unit of two Mamba layers with
+    dense FFNs (1.1 B params), rwkv6-3b to 2 of its 32 layers (0.51 B),
+    both in f32 (params and compute)."""
+    import dataclasses
+    from repro_torch.configs import LayerSpec, get_config
+    cfg = get_config(arch)
+    kw = ({"unit": (LayerSpec("mamba", "dense"),) * 2, "n_repeats": 1}
+          if arch.startswith("jamba") else {"n_repeats": 2})
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32", **kw)
+
+
+def ssm_rerun_params(torch, cfg):
+    """(c)'s params, drawn on the card from seed 0 (the same bits in the
+    worker and here)."""
+    from repro_torch.models import init_params
+    return init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                       device=DEVICE)
+
+
+def ssm_rerun_run(torch, cfg, params, device):
+    """A prefill of 1 x SSM_RERUN_S and SSM_RERUN_STEPS greedy decode steps:
+    the tokens and the last logits of the prompt and of each step."""
+    import numpy as np
+    from repro_torch.models import init_cache, make_decode_step, make_prefill
+    S, n = SSM_RERUN_S, SSM_RERUN_STEPS
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, S))).to(device)
+    cache = init_cache(cfg, 1, S + n, torch.float32, device)
+    logits, cache = make_prefill(cfg)(params, {"tokens": prompt}, cache)
+    decode = make_decode_step(cfg)
+    seen, toks = [logits[:, -1].cpu()], []
+    for i in range(n):
+        toks.append(torch.argmax(logits[:, -1], dim=-1))
+        logits, cache = decode(params, toks[-1][:, None], cache, S + i)
+        seen.append(logits[:, -1].cpu())
+    return torch.stack(toks, 1).cpu(), torch.cat(seen)
+
+
+def ssm_rerun_job(torch, arch, path_out):
+    """(c)'s CPU half (``chip_smoke.py --ssm-cpu ARCH OUT``): the params
+    drawn on the card, copied to the CPU, the card freed; the plain
+    versions' prefill and decode; saves the tokens, logits and seconds."""
+    os.nice(10)
+    torch.set_num_threads(4)
+    cfg = ssm_rerun_cfg(arch)
+    t0 = time.perf_counter()
+    params = tree_to(ssm_rerun_params(torch, cfg), "cpu")
+    torch.cuda.empty_cache()
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        toks, logits = ssm_rerun_run(torch, cfg, params, "cpu")
+    torch.save({"tokens": toks, "logits": logits, "draw_s": draw_s,
+                "cpu_s": time.perf_counter() - t0}, path_out)
+    return 0
+
+
+def ssm_rerun_start():
+    """(c)'s CPU workers, one a model, started before the card's work of
+    phase 24."""
+    import shutil
+    work = os.path.join(HERE, "build", "phase24_cpu")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    jobs = []
+    for arch, _ in SSM_ZOO:
+        stem = os.path.join(work, arch)
+        logf = open(stem + ".log", "w")
+        jobs.append({"arch": arch, "stem": stem, "log": logf,
+                     "t0": time.perf_counter(), "proc": subprocess.Popen(
+                         [sys.executable, os.path.abspath(__file__),
+                          "--ssm-cpu", arch, stem + ".pt"], cwd=HERE,
+                         stdout=logf, stderr=subprocess.STDOUT)})
+    return jobs
+
+
+def ssm_rerun_stop(jobs):
+    for j in jobs:
+        if j["proc"].poll() is None:
+            j["proc"].kill()
+        j["proc"].wait()
+        j["log"].close()
+
+
+def ssm_rerun_finish(torch, build, jobs):
+    """(c): each model's card half (the same params, drawn here), then its
+    CPU worker's result: the logits within CPU_RERUN_TOL of max |logit|,
+    the tokens equal, and L or M launched on the card half only as the
+    layers ask."""
+    out = {}
+    try:
+        for j in jobs:
+            arch = j["arch"]
+            cfg = ssm_rerun_cfg(arch)
+            params = ssm_rerun_params(torch, cfg)
+            build.reset_launch_counts()
+            with torch.no_grad():
+                (toks, logits), card_ms = timed_once(
+                    torch, lambda: ssm_rerun_run(torch, cfg, params, DEVICE))
+            counts = build.launch_counts()
+            del params
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            try:
+                rc = j["proc"].wait(timeout=SSM_RERUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"[cpu re-run {arch}] the CPU worker "
+                                     f"took more than {SSM_RERUN_TIMEOUT_S} "
+                                     "s") from None
+            waited = time.perf_counter() - t0
+            if rc != 0:
+                j["log"].flush()
+                with open(j["stem"] + ".log") as f:
+                    tail = f.read()[-2000:]
+                raise AssertionError(f"[cpu re-run {arch}] the CPU worker "
+                                     f"exited {rc}: {tail}")
+            ref = torch.load(j["stem"] + ".pt", weights_only=True)
+            gap = rel_gap(torch, logits, ref["logits"])
+            equal = torch.equal(toks, ref["tokens"])
+            want = model_launches(cfg, False, passes=1 + SSM_RERUN_STEPS)
+            row = out[arch] = {
+                "params": cfg.param_count(), "layers": cfg.n_layers,
+                "S": SSM_RERUN_S, "steps": SSM_RERUN_STEPS,
+                "logit_gap": gap, "tokens_equal": equal, "card_ms": card_ms,
+                "cpu_s": ref["cpu_s"], "worker_draw_s": ref["draw_s"],
+                "worker_wall_s": time.perf_counter() - j["t0"],
+                "waited_s": waited, "launches": counts}
+            log(f"[cpu re-run] {arch} cut to {cfg.n_layers} layers "
+                f"({cfg.param_count()} params, f32), 1 x {SSM_RERUN_S} + "
+                f"{SSM_RERUN_STEPS}: card {card_ms:.0f} ms, CPU "
+                f"{ref['cpu_s']:.1f} s in a worker beside the card's work "
+                f"(its draw and copy {ref['draw_s']:.1f} s, waited "
+                f"{waited:.1f} s here); logits within {gap:.3g} of max "
+                f"|logit| (tol {CPU_RERUN_TOL}), tokens equal {equal}; "
+                "launches " + json.dumps(counts))
+            if gap > CPU_RERUN_TOL or not equal or {
+                    k: counts[k] for k in want} != want:
+                raise AssertionError(f"[cpu re-run {arch}] the CPU disagrees"
+                                     f" with the card, or launches {counts}"
+                                     f" are not {want}")
+    finally:
+        ssm_rerun_stop(jobs)
+    return out
+
+
+def ssm_phase(torch, build):
+    """Phase 24: (c)'s CPU workers started; kernels L and M at their
+    shapes; (a) jamba-v0.1-52b with 1 of its 4 repeats and (b) rwkv6-3b
+    with all 32 layers at their published widths through phase 22's
+    ``zoo_model`` (its every gate; L and M launched as the layers ask);
+    then (c)'s card halves against the workers."""
+    t0 = time.perf_counter()
+    jobs = ssm_rerun_start()
+    try:
+        rows = scan_kernel_rows(torch, build)
+        checks_s = time.perf_counter() - t0
+        models = [zoo_model(torch, build, arch, r) for arch, r in SSM_ZOO]
+    except BaseException:
+        ssm_rerun_stop(jobs)
+        raise
+    rerun = ssm_rerun_finish(torch, build, jobs)
+    launches = {}
+    for m in models:
+        launches.update({f"{m['arch']} {p}": c
+                         for p, c in m.pop("launches").items()})
+    for arch, r in rerun.items():
+        launches[f"{arch} cpu_rerun_card"] = r.pop("launches")
+    for name, row in rows.items():
+        arch = "jamba-v0.1-52b" if name == "selective_scan" else "rwkv6-3b"
+        row["launches"] = launches[f"{arch} prefill_flash"][name]
+    phase_s = time.perf_counter() - t0
+    log(f"phase 24: {phase_s:.1f} s (L's and M's checks {checks_s:.1f} s)")
+    return {"rows": rows, "models": models, "cpu_rerun": rerun,
+            "launches": launches, "checks_s": checks_s, "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------
@@ -5545,18 +6171,23 @@ def train_full(torch, out):
         raise AssertionError("[train] (c) the restarted run differs")
 
 
-def train_cpu(torch, out):
-    """(b): the same widths with 1 repeat in f32, 1 x 256 tokens, on the
-    card and on the CPU from one state (drawn on the card, copied): step
-    0's gradients before clipping within TRAIN_GRAD_TOL of each leaf's max
-    |g| (step 0 is ``make_train_step``'s own gradient, clip and AdamW,
-    taken apart to read the gradients), each step's loss within
-    TRAIN_LOSS_RTOL."""
+def train_cpu_job(torch, path_out):
+    """(b), in a worker process (``chip_smoke.py --train-cpu OUT``) started
+    before phase 17, its CPU half held until phase 23 starts: the same
+    widths with 1 repeat in f32, 1 x 256 tokens, on
+    the card and on the CPU from one state (drawn on the card, copied), at
+    the lowest CPU priority; writes step 0's gradient gaps (before
+    clipping: step 0 is ``make_train_step``'s own gradient, clip and
+    AdamW, taken apart to read the gradients), each step's relative loss
+    gap and the seconds as JSON.  ``train_cpu_finish`` gates them."""
     from repro_torch.configs import TrainConfig
     from repro_torch.core.optim import tree_leaves, tree_map
     from repro_torch.data import SyntheticLM
     from repro_torch.train import init_train_state, make_train_step
     from repro_torch.train import trainer
+    os.nice(19)
+    torch.set_num_threads(6)
+    t_job = time.perf_counter()
     k = TRAIN_CPU
     cfg = train_cfg(k["repeats"], compute_dtype="float32",
                     loss_chunk=k["loss_chunk"])
@@ -5572,37 +6203,126 @@ def train_cpu(torch, out):
         (loss, _), grads = grad_fn(state.params, batch)
         return loss.item(), grads
 
+    # the card's half first, its gradients kept on the host, so the card
+    # is freed before the CPU's half
     (loss_card, g_card), card_ms = timed_once(torch, lambda: first(
         card, DEVICE))
+    # _apply clips in place
+    host = [g.to("cpu", copy=True) for g in tree_leaves(g_card)]
+    card, _ = trainer._apply(card, g_card, tcfg,
+                             trainer.lr_schedule(0, tcfg).to(DEVICE))
+    g_card = host
+    card_losses = [loss_card]
+    for i in range(1, k["steps"]):
+        card, mc = step(card, data(i))
+        card_losses.append(mc["loss"].item())
+    del card
+    torch.cuda.empty_cache()
+    # the card is free (train_cpu_wait_card); the CPU half waits for phase
+    # 23 to start (train_cpu_go)
+    open(path_out + ".card", "w").close()
+    while not os.path.exists(path_out + ".go"):
+        time.sleep(0.5)
     t0 = time.perf_counter()
     loss_cpu, g_cpu = first(cpu, "cpu")
     cpu_grad_s = time.perf_counter() - t0
-    gaps = [((a.cpu() - b).abs().max() / b.abs().max()).item()
-            for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu))]
-    card, _ = trainer._apply(card, g_card, tcfg,
-                             trainer.lr_schedule(0, tcfg).to(DEVICE))
+    gaps = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(g_card, tree_leaves(g_cpu))]
     cpu, _ = trainer._apply(cpu, g_cpu, tcfg, trainer.lr_schedule(0, tcfg))
     del g_card, g_cpu
-    rel = [abs(loss_card - loss_cpu) / abs(loss_cpu)]
+    cpu_losses = [loss_cpu]
     for i in range(1, k["steps"]):
-        card, mc = step(card, data(i))
         cpu, mp = step(cpu, data(i))
-        rel.append(abs(mc["loss"].item() - mp["loss"].item())
-                   / abs(mp["loss"].item()))
-    cpu_s = time.perf_counter() - t0
-    del card, cpu
-    out["b"] = {"repeats": k["repeats"], "tokens": k["B"] * k["S"],
-                "grad_gap_max": max(gaps), "grad_tol": TRAIN_GRAD_TOL,
-                "loss_rel": rel, "loss_rtol": TRAIN_LOSS_RTOL,
-                "card_grad_ms": card_ms, "cpu_grad_s": cpu_grad_s,
-                "cpu_s": cpu_s}
-    log(f"[train] (b) card against CPU, 1 repeat in f32, {k['B']} x "
-        f"{k['S']}: step 0's gradients within {max(gaps):.3g} of each "
-        f"leaf's max |g| (tol {TRAIN_GRAD_TOL}), {len(gaps)} leaves; "
-        f"losses within {max(rel):.3g} relative (tol {TRAIN_LOSS_RTOL}); "
-        f"card {card_ms:.0f} ms a gradient, CPU {cpu_grad_s:.1f} s "
-        f"({cpu_s:.1f} s with the steps), beside (e)'s workers")
-    if max(gaps) > TRAIN_GRAD_TOL or max(rel) > TRAIN_LOSS_RTOL:
+        cpu_losses.append(mp["loss"].item())
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
+    with open(path_out, "w") as fh:
+        json.dump({"repeats": k["repeats"], "tokens": k["B"] * k["S"],
+                   "grad_gaps": gaps, "grad_gap_max": max(gaps),
+                   "grad_tol": TRAIN_GRAD_TOL, "loss_rel": rel,
+                   "loss_rtol": TRAIN_LOSS_RTOL, "card_grad_ms": card_ms,
+                   "cpu_grad_s": cpu_grad_s,
+                   "cpu_s": time.perf_counter() - t0,
+                   "job_s": time.perf_counter() - t_job}, fh)
+    return 0
+
+
+def train_cpu_start():
+    """(b)'s worker (``train_cpu_job``), started before phase 17."""
+    work = os.path.join(HERE, "build", "phase23_cpu")
+    os.makedirs(work, exist_ok=True)
+    stem = os.path.join(work, "b")
+    for ext in (".json", ".json.card", ".json.go", ".log"):
+        if os.path.exists(stem + ext):
+            os.remove(stem + ext)
+    logf = open(stem + ".log", "w")
+    job = {"stem": stem, "log": logf, "t0": time.perf_counter(),
+           "proc": subprocess.Popen(
+               [sys.executable, os.path.abspath(__file__), "--train-cpu",
+                stem + ".json"], cwd=HERE, stdout=logf,
+               stderr=subprocess.STDOUT)}
+    atexit.register(stop_worker, job)
+    return job
+
+
+def train_cpu_wait_card(job, timeout=TRAIN_DP_TIMEOUT_S):
+    """Wait until (b)'s worker has run its card half and freed the card
+    (its ``.card`` file), or has ended; returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not os.path.exists(job["stem"] + ".json.card"):
+        if job["proc"].poll() is not None:
+            break  # failed or done: train_cpu_finish reports it
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("[train] (b)'s worker did not free the card "
+                                 f"within {timeout} s")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def train_cpu_go(job):
+    """Let (b)'s worker start its CPU half."""
+    open(job["stem"] + ".json.go", "w").close()
+
+
+def stop_worker(job):
+    """Stop one worker process (``job["proc"]``), whatever its state, and
+    close its log."""
+    if job["proc"].poll() is None:
+        job["proc"].kill()
+    job["proc"].wait()
+    job["log"].close()
+
+
+def train_cpu_finish(out, job, timeout=TRAIN_DP_TIMEOUT_S):
+    """(b), gated: step 0's gradients within TRAIN_GRAD_TOL of each leaf's
+    max |g|, each step's loss within TRAIN_LOSS_RTOL."""
+    t0 = time.perf_counter()
+    try:
+        rc = job["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"[train] (b)'s worker took more than "
+                             f"{timeout} s") from None
+    finally:
+        stop_worker(job)
+    if rc != 0:
+        with open(job["stem"] + ".log") as f:
+            raise AssertionError(f"[train] (b)'s worker exited {rc}: "
+                                 + f.read()[-2000:])
+    with open(job["stem"] + ".json") as fh:
+        b = json.load(fh)
+    b.update(waited_s=time.perf_counter() - t0,
+             worker_wall_s=time.perf_counter() - job["t0"])
+    out["b"] = b
+    log(f"[train] (b) card against CPU, 1 repeat in f32, 1 x 256: step 0's "
+        f"gradients within {b['grad_gap_max']:.3g} of each leaf's max |g| "
+        f"(tol {TRAIN_GRAD_TOL}), {len(b['grad_gaps'])} leaves; losses "
+        f"within {max(b['loss_rel']):.3g} relative (tol {TRAIN_LOSS_RTOL}); "
+        f"card {b['card_grad_ms']:.0f} ms a gradient, CPU "
+        f"{b['cpu_grad_s']:.1f} s ({b['cpu_s']:.1f} s with the steps), in "
+        f"a worker beside (a), (d) and (c), its card half before phase 23 "
+        f"({b['worker_wall_s']:.1f} s from its start, waited "
+        f"{b['waited_s']:.1f} s for it)")
+    if b["grad_gap_max"] > TRAIN_GRAD_TOL or max(b["loss_rel"]) > \
+            TRAIN_LOSS_RTOL:
         raise AssertionError("[train] (b) the CPU disagrees with the card")
 
 
@@ -5699,8 +6419,8 @@ def train_dp_emulate(torch):
 
 def train_dp_start(torch):
     """(e): two gloo workers on the card (as phase 21's) take TRAIN_DP's
-    steps, launched from a thread so that (b) runs beside them; returns
-    what ``train_dp_finish`` waits for."""
+    steps, launched from a thread; returns what ``train_dp_finish`` waits
+    for."""
     import shutil
     import threading
     from repro_torch.parallel import distributed
@@ -5767,7 +6487,7 @@ def train_dp_finish(torch, out, job):
         f"{ranks_equal}, equal to the one-process emulation (params and "
         f"each rank's residual) {emulated}, losses {reps[0]['losses']} "
         f"(emulation within {loss_gap:.3g}); the workers "
-        f"{job['launch_s']:.1f} s beside (b) (" + json.dumps(
+        f"{job['launch_s']:.1f} s (" + json.dumps(
             out["e"]["workers"]) + f"), the check {out['e']['check_s']:.1f}"
         " s")
     if not (ranks_equal and emulated and loss_gap <= 1e-6
@@ -5810,31 +6530,36 @@ def launchers_finish(procs, out, timeout=300):
     log("[train] (f) launchers: " + json.dumps(res))
 
 
-def train_phase(torch, build):
+def train_phase(torch, build, b_job):
     """Phase 23: training granite-3-8b at its published widths on the
     card: (a) full width, depth cut, with (d) the ballast and (c) the
-    restart on the same model; (b) card against CPU; (e) the int8
-    data-parallel step on two gloo workers; (f) the launchers as
-    subprocesses, started first; (b) runs beside (e)'s workers.  No
-    kernel of A-K or A' launches."""
+    restart on the same model; (b) card against CPU, in ``b_job``'s worker
+    (started before phase 17: its card half ends before (a), its CPU half
+    runs beside (a), (d) and (c)); (e) the int8 data-parallel step on two
+    gloo workers; (f) the launchers as subprocesses, started first.  No
+    kernel of A-K or A' launches (none in (b)'s worker either: it is a
+    process of its own, so its launches are not counted here; its path,
+    ``loss_fn`` on a dense model, has no kernel)."""
     t0 = time.perf_counter()
     out = {}
     procs = launchers_start()
     try:
+        # (b)'s worker, started before phase 17: its card part (about 10 GB)
+        # must have ended before (a) takes the card; its CPU part runs
+        # beside (a), (d) and (c)
+        out["b_card_wait_s"] = train_cpu_wait_card(b_job)
+        train_cpu_go(b_job)
         build.reset_launch_counts()
         train_full(torch, out)
-        # (e)'s workers need the memory this process's cache holds; (b)
-        # runs beside them (its card part needs about 10 GB)
+        # (e)'s workers need the memory this process's cache holds
         torch.cuda.empty_cache()
         job = train_dp_start(torch)
-        try:
-            t = time.perf_counter()
-            train_cpu(torch, out)
-            out["b_s"] = time.perf_counter() - t
-        finally:
-            job["thread"].join()
+        job["thread"].join()
         torch.cuda.empty_cache()
         train_dp_finish(torch, out, job)
+        t = time.perf_counter()
+        train_cpu_finish(out, b_job)
+        out["b_s"] = time.perf_counter() - t
         counts = build.launch_counts()
     except BaseException:
         launchers_stop(procs)
@@ -5846,7 +6571,8 @@ def train_phase(torch, build):
                              f"path: {counts}")
     out["launches"] = counts
     out["phase_s"] = time.perf_counter() - t0
-    parts = {k: round(out[k], 1) for k in ("a_s", "d_s", "c_s", "b_s")}
+    parts = {k: round(out[k], 1) for k in ("b_card_wait_s", "a_s", "d_s",
+                                            "c_s", "b_s")}
     log(f"[train] no kernel of A-K or A' launched; phase 23: "
         f"{out['phase_s']:.1f} s (" + json.dumps(parts) + ", (e)'s "
         f"workers {out['e']['launch_s']:.1f} s from their start, its "
@@ -6490,6 +7216,33 @@ def ad_relaxed(torch, api):
     return out
 
 
+def ad_scans(torch, repeat=2):
+    """Kernels L and M at their prefill shapes, where the tree has them
+    (None where it has not): event ms (``repeat`` readings of 10 calls)
+    and device ms, and the sha256 of each output."""
+    import hashlib
+    try:
+        from repro_torch.kernels.scans import selective_scan, wkv6  # noqa
+    except ImportError:
+        return None
+    out = {}
+    for i, name in enumerate(SCAN_SHAPES):
+        fn = scan_fns(name)[0]
+        ops = scan_operands(torch, name, SCAN_SHAPES[name]["prefill"],
+                            240 + 10 * i)
+        got = fn(*ops)
+        out[name] = {
+            "shape": list(SCAN_SHAPES[name]["prefill"]),
+            "ms": [cuda_ms(torch, lambda: fn(*ops), 10)
+                   for _ in range(repeat)],
+            "device_ms": device_ms(torch, lambda: fn(*ops),
+                                   f"{name}_kernel", repeat=10),
+            "sha256": [hashlib.sha256(g.cpu().numpy().tobytes()).hexdigest()
+                       for g in got]}
+        log(f"[ad] {name}: " + json.dumps(out[name]))
+    return out
+
+
 def ad_main(torch) -> int:
     """``--ad``: the walls that kernels A, B, D, E and G sit on, and
     kernels A, B, D, E, G, H, I, J and K alone, for comparing two trees on
@@ -6504,8 +7257,9 @@ def ad_main(torch) -> int:
     Study shape and A's four variants, I and H at phase 15's shapes, H
     with its chain probe) and ``ad_relaxed`` (J and K forward and adjoint
     at the design's shapes, their forwards' digests, and kernel A's
-    adjoint where the tree has it).  Prints one ``{"ad": ...}`` JSON
-    line."""
+    adjoint where the tree has it) and ``ad_scans`` (L and M at their
+    prefill shapes, where the tree has them).  Prints one ``{"ad": ...}``
+    JSON line."""
     from repro_torch import api, control
     from repro_torch.kernels import build
     from repro_torch.kernels.ballast import ballast  # noqa: F401
@@ -6555,6 +7309,7 @@ def ad_main(torch) -> int:
     out["sliding"] = sliding_measure(torch, cap.args["monitor"][1], w, dt,
                                      w_long, dt_long)
     out["relaxed"] = ad_relaxed(torch, api)
+    out["scans"] = ad_scans(torch)
     out["total_s"] = time.perf_counter() - t_start
     print(json.dumps({"ad": out}), flush=True)
     return 0
@@ -6609,6 +7364,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--jk-plain"] and len(sys.argv) == 4:
         import_port()
         return jk_plain_job(torch, *sys.argv[2:])
+    if sys.argv[1:2] == ["--battery-plain"] and len(sys.argv) == 4:
+        import_port()
+        return battery_plain_job(torch, *sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -6618,6 +7376,12 @@ def main() -> int:
         return ad_main(torch)
     if sys.argv[1:] == ["--study-time"]:
         return study_time_main(torch)
+    if sys.argv[1:2] == ["--cpu-subset"] and len(sys.argv) == 3:
+        return cpu_subset_job(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--ssm-cpu"] and len(sys.argv) == 4:
+        return ssm_rerun_job(torch, *sys.argv[2:])
+    if sys.argv[1:2] == ["--train-cpu"] and len(sys.argv) == 3:
+        return train_cpu_job(torch, sys.argv[2])
     if sys.argv[1:2] == ["--mesh-worker"] and len(sys.argv) == 5:
         return mesh_worker(torch, sys.argv[2], sys.argv[3],
                            float(sys.argv[4]))
@@ -6625,10 +7389,12 @@ def main() -> int:
         return train_dp_worker(torch, sys.argv[2], float(sys.argv[3]))
     from repro_torch import api
     from repro_torch.kernels import build
-    # the kernels that api does not import register here: F, G, H and I
+    # the kernels that api does not import register here: F, G, H, I, L
+    # and M
     from repro_torch.kernels.ballast import ballast  # noqa: F401
     from repro_torch.kernels.flash import flash  # noqa: F401
     from repro_torch.kernels.goertzel import sliding_v1, windows  # noqa: F401
+    from repro_torch.kernels.scans import selective_scan, wkv6  # noqa: F401
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6714,8 +7480,9 @@ def main() -> int:
         if not all(v == v and abs(v) != float("inf") for v in vals):
             raise AssertionError(f"non-finite metric in {r}")
 
-    # 6. a subset of the same Study on the CPU (the plain versions)
-    compare_cpu_subset(api, res)
+    # 6. a subset of the same Study on the CPU (the plain versions), in a
+    # worker beside the later phases; compared at the end
+    subset_job = cpu_subset_start()
     for k in kernels:
         k["launches_by_path"] = {"study": k["launches"]}
 
@@ -6880,6 +7647,17 @@ def main() -> int:
     log("zoo: " + json.dumps({k: v for k, v in zoo.items()
                               if k != "launches"}))
 
+    # 24. Mamba and RWKV-6: kernels L and M, jamba-v0.1-52b and rwkv6-3b at
+    # the published widths, depth cut for jamba, a CPU re-run of each
+    ssm = ssm_phase(torch, build)
+    late.update(ssm["launches"])
+    for k in kernels:
+        nm = COUNT_NAME[k["name"]]
+        k["launches_by_path"].update({p: c[nm] for p, c in
+                                      ssm["launches"].items()})
+    log("ssm: " + json.dumps({k: v for k, v in ssm.items()
+                              if k not in ("launches", "rows")}))
+
     # 16. the keyed Study (Firefly, CombinedMitigation, noisy telemetry),
     # chunked, resumed and on the CPU; it runs before phase 15, so that
     # phase 15's check that no earlier path launched G, H or I covers it
@@ -6891,6 +7669,9 @@ def main() -> int:
     log("keyed: " + json.dumps(keyed))
     log(f"phase 16: {keyed['phase_s']:.1f} s")
 
+    # 23 (b), started here: its worker runs its card half beside phases
+    # 17-21, then waits for phase 23 to run its CPU half beside (a)-(c)
+    b_job = train_cpu_start()
     # 17. the serial reference and the batch helpers on phase 5's rows
     serial = serial_phase(torch, api, build, res)
     late["serial_reference"] = serial["launches"]
@@ -6914,7 +7695,7 @@ def main() -> int:
     # 23. training granite-3-8b on the card (no kernel of A-K or A'); it
     # runs before phase 15, so that phase 15's check that no earlier path
     # launched G, H or I covers it
-    train = train_phase(torch, build)
+    train = train_phase(torch, build, b_job)
     late["training"] = train["launches"]
     log("train: " + json.dumps({k: v for k, v in train.items()
                                 if k != "launches"}))
@@ -6956,6 +7737,8 @@ def main() -> int:
                              f" {off_path}")
     kernels.extend(late_rows)
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+    compare_cpu_subset(api, res, subset_job)
+    battery_finish(torch, c_extra)
     t18 = time.perf_counter()
     design_finish(torch, design)
     log(f"phase 18: {design['phase_s'] + time.perf_counter() - t18:.1f} s "
@@ -6992,6 +7775,23 @@ def main() -> int:
         f"{a_row['bound_ms']:.4g} ms by {a_row['bound_by']}), launches "
         + json.dumps(a_row["launches_by_path"]))
     kernels.append(a_row)
+    # kernels L and M: launched on jamba's and rwkv6-3b's paths of phase 24
+    # and on no other
+    for nm, arch in (("selective_scan", "jamba-v0.1-52b"),
+                     ("wkv6", "rwkv6-3b")):
+        row = ssm["rows"][nm]
+        # (a worker's counts name only the kernels its process imported)
+        row["launches_by_path"] = {p: c.get(nm, 0) for p, c in paths.items()}
+        off = {p: c for p, c in row["launches_by_path"].items()
+               if c and not p.startswith(arch + " ")}
+        if off or not any(row["launches_by_path"].values()):
+            raise AssertionError(f"kernel {nm} launched off {arch}'s paths "
+                                 f"or on none of them: {off}")
+        log(f"{nm}: {row['ms']:.4g} ms (device {row['device_ms']}, plain "
+            f"{row['plain_ms']:.4g} ms, bound {row['bound_ms']:.4g} ms by "
+            f"{row['bound_by']}), launches "
+            + json.dumps(row["launches_by_path"]))
+        kernels.append(row)
 
     log(f"total {time.perf_counter() - t_start:.1f} s, "
         f"{time.perf_counter() - SCRIPT_T0:.1f} s since the script started")

@@ -1,10 +1,11 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
 The same ids as the reference's registry.  The dense GQA archs
-(granite-3-8b, minitron-4b), the sparse-expert dbrx-132b (GQA + MoE) and
-deepseek-v2-lite-16b (MLA + MoE, a dense first layer) have every mixer
-and FFN ported; the others raise ``NotImplementedError`` naming the
-ROADMAP slice that brings them.
+(granite-3-8b, minitron-4b), the sparse-expert dbrx-132b (GQA + MoE),
+deepseek-v2-lite-16b (MLA + MoE, a dense first layer), the hybrid
+jamba-v0.1-52b (Mamba + GQA, MoE) and the attention-free rwkv6-3b have
+every mixer and FFN ported; the others raise ``NotImplementedError``
+naming the ROADMAP slice that brings them.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ _MODULES: Dict[str, str] = {
     "minitron-4b": "minitron_4b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "dbrx-132b": "dbrx_132b",
+    "jamba-v0.1-52b": "jamba_v0_1",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 # arch id -> what it needs that the port lacks (ROADMAP queue A, "The rest
@@ -29,8 +32,6 @@ _NOT_PORTED: Dict[str, str] = {
     "nemotron-4-340b": "sharding its 680 GB of bf16 params (parallel/)",
     "qwen1.5-110b": "sharding its 220 GB of bf16 params (parallel/)",
     "musicgen-medium": "the audio frontend stub (input_mode='embeddings')",
-    "jamba-v0.1-52b": "Mamba",
-    "rwkv6-3b": "RWKV",
     "llama-3.2-vision-11b": "cross-attention (vision)",
 }
 

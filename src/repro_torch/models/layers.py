@@ -19,6 +19,16 @@ def rms_norm(x, w, eps: float):
     return (out * w.float()).to(x.dtype)
 
 
+def group_norm_heads(x, w, b, eps: float):
+    """Per-head layer norm used by RWKV6 on the wkv output. x: [..., H, D];
+    mean and (population) variance in f32."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * w + b).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

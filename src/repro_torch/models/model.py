@@ -8,9 +8,11 @@ position, every leaf stacked on a leading ``[n_repeats]`` axis),
 the reference's tree into this one by copying leaves.  The reference
 scans the repeat axis with ``lax.scan``; here a Python loop indexes it.
 
-Ported: the ``attn`` (GQA) and ``mla`` (latent attention) mixers, the
-``dense`` and ``moe`` FFNs, so the dense zoo, dbrx-132b and
-deepseek-v2-lite-16b run; any other kind raises ``NotImplementedError``.
+Ported: the ``attn`` (GQA), ``mla`` (latent attention), ``mamba`` (S6)
+and ``rwkv`` (RWKV-6 token-mix) mixers, the ``dense``, ``moe`` and
+``rwkv_cm`` (channel-mix) FFNs, so the dense zoo, dbrx-132b,
+deepseek-v2-lite-16b, jamba-v0.1-52b and rwkv6-3b run; any other kind
+(``xattn``, the audio stub's embeddings) raises ``NotImplementedError``.
 ``forward`` sums the MoE layers' aux losses over the prefix and the unit.
 The prefill keeps the reference's default ``Ctx`` (MoE capacity
 dropping); the decode step sets ``dropless``.
@@ -34,8 +36,10 @@ import torch.utils.checkpoint as checkpoint
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (dense_init, dt, embed_init, rms_norm,
                                        stack_init)
 
@@ -79,6 +83,10 @@ def _init_mixer(gen, cfg, spec: LayerSpec, dtype):
         return attn_mod.init_attn(gen, cfg, dtype)
     if spec.mixer == "mla":
         return attn_mod.init_mla(gen, cfg, dtype)
+    if spec.mixer == "mamba":
+        return mamba_mod.init_mamba(gen, cfg, dtype)
+    if spec.mixer == "rwkv":
+        return rwkv_mod.init_rwkv_tm(gen, cfg, dtype)
     if spec.mixer == "none":
         return {}
     raise _not_ported(f"the {spec.mixer!r} mixer")
@@ -89,6 +97,8 @@ def _init_ffn(gen, cfg, spec: LayerSpec, dtype):
         return mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype)
     if spec.ffn == "moe":
         return moe_mod.init_moe(gen, cfg, dtype)
+    if spec.ffn == "rwkv_cm":
+        return rwkv_mod.init_rwkv_cm(gen, cfg, dtype)
     raise _not_ported(f"the {spec.ffn!r} FFN")
 
 
@@ -107,6 +117,10 @@ def _apply_mixer(spec, p, x, ctx, cache=None):
         return attn_mod.attn_forward(p, x, ctx, cache=cache)
     if spec.mixer == "mla":
         return attn_mod.mla_forward(p, x, ctx, cache=cache)
+    if spec.mixer == "mamba":
+        return mamba_mod.mamba_forward(p, x, ctx, cache=cache)
+    if spec.mixer == "rwkv":
+        return rwkv_mod.rwkv_tm_forward(p, x, ctx, cache=cache)
     if spec.mixer == "none":
         return x, None
     raise _not_ported(f"the {spec.mixer!r} mixer")
@@ -117,6 +131,10 @@ def _decode_mixer(spec, p, x, cache, index, ctx):
         return attn_mod.attn_decode(p, x, cache, index, ctx)
     if spec.mixer == "mla":
         return attn_mod.mla_decode(p, x, cache, index, ctx)
+    if spec.mixer == "mamba":
+        return mamba_mod.mamba_decode(p, x, cache, index, ctx)
+    if spec.mixer == "rwkv":
+        return rwkv_mod.rwkv_tm_forward(p, x, ctx, cache=cache)
     if spec.mixer == "none":
         return x, None
     raise _not_ported(f"the {spec.mixer!r} mixer")
@@ -129,6 +147,9 @@ def _apply_ffn(spec, p, x, ctx, cache=None):
     if spec.ffn == "moe":
         out, aux = moe_mod.moe_forward(p, x, ctx.cfg, ctx)
         return out, aux, None
+    if spec.ffn == "rwkv_cm":
+        out, c = rwkv_mod.rwkv_cm_forward(p, x, ctx, cache=cache)
+        return out, 0.0, c
     if spec.ffn == "none":
         return torch.zeros_like(x), 0.0, None
     raise _not_ported(f"the {spec.ffn!r} FFN")
@@ -326,12 +347,22 @@ def loss_fn(params, cfg: ModelConfig, batch, ctx: Optional[Ctx] = None):
 
 def _init_layer_cache(cfg, spec: LayerSpec, batch, seq, dtype, device):
     if spec.mixer == "attn":
-        return attn_mod.init_attn_cache(cfg, batch, seq, dtype, device)
-    if spec.mixer == "mla":
-        return attn_mod.init_mla_cache(cfg, batch, seq, dtype, device)
-    if spec.mixer == "none":
-        return {}
-    raise _not_ported(f"the {spec.mixer!r} mixer's cache")
+        c = attn_mod.init_attn_cache(cfg, batch, seq, dtype, device)
+    elif spec.mixer == "mla":
+        c = attn_mod.init_mla_cache(cfg, batch, seq, dtype, device)
+    elif spec.mixer == "mamba":
+        c = mamba_mod.init_mamba_cache(cfg, batch, dtype, device)
+    elif spec.mixer == "rwkv":
+        c = {k: v for k, v in rwkv_mod.init_rwkv_cache(
+            cfg, batch, dtype, device).items() if k in ("shift_tm", "wkv")}
+    elif spec.mixer == "none":
+        c = {}
+    else:
+        raise _not_ported(f"the {spec.mixer!r} mixer's cache")
+    if spec.ffn == "rwkv_cm":
+        c["shift_cm"] = torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                    device=device)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16,
@@ -349,11 +380,21 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16,
     return {"prefix": prefix, "unit": tuple(unit)}
 
 
+# the recurrent layers' states, which the prefill reads as its initial
+# ones (Mamba's conv window and SSM state, RWKV's shifts and wkv state)
+STATE_KEYS = ("conv", "ssm", "shift_tm", "wkv", "shift_cm")
+
+
 def _fresh(cache):
-    """Empty tensors shaped like ``cache``: prefill writes every element."""
-    return {"prefix": [{k: torch.empty_like(t) for k, t in c.items()}
+    """New tensors shaped like ``cache``: the recurrent states zeroed (the
+    prefill starts from them), the attention caches empty (the prefill
+    writes every position it reads)."""
+    def new(k, t):
+        return torch.zeros_like(t) if k in STATE_KEYS else torch.empty_like(t)
+
+    return {"prefix": [{k: new(k, t) for k, t in c.items()}
                        for c in cache["prefix"]],
-            "unit": tuple({k: torch.empty_like(t) for k, t in c.items()}
+            "unit": tuple({k: new(k, t) for k, t in c.items()}
                           for c in cache["unit"])}
 
 
@@ -361,7 +402,9 @@ def make_prefill(cfg: ModelConfig):
     """prefill(params, batch, cache, ctx) -> (last_logits, cache).
 
     The returned cache is new; the one passed in only gives its shapes
-    and dtype, as in the reference."""
+    and dtype.  The reference reads the recurrent layers' states of the
+    cache it is given as their initial ones and is always given zeroed
+    ones; here they start from zero whatever the given cache holds."""
     def prefill(params, batch, cache, ctx: Optional[Ctx] = None):
         ctx = _with_positions(ctx, cfg, batch)
         x = _embed(params, cfg, batch, ctx)

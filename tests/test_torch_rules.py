@@ -53,28 +53,78 @@ def test_rules_cover_the_control_slice():
 
 
 def test_build_registers_all_nine_kernels():
-    """Once the API and the modules of F, G, H and I are imported (as
-    ``chip_smoke.py`` imports them), ``launch_counts`` names every kernel
-    A-I, kernel A's adjoint and both entry points of J and K (forward and
-    adjoint, one source each): fourteen counts over twelve sources."""
+    """Once the API and the modules of F, G, H, I, L and M are imported
+    (as ``chip_smoke.py`` imports them), ``launch_counts`` names every
+    kernel A-I, L and M, kernel A's adjoint and both entry points of J and
+    K (forward and adjoint, one source each): sixteen counts over fourteen
+    sources."""
     from repro_torch.kernels import build
     from repro_torch.kernels.ballast import ballast  # noqa: F401
     from repro_torch.kernels.flash import flash  # noqa: F401
     from repro_torch.kernels.goertzel import sliding_v1, windows  # noqa: F401
+    from repro_torch.kernels.scans import selective_scan, wkv6  # noqa: F401
     counts = build.launch_counts()
     assert set(counts) == {"monitor", "gpu_floor", "battery", "escalation",
                            "sliding", "flash_fwd", "ballast", "windows",
                            "sliding_v1", "gpu_floor_relaxed",
                            "gpu_floor_relaxed_adjoint", "battery_relaxed",
-                           "battery_relaxed_adjoint", "monitor_adjoint"}
+                           "battery_relaxed_adjoint", "monitor_adjoint",
+                           "selective_scan", "wkv6"}
     sources = [k.source for k in build.KERNELS]
-    assert len(sources) == 14 and len(set(sources)) == 12
+    assert len(sources) == 16 and len(set(sources)) == 14
     assert all(p.exists() for p in sources)
     # the two entry points of one source share one library
     by_source = {}
     for k in build.KERNELS:
         by_source.setdefault(k.source, set()).add(k.library_path())
     assert all(len(v) == 1 for v in by_source.values())
+
+
+def _scan_operands(name, device="cpu", grad=False):
+    """Tiny operands of kernel L (``selective_scan``) or M (``wkv6``)."""
+    gen = torch.Generator().manual_seed(0)
+
+    def t(*shape, sign=1.0):
+        x = (sign * torch.rand(shape, generator=gen)).to(device)
+        return x.requires_grad_(grad) if grad else x
+    if name == "selective_scan":
+        return t(1, 3, 8), t(1, 3, 8), t(1, 3, 4), t(1, 3, 4), \
+            t(8, 4, sign=-1.0), t(1, 8, 4)
+    return t(1, 3, 2, 4), t(1, 3, 2, 4), t(1, 3, 2, 4), t(1, 3, 2, 4), \
+        t(2, 4), t(1, 2, 4, 4)
+
+
+@pytest.mark.parametrize("name", ["selective_scan", "wkv6"])
+def test_scan_kernels_take_the_plain_version_only_on_a_cpu_tensor(
+        name, monkeypatch):
+    """Kernels L and M: a CPU tensor runs the plain version and never
+    reaches ``CudaKernel.launch`` (the plain version's gradient flows); a
+    tensor on any other device than the card's raises; on a device other
+    than the CPU, inputs that require a gradient raise
+    ``NotImplementedError`` naming the kernel's missing backward, before
+    any launch (the meta device stands in for the card here;
+    ``chip_smoke.py`` checks the card itself)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.scans import selective_scan, wkv6
+    fn, plain = ((selective_scan.selective_scan,
+                  selective_scan.selective_scan_plain)
+                 if name == "selective_scan" else (wkv6.wkv6,
+                                                   wkv6.wkv6_plain))
+
+    def refuse(self, *args):
+        raise AssertionError(f"{self.name} launched on a CPU tensor")
+    monkeypatch.setattr(build.CudaKernel, "launch", refuse)
+    ops = _scan_operands(name, grad=True)
+    out, last = fn(*ops)
+    ref = plain(*ops)
+    assert torch.equal(out, ref[0]) and torch.equal(last, ref[1])
+    (out.sum() + last.sum()).backward()
+    assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in ops)
+    with pytest.raises(NotImplementedError, match=(
+            "backward of the (selective scan|wkv) kernel .* not ported")):
+        fn(*_scan_operands(name, "meta", grad=True))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fn(*_scan_operands(name, "meta"))
 
 
 # kernels G, H and I and their entry points: reached only through their

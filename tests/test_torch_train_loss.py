@@ -3,10 +3,13 @@
 ``loss_fn`` and its gradients against ``jax.value_and_grad`` of the
 reference's ``loss_fn``, on reduced granite-3-8b, dbrx-132b and
 deepseek-v2-lite-16b in f32, each with the chunked cross-entropy off and
-on (B 2 x S 32, ``loss_chunk`` 8): the loss within 1e-5 relative, the
+on (B 2 x S 32, ``loss_chunk`` 8), and on reduced jamba-v0.1-52b and
+rwkv6-3b (the plain selective scan and wkv loops under autograd) with it
+off: the loss within 1e-5 relative, the
 ``ce`` and ``moe_aux`` metrics alike, and each leaf's gradient within
 1e-4 of its max |g| (``lm_head`` and every leaf the loss reaches).  The
-reference's params go through ``convert.params_from_reference``.  The
+reference's params go through ``convert.params_from_reference`` (the
+recurrent archs' are drawn by the port and handed to the reference).  The
 MoE archs follow the routing rule: in f32, no token's experts may differ
 between the port and the reference at a margin of 1e-5 or more (each MoE
 layer's router input is taken on both sides).  Also ``_ce`` and
@@ -35,7 +38,11 @@ from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.train.trainer import make_value_and_grad  # noqa: E402
 
-ARCHS = ["granite-3-8b", "dbrx-132b", "deepseek-v2-lite-16b"]
+ARCHS = ["granite-3-8b", "dbrx-132b", "deepseek-v2-lite-16b",
+         "jamba-v0.1-52b", "rwkv6-3b"]
+# the recurrent archs take the whole-sequence CE only: the chunked CE
+# follows the backbone, whatever it is, and the others cover it
+SSM_ARCHS = ("jamba-v0.1-52b", "rwkv6-3b")
 B, S, CHUNK = 2, 32, 8
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4          # of each leaf's max |g|
@@ -50,7 +57,12 @@ def _cfgs(arch, chunk):
 
 @functools.lru_cache(maxsize=None)
 def _params(arch):
-    jc, _ = _cfgs(arch, 0)
+    jc, tc = _cfgs(arch, 0)
+    if arch in SSM_ARCHS:
+        # drawn by the port (the reference's init of jamba's stacked unit
+        # takes seconds to trace) and handed to the reference as numpy
+        tp = tmodel.init_params(0, tc, device="cpu")
+        return jax.tree.map(lambda t: jnp.asarray(t.numpy()), tp), tp
     jp = jax.jit(lambda k: jmodel.init_params(k, jc))(jax.random.PRNGKey(0))
     return jp, params_from_reference(jax.tree.map(np.asarray, jp),
                                      device="cpu")
@@ -96,8 +108,9 @@ def _router_inputs(jc, jp, tokens):
     return out
 
 
-@pytest.mark.parametrize("chunk", [0, CHUNK])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,chunk", [
+    (a, c) for a in ARCHS for c in (0, CHUNK)
+    if c == 0 or a not in SSM_ARCHS])
 def test_loss_and_grads_match_jax_value_and_grad(arch, chunk, monkeypatch):
     jc, tc = _cfgs(arch, chunk)
     jp, tp = _params(arch)
