@@ -185,11 +185,14 @@ widths.  Kernels L (the selective scan) and M (the wkv recurrence)
 against their plain versions (1e-5 of max |plain|, each output) and
 float64 plain versions (1e-4) at jamba-v0.1-52b's prefill shape [4 x
 4096, d_inner 8192, d_state 16] and rwkv6-3b's [4 x 4096, 40 heads of
-64], bf16, at a decode step and at a ragged shape; calls that carry the
-state every 1000 steps and 64 one-step calls equal one call bit for bit;
-grad-enabled inputs refused; event, device and plain ms beside each
-bound (L's expf counted on the special function units); M's chain alone
-(``wkv6_step_cycles``) and its floor.  (a) jamba-v0.1-52b with 1 of its 4
+64], bf16, at a decode step and at ragged shapes (L at d_state 16 and
+8, d_inner 8190; M at head dim 16 with 3 x 5 heads and at 1 x 1001 x
+40); calls that carry the state every 1000 steps and 64 one-step calls
+equal one call bit for bit; grad-enabled inputs refused; event, device
+and plain ms beside each bound (L's expf counted on the special function
+units); each kernel's step loop counted in its SASS (``cuobjdump``) and
+the floors that follow, with M's 7 operations an element issued one by
+one.  (a) jamba-v0.1-52b with 1 of its 4
 repeats (7 Mamba layers, 1 attention, 4 MoE; bf16, random from seed 0)
 and (b) rwkv6-3b with all 32 layers (f32) through phase 22's
 ``zoo_model``: every gate there, L or M launched once a layer a pass,
@@ -270,7 +273,8 @@ It prints:
     seconds, walls, merges and their seconds, all-reduce seconds and
     launches, and the smoke's OK line;
   * for phase 24: L's and M's errors, bitwise checks, event, device and
-    plain ms and bounds at each shape, M's chain floor, each model's
+    plain ms and bounds at each shape, their step loops' SASS
+    counts and floors, registers and shared memory, each model's
     phase-22 lines and its seconds by part, and (c)'s gaps;
   * for phase 23: each step's loss, grad norm, lr and wall, the warm
     median, tokens/s, the FLOP share, peak memory, the profiled step's
@@ -300,8 +304,8 @@ has them), with event and device ms, and J and K forward and adjoint at
 the design's shapes with the sha256 of each forward's outputs (saved
 under ``chiprun_out/ad_jk/``) and A's adjoint where the tree has it (run
 this script from the root of each tree; it prints one ``{"ad": ...}``
-line).  It also times L and M at their prefill shapes where the tree
-has them.
+line).  It also times L and M at each of phase 24's shapes where the
+tree has them.
 
     python3 chip_smoke.py --study-time
 
@@ -3356,14 +3360,17 @@ SCAN_ORACLE_TOL = 1e-4    # kernel against the float64 plain version
 SCAN_CHUNK = 1000         # chunked calls: the state carried every 1000 steps
 SCAN_ONE_BY_ONE = 64      # one-step calls against one call of as many steps
 # each kernel's shapes: L (B, T, d_inner, d_state) at jamba's prefill, a
-# decode step and a ragged cut (d_inner not a multiple of the block of 64);
-# M (B, T, H, head_dim) at rwkv6-3b's
+# decode step, a ragged cut (d_inner not a multiple of the block of 64, nor
+# of 8: 4-byte copies) and the same at d_state 8 (4 states a lane); M (B,
+# T, H, head_dim) at rwkv6-3b's, and at head dim 16 (4 key channels a
+# lane) with B x H = 3 x 5
 SCAN_SHAPES = {
     "selective_scan": {"prefill": (4, 4096, 8192, 16),
                        "decode": (4, 1, 8192, 16),
-                       "ragged": (1, 1001, 8190, 16)},
+                       "ragged": (1, 1001, 8190, 16),
+                       "ragged_ds8": (1, 1001, 8190, 8)},
     "wkv6": {"prefill": (4, 4096, 40, 64), "decode": (4, 1, 40, 64),
-             "ragged": (1, 1001, 40, 64)}}
+             "ragged": (1, 1001, 40, 64), "hd16": (3, 1001, 5, 16)}}
 SCAN_SOURCE = {"selective_scan": ("src/repro_torch/kernels/scans/csrc/"
                                   "selective_scan.cu",
                                   "src/repro/models/mamba.py:90"),
@@ -3377,6 +3384,12 @@ SCAN_OPS = {"selective_scan": 7, "wkv6": 7}
 # C++ Programming Guide's throughput table for compute capability 9.0; 132
 # SMs at 1.98 GHz): L's expf runs on these units
 SFU_OPS_S = 132 * 16 * 1.98e9
+# f32 instructions a second when each is issued alone (no fused multiply-
+# add: the rounding contract), one a clock a lane: 4 schedulers of 32 lanes
+# an SM, 132 SMs at 1.98 GHz
+LANE_OPS_S = 132 * 128 * 1.98e9
+# SASS opcodes that run on the f32 pipes
+F32_OPCODES = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX")
 # (c): the published widths cut in depth, in f32 (params and compute), on
 # the card and on the CPU: a prefill of 1 x 256 and 4 greedy decode steps
 SSM_RERUN_S, SSM_RERUN_STEPS = 256, 4
@@ -3442,6 +3455,99 @@ def scan_bound(name, ops, outs):
             else "operations", nb)
 
 
+# each element's FMULs as the sources write them (no product fused with
+# its sum): L's dt*A, dt*B, *x, dA*h, h*C and the one in the library's
+# expf; M's k*v, u*kv, r*a, w*S.  They count the elements a pass of a
+# step loop covers.
+SCAN_FMULS = {"selective_scan": 6, "wkv6": 4}
+# the elements a pass of each step loop covers by design, at the prefill
+# shape: L 4 steps x 8 states a lane, M 2 steps x 8 key channels x 2
+# columns; a count from the SASS that differs means SCAN_FMULS no longer
+# matches the compiled code
+SCAN_LOOP_ELEMENTS = {"selective_scan": 32, "wkv6": 32}
+
+
+def scan_key(name, shape):
+    """The mangled name's part that picks the bf16 instantiation of kernel
+    L (by d_state) or M (by head dim) at ``shape``."""
+    stem = "selective_scan_kernel" if name == "selective_scan" else \
+        "wkv6_kernel"
+    return f"{stem}I13__nv_bfloat16Li{shape[3]}E"
+
+
+def sass_step_loop(kernel, key):
+    """Opcode counts (NOPs left out) of the hottest loop of the function of
+    ``kernel``'s library whose mangled name holds ``key``: of the loops
+    that ``cuobjdump -sass`` shows (a branch back to an earlier address)
+    and that hold no other, the one with the most FMULs: the steps'
+    arithmetic."""
+    import re
+    from repro_torch.kernels.build import nvcc_path
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(kernel.library_path())],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    code, inside = [], False
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            if inside:
+                break
+            inside = key in m.group(1)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z0-9_]+)(.*)", ln)
+        if inside and m and m.group(2) != "NOP":
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = []
+    for addr, op, rest in code:
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if op == "BRA" and m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    best = None
+    for lo, hi in loops:
+        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
+            continue  # not an innermost loop
+        loop = collections.Counter(o for a, o, _ in code if lo <= a <= hi)
+        if best is None or loop["FMUL"] > best["FMUL"]:
+            best = loop
+    if best is None:
+        raise AssertionError(f"no loop in the SASS of {key}")
+    return best
+
+
+def scan_floors(name, kernel, shape, elems):
+    """Kernel L's or M's floors at ``shape`` (``elems`` (b, t, channel,
+    state or key channel) elements) from the compiled step loop of its
+    bf16 instantiation (``sass_step_loop``), counted an element (its FMULs
+    over SCAN_FMULS): its instructions over LANE_OPS_S (one instruction a
+    clock a lane), its f32 ones likewise, its MUFUs over SFU_OPS_S; and
+    SCAN_OPS operations an element issued one by one (the rounding
+    contract) over LANE_OPS_S; with the instantiation's registers and
+    static shared memory (``ptxas -v``)."""
+    key = scan_key(name, shape)
+    ops = sass_step_loop(kernel, key)
+    per = ops["FMUL"] / SCAN_FMULS[name]
+    if per != SCAN_LOOP_ELEMENTS[name]:
+        raise AssertionError(
+            f"{name}: {ops['FMUL']} FMULs in the step loop's SASS are "
+            f"{per:g} elements at {SCAN_FMULS[name]} an element, not the "
+            f"design's {SCAN_LOOP_ELEMENTS[name]}: {dict(ops)}")
+    every = sum(ops.values()) / per
+    f32 = sum(ops[o] for o in F32_OPCODES) / per
+    mufu = ops["MUFU"] / per
+    res = next((v for k, v in ptxas_summary(kernel).items() if key in k),
+               None)
+    return {"loop_opcodes": dict(ops), "loop_elements": per,
+            "instructions_per_element": every, "f32_per_element": f32,
+            "mufu_per_element": mufu,
+            "contract_floor_ms": SCAN_OPS[name] * elems / LANE_OPS_S * 1e3,
+            "issue_floor_ms": every * elems / LANE_OPS_S * 1e3,
+            "f32_floor_ms": f32 * elems / LANE_OPS_S * 1e3,
+            "sfu_floor_ms": mufu * elems / SFU_OPS_S * 1e3,
+            "ptxas": res}
+
+
 def scan_case(torch, name, tag, shape, seed):
     """Kernel L or M at one shape against its plain version (SCAN_TOL of
     max |plain|, each output) and, at the prefill's and the ragged shape,
@@ -3502,8 +3608,8 @@ def scan_case(torch, name, tag, shape, seed):
 
 def scan_kernel_rows(torch, build):
     """Kernels L and M at each of their shapes (``scan_case``); the grad
-    rule on the card; M's chain alone.  No launch here counts on a path."""
-    from repro_torch.kernels.scans import wkv6
+    rule on the card; their floors at the prefill shape from the compiled
+    code (``scan_floors``).  No launch here counts on a path."""
     rows = {}
     for i, name in enumerate(SCAN_SHAPES):
         fn, _, kernel = scan_fns(name)
@@ -3528,15 +3634,21 @@ def scan_kernel_rows(torch, build):
             "tolerance": f"{SCAN_TOL} x max |plain|", "shapes": cases,
             "grad_refused": refused,
             "ptxas": ptxas_lines(kernel)}
-    cycles = wkv6.wkv6_step_cycles()
-    ghz = sm_clock_ghz()
-    T = SCAN_SHAPES["wkv6"]["prefill"][1]
-    rows["wkv6"].update(chain_cycles_per_step=cycles, chain_clock_ghz=ghz,
-                        chain_floor_ms=T * cycles / ghz / 1e6)
-    log(f"[wkv6] chain alone: {cycles:.1f} SM cycles a step (a dependent "
-        f"sum of 64 products), at {ghz:.3f} GHz a floor of "
-        f"{rows['wkv6']['chain_floor_ms']:.4g} ms for {T} steps; grad-"
-        f"enabled inputs refused on the card: "
+        B, T, c, e = SCAN_SHAPES[name]["prefill"]
+        floors = rows[name]["floors"] = scan_floors(
+            name, kernel, SCAN_SHAPES[name]["prefill"],
+            B * T * c * (e if name == "selective_scan" else e * e))
+        log(f"[{name}] its step loop's SASS ({floors['loop_elements']:g} "
+            f"elements a pass): {floors['instructions_per_element']:.3f} "
+            f"instructions an element ({floors['f32_per_element']:.3f} f32,"
+            f" {floors['mufu_per_element']:.3f} MUFU); floors at the prefill "
+            f"shape: {SCAN_OPS[name]} operations an element issued one by "
+            f"one {floors['contract_floor_ms']:.4g} ms, the loop's "
+            f"instructions {floors['issue_floor_ms']:.4g} ms, its f32 ones "
+            f"{floors['f32_floor_ms']:.4g} ms, the special function units "
+            f"{floors['sfu_floor_ms']:.4g} ms (ms {pre['ms']:.4g}); "
+            f"{floors['ptxas']}")
+    log("grad-enabled inputs refused on the card: "
         + json.dumps({n: r["grad_refused"][:60] for n, r in rows.items()}))
     return rows
 
@@ -7217,9 +7329,9 @@ def ad_relaxed(torch, api):
 
 
 def ad_scans(torch, repeat=2):
-    """Kernels L and M at their prefill shapes, where the tree has them
-    (None where it has not): event ms (``repeat`` readings of 10 calls)
-    and device ms, and the sha256 of each output."""
+    """Kernels L and M where the tree has them (None where it has not): at
+    each of their shapes, event ms (``repeat`` readings of 10 calls) and
+    device ms, and the sha256 of each output."""
     import hashlib
     try:
         from repro_torch.kernels.scans import selective_scan, wkv6  # noqa
@@ -7228,18 +7340,18 @@ def ad_scans(torch, repeat=2):
     out = {}
     for i, name in enumerate(SCAN_SHAPES):
         fn = scan_fns(name)[0]
-        ops = scan_operands(torch, name, SCAN_SHAPES[name]["prefill"],
-                            240 + 10 * i)
-        got = fn(*ops)
-        out[name] = {
-            "shape": list(SCAN_SHAPES[name]["prefill"]),
-            "ms": [cuda_ms(torch, lambda: fn(*ops), 10)
-                   for _ in range(repeat)],
-            "device_ms": device_ms(torch, lambda: fn(*ops),
-                                   f"{name}_kernel", repeat=10),
-            "sha256": [hashlib.sha256(g.cpu().numpy().tobytes()).hexdigest()
-                       for g in got]}
-        log(f"[ad] {name}: " + json.dumps(out[name]))
+        for j, (tag, shape) in enumerate(SCAN_SHAPES[name].items()):
+            ops = scan_operands(torch, name, shape, 240 + 10 * i + j)
+            got = fn(*ops)
+            out[f"{name} {tag}"] = {
+                "shape": list(shape),
+                "ms": [cuda_ms(torch, lambda: fn(*ops), 10)
+                       for _ in range(repeat)],
+                "device_ms": device_ms(torch, lambda: fn(*ops),
+                                       f"{name}_kernel", repeat=10),
+                "sha256": [hashlib.sha256(g.cpu().numpy().tobytes())
+                           .hexdigest() for g in got]}
+            log(f"[ad] {name} {tag}: " + json.dumps(out[f"{name} {tag}"]))
     return out
 
 
@@ -7257,8 +7369,8 @@ def ad_main(torch) -> int:
     Study shape and A's four variants, I and H at phase 15's shapes, H
     with its chain probe) and ``ad_relaxed`` (J and K forward and adjoint
     at the design's shapes, their forwards' digests, and kernel A's
-    adjoint where the tree has it) and ``ad_scans`` (L and M at their
-    prefill shapes, where the tree has them).  Prints one ``{"ad": ...}``
+    adjoint where the tree has it) and ``ad_scans`` (L and M at each of
+    phase 24's shapes, where the tree has them).  Prints one ``{"ad": ...}``
     JSON line."""
     from repro_torch import api, control
     from repro_torch.kernels import build

@@ -183,6 +183,13 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
+def aligned16(t):
+    """``t`` contiguous and 16-byte aligned (a copy where it is not), for a
+    kernel that moves 16 bytes at a time."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

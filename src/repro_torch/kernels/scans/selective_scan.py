@@ -15,7 +15,9 @@ it returns ``ys [B, T, di]`` and ``h_last [B, di, ds]``, both f32.
 On a CUDA tensor it launches the CUDA kernel (``csrc/selective_scan.cu``)
 and counts the launch; on a CPU tensor it runs ``selective_scan_plain``, a
 loop over T in torch ops, the same arithmetic, which autograd
-differentiates; any other device raises.  The kernel has no backward yet:
+differentiates; any other device raises.  The kernel takes d_state 8 and
+16, and in bf16 an even d_inner (its narrowest copy, 4 bytes, holds two
+channels; Mamba's d_inner is expand x d_model).  It has no backward yet:
 on the card, inputs that require a gradient raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -24,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, ptr, stream_of
+from repro_torch.kernels.build import CudaKernel, aligned16, ptr, stream_of
 
 SELECTIVE_SCAN_KERNEL = CudaKernel(
     "scans/csrc/selective_scan.cu", "selective_scan_launch",
@@ -33,6 +35,7 @@ SELECTIVE_SCAN_KERNEL = CudaKernel(
 # the state sizes the kernel is built for
 D_STATES = (8, 16)
 _DTYPES = (torch.float32, torch.bfloat16)
+MAX_ROWS = 65535  # batch rows: the grid's second dimension
 
 
 def _check(xi, dt, Bc, Cc, A, h0) -> None:
@@ -86,20 +89,11 @@ def selective_scan(xi, dt, Bc, Cc, A, h0):
         raise ValueError(f"selective_scan: tensors on {xi.device}: the "
                          "kernel takes CUDA tensors, the plain version CPU "
                          "ones")
+    kernel_check(xi, dt, Bc, Cc, A, h0)
     B, T, di = xi.shape
     ds = A.shape[-1]
-    if ds not in D_STATES:
-        raise ValueError(f"selective_scan: d_state {ds} is not one of "
-                         f"{D_STATES}")
-    if xi.dtype not in _DTYPES or Bc.dtype != xi.dtype \
-            or Cc.dtype != xi.dtype:
-        raise ValueError(f"selective_scan: xi, Bc, Cc must share one of "
-                         f"{_DTYPES}; got {xi.dtype}, {Bc.dtype}, "
-                         f"{Cc.dtype}")
-    if any(t.dtype != torch.float32 for t in (dt, A, h0)):
-        raise ValueError(f"selective_scan: dt, A, h0 must be f32; got "
-                         f"{dt.dtype}, {A.dtype}, {h0.dtype}")
-    xi, dt, Bc, Cc, A, h0 = (t.contiguous() for t in (xi, dt, Bc, Cc, A, h0))
+    xi, dt, Bc, Cc = (aligned16(t) for t in (xi, dt, Bc, Cc))
+    A, h0 = A.contiguous(), h0.contiguous()
     ys = torch.empty((B, T, di), dtype=torch.float32, device=xi.device)
     h_last = torch.empty((B, di, ds), dtype=torch.float32, device=xi.device)
     if T == 0:
@@ -110,3 +104,26 @@ def selective_scan(xi, dt, Bc, Cc, A, h0):
         ptr(h_last), B, T, di, ds, int(xi.dtype == torch.bfloat16),
         stream_of(xi))
     return ys, h_last
+
+
+def kernel_check(xi, dt, Bc, Cc, A, h0) -> None:
+    """Refuses, on any device, the dtypes and shapes the kernel does not
+    take (the shapes' agreement is ``_check``'s)."""
+    B, _, di = xi.shape
+    if xi.dtype not in _DTYPES or Bc.dtype != xi.dtype \
+            or Cc.dtype != xi.dtype:
+        raise ValueError(f"selective_scan: xi, Bc, Cc must share one of "
+                         f"{_DTYPES}; got {xi.dtype}, {Bc.dtype}, "
+                         f"{Cc.dtype}")
+    if any(t.dtype != torch.float32 for t in (dt, A, h0)):
+        raise ValueError(f"selective_scan: dt, A, h0 must be f32; got "
+                         f"{dt.dtype}, {A.dtype}, {h0.dtype}")
+    if A.shape[-1] not in D_STATES:
+        raise ValueError(f"selective_scan: d_state {A.shape[-1]} is not one "
+                         f"of {D_STATES}")
+    if xi.dtype == torch.bfloat16 and di % 2:
+        raise ValueError(f"selective_scan: d_inner {di} must be even in "
+                         "bf16 (a 4-byte copy holds two channels)")
+    if B > MAX_ROWS:
+        raise ValueError(f"selective_scan: {B} batch rows, over {MAX_ROWS}")
+

@@ -15,8 +15,10 @@ f32; it returns ``y [B, T, H, hd]`` and ``S_last [B, H, hd, hd]``, both f32.
 On a CUDA tensor it launches the CUDA kernel (``csrc/wkv6.cu``) and counts
 the launch; on a CPU tensor it runs ``wkv6_plain``, a loop over T in torch
 ops, the same arithmetic, which autograd differentiates; any other device
-raises.  The kernel has no backward yet: on the card, inputs that require a
-gradient raise ``NotImplementedError``.
+raises.  The kernel takes head dims 8, 16, 32 and 64 (a row of r under 16
+bytes would need copies narrower than its 16-byte ``cp.async``; the zoo's
+head dims are 64 and, reduced, 16).  It has no backward yet: on the card,
+inputs that require a gradient raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,13 +26,14 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, ptr, stream_of
+from repro_torch.kernels.build import CudaKernel, aligned16, ptr, stream_of
 
 WKV6_KERNEL = CudaKernel(
     "scans/csrc/wkv6.cu", "wkv6_launch",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
-MAX_HEAD_DIM = 64
+# the head dims the kernel is built for
+HEAD_DIMS = (8, 16, 32, 64)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -80,17 +83,10 @@ def wkv6(r, k, v, w, u, S0):
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: tensors on {r.device}: the kernel takes "
                          "CUDA tensors, the plain version CPU ones")
+    kernel_check(r, k, v, w, u, S0)
     B, T, H, hd = r.shape
-    if hd > MAX_HEAD_DIM or hd & (hd - 1):
-        raise ValueError(f"wkv6: head_dim {hd} must be a power of two up to "
-                         f"{MAX_HEAD_DIM}")
-    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
-        raise ValueError(f"wkv6: r, k, v must share one of {_DTYPES}; got "
-                         f"{r.dtype}, {k.dtype}, {v.dtype}")
-    if any(t.dtype != torch.float32 for t in (w, u, S0)):
-        raise ValueError(f"wkv6: w, u, S0 must be f32; got {w.dtype}, "
-                         f"{u.dtype}, {S0.dtype}")
-    r, k, v, w, u, S0 = (t.contiguous() for t in (r, k, v, w, u, S0))
+    r, k, v, w = (aligned16(t) for t in (r, k, v, w))
+    u, S0 = u.contiguous(), S0.contiguous()
     y = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device)
     S_last = torch.empty((B, H, hd, hd), dtype=torch.float32,
                          device=r.device)
@@ -103,18 +99,16 @@ def wkv6(r, k, v, w, u, S0):
     return y, S_last
 
 
-def wkv6_step_cycles(reps: int = 4096, device="cuda") -> float:
-    """SM cycles of one step's chain alone (a dependent sum of 64
-    products), from the library's probe ``wkv6_step_cycles``; launches
-    nothing that ``launches`` counts."""
-    vals = torch.rand(128, device=device)
-    cycles = torch.zeros(1, dtype=torch.int64, device=device)
-    sink = torch.zeros(1, device=device)
-    err = WKV6_KERNEL.call(
-        "wkv6_step_cycles", [ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 3, ptr(vals), reps, ptr(cycles), ptr(sink),
-        stream_of(vals))
-    if err:
-        raise RuntimeError(f"wkv6_step_cycles: CUDA error {err}")
-    torch.cuda.synchronize(device)
-    return cycles.item() / reps
+def kernel_check(r, k, v, w, u, S0) -> None:
+    """Refuses, on any device, the dtypes and head dims the kernel does not
+    take (shapes are ``_check``'s)."""
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"wkv6: r, k, v must share one of {_DTYPES}; got "
+                         f"{r.dtype}, {k.dtype}, {v.dtype}")
+    if any(t.dtype != torch.float32 for t in (w, u, S0)):
+        raise ValueError(f"wkv6: w, u, S0 must be f32; got {w.dtype}, "
+                         f"{u.dtype}, {S0.dtype}")
+    if r.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"wkv6: head_dim {r.shape[-1]} is not one of "
+                         f"{HEAD_DIMS}")
+
